@@ -1,4 +1,5 @@
-"""Drive dtt_torch's video-mode inference on one CUDA card and check it.
+"""Drive dtt_torch's video-mode inference and training on one CUDA card
+and check them.
 
 Run from the repository root, with one card visible:
 
@@ -9,16 +10,23 @@ Phases, in order; any failure ends the script with a non-zero exit:
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build every kernel from dtt_torch/ops/csrc (one nvcc per source, all
    started together);
-3. per kernel, at the main path's shapes in bfloat16: the kernel against
-   its plain PyTorch version (stated tolerance), and CUDA-event times of
-   the kernel, the plain version and, where one exists, one PyTorch call
-   computing the same function, beside the least time the card could take;
-4. a small reference: the tiny test config in float32 through the kernels
-   on the card against the plain versions on the CPU;
-5. the main path: ``Config()`` at full width (ResNet-101, 608x1088, bf16,
+3. per kernel (correlation and PSRoI pool, forward and backward), at the
+   shapes its path gives it, in bfloat16: the kernel against its plain
+   PyTorch version (stated tolerance), and CUDA-event times of the kernel,
+   the plain version and, where one exists, one PyTorch call computing the
+   same function, beside the least time the card could take;
+4. small references: the tiny test config in float32 through the kernels
+   on the card against the plain versions on the CPU, for the video path
+   and for one train step (same weights, same injected draws);
+5. the video path: ``Config()`` at full width (ResNet-101, 608x1088, bf16,
    31 classes), random flax-layout weights from a numpy seed carried over
    by ``from_jax_params``, and ``evaluate_snippet_video`` over a uint8
-   snippet of several chunks. Kernel launch counts are read from this run.
+   snippet of several chunks, with its launch counts and stage split;
+6. the training path: ``Config()`` at full width, the same weights,
+   ``create_train_state``/``make_train_step`` on synthetic uint8 pairs:
+   one warm-up step and several timed ones, its launch counts (read from
+   the timed run), checks of the losses, the frozen and trained leaves
+   and a checkpoint round trip, and one step split into stages.
 
 It prints a JSON line of the kernels' numbers before the last line, and
 ends with ``{"ok": true, "device": {...}}``. It needs no network and runs
@@ -30,6 +38,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,14 +46,20 @@ import torch
 
 from dtt_torch.core.anchors import grid_anchors_for
 from dtt_torch.core.config import Config
+from dtt_torch.data.synthetic import synthetic_batch
 from dtt_torch.eval.inference import evaluate_snippet_video, make_video_step
 from dtt_torch.models.dnt import (Detections, cosine_prep,
-                                  decode_detections_batched,
+                                  decode_detections_batched, is_frozen,
                                   normalize_device_images)
 from dtt_torch.models.rpn import proposal_layer, softmax
+from dtt_torch.models.targets import sample_draws
 from dtt_torch.ops import _build
 from dtt_torch.ops import correlation as corr_ops
 from dtt_torch.ops import psroi as psroi_ops
+from dtt_torch.train import losses as train_losses
+from dtt_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from dtt_torch.train.trainer import (apply_gradients, batch_to_device,
+                                     create_train_state, make_train_step)
 from dtt_torch.utils.params import from_jax_params, init_jax_params
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
@@ -55,6 +70,14 @@ FRAMES_PER_CHUNK = 17        # 16 pairs per chunk
 SNIPPET_FRAMES = 40          # 3 chunks: 16 + 16 + 8 pairs
 CORR_TOL = 8e-3              # bf16 outputs in [-1, 1]: one bf16 ulp
 PSROI_TOL = 1e-3             # f32 sums of the same bf16 values, other order
+BWD_REL_TOL = 8e-3           # bf16 gradients: one bf16 ulp of the largest
+TRAIN_STEPS = 6              # timed full-width train steps (after 1 warm-up)
+TRAIN_REF_LOSS_TOL = 1e-4    # tiny f32 train step, card vs CPU, losses
+TRAIN_REF_PARAM_TOL = 1e-5   # ... and the updated parameters (lr 1e-3)
+KERNELS = {"correlation": corr_ops.correlation_cuda,
+           "correlation_bwd": corr_ops.correlation_bwd_cuda,
+           "psroi_direct": psroi_ops.psroi_sums_cuda,
+           "psroi_direct_bwd": psroi_ops.psroi_bwd_cuda}
 
 
 def log(msg: str) -> None:
@@ -146,6 +169,127 @@ def phase_correlation(cfg: Config) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def draw_rois(rng: np.random.RandomState, b: int, n: int, hh: int,
+              ww: int) -> torch.Tensor:
+    """(b, n, 4) boxes of 16-600 x 16-400 pixels on an hh x ww canvas, on
+    the card."""
+    x1 = rng.uniform(0, ww - 32, (b, n))
+    y1 = rng.uniform(0, hh - 32, (b, n))
+    rois = np.stack([x1, y1,
+                     np.minimum(x1 + rng.uniform(16, 600, (b, n)), ww - 1),
+                     np.minimum(y1 + rng.uniform(16, 400, (b, n)), hh - 1)],
+                    axis=-1).astype(np.float32)
+    return torch.from_numpy(rois).cuda()
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def phase_correlation_bwd(cfg: Config) -> dict:
+    """The correlation backward of one training pair at the 3 scales:
+    (1, 38, 68, 512|1024|1024) bf16 cosine-prepared maps."""
+    t = cfg.model.track
+    h, w = cfg.input.canvas_height // 16, cfg.input.canvas_width // 16
+    d, s = t.max_displacement, t.stride
+    nd2 = corr_ops.num_corr_channels(d, s)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = []
+    for c in (512, 1024, cfg.model.reduced_channels):
+        x = cosine_prep(torch.randn(2, h, w, c, device="cuda",
+                                    generator=g).to(torch.bfloat16))
+        go = torch.randn(1, h, w, nd2, device="cuda",
+                         generator=g).to(torch.bfloat16)
+        cases.append((x[:1].contiguous(), x[1:].contiguous(), go))
+    err = 0.0
+    for f1, f2, go in cases:
+        got = corr_ops.correlation_bwd_cuda(f1, f2, go, d, s)
+        torch.cuda.synchronize()
+        want = corr_ops.correlation_bwd_plain(f1, f2, go, d, s)
+        for x, y in zip(got, want):
+            e = (x.float() - y.float()).abs().max().item()
+            tol = BWD_REL_TOL * y.float().abs().max().item()
+            if not e <= tol:
+                raise AssertionError(f"correlation backward kernel vs plain:"
+                                     f" max abs err {e} > {tol}")
+            err = max(err, e)
+    ms = time_ms(lambda: [corr_ops.correlation_bwd_cuda(*c, d, s)
+                          for c in cases], iters=20)
+    plain_ms = time_ms(lambda: [corr_ops.correlation_bwd_plain(*c, d, s)
+                                for c in cases], iters=3, warmup=1)
+    nbytes = sum(4 * f1.numel() * 2 + go.numel() * 2 for f1, _, go in cases)
+    ops = sum(2 * 2 * nd2 * f1.numel() for f1, _, _ in cases)
+    bound_ms, bound_by = bound(nbytes, ops)
+    log(f"correlation_bwd: 1 pair x 3 scales {[tuple(c[0].shape) for c in cases]}"
+        f" bf16 d={d} s={s}: max_abs_err {err:.3g} (tol {BWD_REL_TOL} of the "
+        f"largest gradient), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library: none (no single PyTorch call computes it), bound_us "
+        f"{bound_ms * 1e3:.1f} ({bound_by}, {nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP)")
+    return {"name": "correlation_bwd", "route": "cuda",
+            "source": "dtt_torch/ops/csrc/correlation.cu",
+            "replaces": "dtt/ops/correlation.py:337 (XLA AD of correlation_mm;"
+                        " no TPU kernel)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_psroi_bwd(cfg: Config) -> dict:
+    """The pool backward of one training pair's cls maps: maps
+    (2, 38, 68, 49*31) bf16, N = 330 RoIs (300 proposals + 30 gt)."""
+    m = cfg.model
+    k, d = m.roi.ps_grid, m.num_classes
+    b, n = 2, m.rpn.post_nms_top_n_train + cfg.input.max_gt_boxes
+    hh, ww = cfg.input.canvas_height, cfg.input.canvas_width
+    h, w = hh // 16, ww // 16
+    bounds = psroi_ops.roi_bounds(draw_rois(np.random.RandomState(3), b, n,
+                                            hh, ww),
+                                  1.0 / m.anchors.feat_stride, k, h, w)
+    area = psroi_ops.bin_areas(*bounds)[..., None]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    go = torch.randn(b, n, k, k, d, device="cuda", generator=g)
+    ghat = torch.where(area > 0, go / area.clamp(min=1.0), 0.0).contiguous()
+    bf16 = torch.bfloat16
+    got = psroi_ops.psroi_bwd_cuda(ghat, *bounds, h, w, bf16)
+    torch.cuda.synchronize()
+    want = psroi_ops.psroi_bwd_plain(ghat, *bounds, h, w, bf16).float()
+    err = (got.float() - want).abs().max().item()
+    tol = BWD_REL_TOL * want.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"psroi backward kernel vs plain: max abs err "
+                             f"{err} > {tol}")
+    ms = time_ms(lambda: psroi_ops.psroi_bwd_cuda(ghat, *bounds, h, w, bf16),
+                 iters=20)
+    plain_ms = time_ms(lambda: psroi_ops.psroi_bwd_plain(ghat, *bounds, h, w,
+                                                         bf16),
+                       iters=3, warmup=1)
+    r, c = (x.to(bf16) for x in psroi_ops.interval_indicators(*bounds, h, w))
+    gb = ghat.to(bf16)
+    library = lambda: torch.einsum("bnpy,bnpqd,bnqx->byxpqd", r, gb, c)
+    lib_err = (library().reshape(got.shape).float() - want).abs().max().item()
+    library_ms = time_ms(library, iters=3, warmup=1)
+    adds = area.sum().item() * d
+    nbytes = got.numel() * 2 + ghat.numel() * 4 + 4 * bounds[0].numel() * 4
+    bound_ms, bound_by = bound(nbytes, adds)
+    log(f"psroi_direct_bwd: ghat {tuple(ghat.shape)} f32 -> maps "
+        f"{tuple(got.shape)} bf16, k={k}: max_abs_err {err:.3g} (tol "
+        f"{BWD_REL_TOL} of the largest, {tol:.3g}), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library einsum {library_ms:.4f} ms (bf16, max abs"
+        f" diff {lib_err:.3g}), bound_us {bound_ms * 1e3:.1f} ({bound_by}, "
+        f"{nbytes / 1e6:.1f} MB, {adds / 1e9:.3f} G adds)")
+    return {"name": "psroi_direct_bwd", "route": "cuda",
+            "source": "dtt_torch/ops/csrc/psroi.cu",
+            "replaces": "dtt/ops/psroi.py:479",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def phase_psroi(cfg: Config) -> dict:
     """The direct pool of one chunk's fused maps at its proposals."""
     m = cfg.model
@@ -157,14 +301,7 @@ def phase_psroi(cfg: Config) -> dict:
     g = torch.Generator(device="cuda").manual_seed(2)
     maps = torch.randn(b, h, w, k * k * d, device="cuda",
                        generator=g).to(torch.bfloat16)
-    rng = np.random.RandomState(2)
-    x1 = rng.uniform(0, ww - 32, (b, n))
-    y1 = rng.uniform(0, hh - 32, (b, n))
-    rois = np.stack([x1, y1,
-                     np.minimum(x1 + rng.uniform(16, 600, (b, n)), ww - 1),
-                     np.minimum(y1 + rng.uniform(16, 400, (b, n)), hh - 1)],
-                    axis=-1).astype(np.float32)
-    rois = torch.from_numpy(rois).cuda()
+    rois = draw_rois(np.random.RandomState(2), b, n, hh, ww)
     bounds = psroi_ops.roi_bounds(rois, 1.0 / m.anchors.feat_stride, k, h, w)
     got = psroi_ops.psroi_sums_cuda(maps, *bounds)
     torch.cuda.synchronize()
@@ -233,19 +370,10 @@ def phase_reference() -> None:
         f"max |d box| {np.abs(gb - cb).max():.3g}")
 
 
-def phase_stages(cfg: Config, model, frames: np.ndarray) -> None:
-    """One chunk's time by stage, the step's stages run one by one with a
-    synchronize after each: host wall time (launches included) and device
-    time between CUDA events."""
-    mcfg, ecfg = cfg.model, cfg.eval
-    h, w = cfg.input.canvas_height, cfg.input.canvas_width
-    anchors = torch.from_numpy(grid_anchors_for(mcfg.anchors, h // 16,
-                                                w // 16)).cuda()
-    im_hw = torch.tensor([h, w], dtype=torch.float32, device="cuda")
-    chunk = torch.from_numpy(frames[:FRAMES_PER_CHUNK]).cuda()
-    k = mcfg.roi.ps_grid
-    dc = mcfg.num_classes
-    db = 8 if mcfg.roi.class_agnostic else 4 * dc
+def stage_timer():
+    """(stage, times): ``stage(name, fn)`` runs fn after a synchronize and
+    synchronizes after it, recording host wall ms (launches included) and
+    device ms between CUDA events into ``times[name]``."""
     times: dict = {}
 
     def stage(name, fn):
@@ -259,6 +387,30 @@ def phase_stages(cfg: Config, model, frames: np.ndarray) -> None:
         times[name] = ((time.perf_counter() - t0) * 1e3,
                        ev[0].elapsed_time(ev[1]))
         return out
+
+    return stage, times
+
+
+def log_stages(what: str, times: dict) -> None:
+    parts = ", ".join(f"{n} {wall:.2f} ms wall / {dev:.2f} ms device"
+                      for n, (wall, dev) in times.items())
+    total = sum(wall for wall, _ in times.values())
+    log(f"stages ({what}, synchronized): {parts}; sum {total:.2f} ms wall")
+
+
+def phase_stages(cfg: Config, model, frames: np.ndarray) -> None:
+    """One chunk's time by stage, the step's stages run one by one with a
+    synchronize after each."""
+    mcfg, ecfg = cfg.model, cfg.eval
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    anchors = torch.from_numpy(grid_anchors_for(mcfg.anchors, h // 16,
+                                                w // 16)).cuda()
+    im_hw = torch.tensor([h, w], dtype=torch.float32, device="cuda")
+    chunk = torch.from_numpy(frames[:FRAMES_PER_CHUNK]).cuda()
+    k = mcfg.roi.ps_grid
+    dc = mcfg.num_classes
+    db = 8 if mcfg.roi.class_agnostic else 4 * dc
+    stage, times = stage_timer()
 
     with torch.inference_mode():
         for _ in range(2):                  # report the second pass
@@ -281,23 +433,18 @@ def phase_stages(cfg: Config, model, frames: np.ndarray) -> None:
                 mcfg, det, im_hw[0], im_hw[1], ecfg.score_thresh,
                 ecfg.nms_thresh, ecfg.max_per_class,
                 track_deltas=pooled[..., dc + db:]))
-    parts = ", ".join(f"{n} {wall:.2f} ms wall / {dev:.2f} ms device"
-                      for n, (wall, dev) in times.items())
-    total = sum(wall for wall, _ in times.values())
-    log(f"stages (one {FRAMES_PER_CHUNK}-frame chunk, synchronized): {parts}; "
-        f"sum {total:.2f} ms wall")
+    log_stages(f"one {FRAMES_PER_CHUNK}-frame chunk", times)
 
 
-def phase_main_path(cfg: Config, card: str) -> dict:
+def phase_main_path(cfg: Config, card: str, tree: dict) -> None:
+    """The video path at full width, with the forward kernels' launches
+    counted over one snippet."""
     m = cfg.model
-    t0 = time.perf_counter()
-    tree = init_jax_params(m, seed=0)
     model = from_jax_params(tree, m, device="cuda")
-    del tree
-    log(f"main path: {m.backbone} {cfg.input.canvas_height}x"
-        f"{cfg.input.canvas_width} {m.dtype}, {m.num_classes} classes, "
-        f"k={m.roi.ps_grid}, {m.rpn.post_nms_top_n_test} proposals; weights "
-        f"from a numpy seed in {time.perf_counter() - t0:.1f} s")
+    log(f"video path: {m.backbone} {cfg.input.canvas_height}x"
+        f"{cfg.input.canvas_width} {m.dtype} compute, float32 parameters, "
+        f"{m.num_classes} classes, k={m.roi.ps_grid}, "
+        f"{m.rpn.post_nms_top_n_test} proposals")
     rng = np.random.RandomState(0)
     frames = rng.randint(0, 256, (SNIPPET_FRAMES, cfg.input.canvas_height,
                                   cfg.input.canvas_width, 3)).astype(np.uint8)
@@ -307,19 +454,17 @@ def phase_main_path(cfg: Config, card: str) -> dict:
     torch.cuda.synchronize()                        # warm-up: 2 chunks
 
     torch.cuda.reset_peak_memory_stats()
-    corr_ops.correlation_cuda.launches = 0
-    psroi_ops.psroi_sums_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     boxes, scores, valid, tracked = evaluate_snippet_video(
         cfg, step, frames, im_hw=im_hw)
     dt = time.perf_counter() - t0
-    launches = {"correlation": corr_ops.correlation_cuda.launches,
-                "psroi_direct": psroi_ops.psroi_sums_cuda.launches}
-    log(f"main path launches: {launches}")
-    for name, count in launches.items():
-        if count < 1:
+    launches = read_launches()
+    log(f"video path launches: {launches}")
+    for name in ("correlation", "psroi_direct"):
+        if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+                                 "video path")
 
     c, t, mm = m.num_classes - 1, SNIPPET_FRAMES, cfg.eval.max_per_class
     shapes = {"boxes": (boxes.shape, (c, t, mm, 4)),
@@ -340,12 +485,174 @@ def phase_main_path(cfg: Config, card: str) -> dict:
     for x in (boxes, tracked):
         if x[..., 2].max() > im_hw[1] - 1 or x[..., 3].max() > im_hw[0] - 1:
             raise AssertionError("boxes reach past the true image extent")
-    log(f"main path: {t} frames in chunks of {FRAMES_PER_CHUNK}: "
+    log(f"video path: {t} frames in chunks of {FRAMES_PER_CHUNK}: "
         f"{dt * 1e3:.1f} ms, {t / dt:.2f} pairs/s on {card}; "
         f"{int(valid.sum())} valid detections; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase_stages(cfg, model, frames)
+
+
+def train_tiny_config() -> Config:
+    """The tiny training config of the CPU tests (tests/test_train.py)."""
+    cfg = Config()
+    m = cfg.model
+    return cfg.replace(
+        model=m.replace(backbone="tiny", dtype="float32", frozen_stages=0,
+                        reduced_channels=64, num_classes=4,
+                        anchors=m.anchors.replace(scales=(1.0, 2.0, 4.0)),
+                        rpn=m.rpn.replace(channels=32, pre_nms_top_n_train=128,
+                                          post_nms_top_n_train=32),
+                        roi=m.roi.replace(ps_grid=3, batch_size=16),
+                        track=m.track.replace(max_displacement=2, stride=1)),
+        train=cfg.train.replace(learning_rate=1e-3, ohem_top_k=16,
+                                lr_decay_steps=(10**6,)),
+        input=cfg.input.replace(canvas_height=64, canvas_width=96,
+                                max_gt_boxes=4))
+
+
+def phase_train_reference() -> None:
+    """Tiny config, float32: one train step through the kernels on the
+    card against one through the plain versions on the CPU, from the same
+    weights, batch and draws. Losses within TRAIN_REF_LOSS_TOL, updated
+    parameters within TRAIN_REF_PARAM_TOL."""
+    cfg = train_tiny_config()
+    tree = init_jax_params(cfg.model, seed=3)
+    batch = synthetic_batch(np.random.RandomState(4), 2, 64, 96, 4, 4,
+                            cfg.input.pixel_means, uint8=True)
+    batch["im_size"][1] = (56, 80)
+    draws = sample_draws(cfg, 2, torch.Generator().manual_seed(5))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, state = create_train_state(cfg, dev, tree=tree)
+        step = make_train_step(cfg, model, (4, 6), dev)
+        state, metrics = step(state, batch,
+                              type(draws)(*(x.to(dev) for x in draws)))
+        out[dev] = ({k: v.item() for k, v in metrics.items()},
+                    {k: v.cpu() for k, v in model.state_dict().items()})
+    (cpu_loss, cpu_params), (gpu_loss, gpu_params) = out["cpu"], out["cuda"]
+    loss_err = max(abs(gpu_loss[k] - cpu_loss[k]) for k in cpu_loss)
+    param_err = max((gpu_params[k] - cpu_params[k]).abs().max().item()
+                    for k in cpu_params)
+    if not (loss_err <= TRAIN_REF_LOSS_TOL and param_err <= TRAIN_REF_PARAM_TOL):
+        raise AssertionError(f"train reference, card vs CPU: losses "
+                             f"{gpu_loss} vs {cpu_loss}, max param diff "
+                             f"{param_err}")
+    log(f"train reference: tiny config f32, one step, card vs CPU: max |d "
+        f"loss| {loss_err:.3g} (tol {TRAIN_REF_LOSS_TOL}), max |d param| "
+        f"{param_err:.3g} (tol {TRAIN_REF_PARAM_TOL}); total "
+        f"{gpu_loss['total']:.6f}")
+
+
+def phase_train(cfg: Config, tree: dict, card: str) -> dict:
+    """The training path at full width: one warm-up step, then
+    TRAIN_STEPS timed steps whose kernel launches are counted; checks, a
+    checkpoint round trip and one step split into stages."""
+    m, t = cfg.model, cfg.train
+    b = t.batch_size_per_chip
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    model, state = create_train_state(cfg, "cuda", tree=tree)
+    step = make_train_step(cfg, model, (h // 16, w // 16))
+    rng = np.random.RandomState(t.seed)
+    gen = torch.Generator(device="cuda").manual_seed(t.seed + 1)
+    batches = [synthetic_batch(rng, b, h, w, m.num_classes,
+                               cfg.input.max_gt_boxes, cfg.input.pixel_means,
+                               uint8=True,
+                               num_objects=cfg.input.synthetic_objects)
+               for _ in range(TRAIN_STEPS + 2)]
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    log(f"train path: {m.backbone} {h}x{w} {m.dtype} compute, float32 "
+        f"parameters, {m.num_classes} classes, k={m.roi.ps_grid}, "
+        f"{m.rpn.pre_nms_top_n_train}/{m.rpn.post_nms_top_n_train} train "
+        f"proposals, OHEM {t.ohem} top-{t.ohem_top_k} NMS "
+        f"{t.ohem_nms_thresh}, batch {b} pair(s), frozen_stages "
+        f"{m.frozen_stages}")
+    t0 = time.perf_counter()
+    state, metrics = step(state, batches[0], sample_draws(cfg, b, gen, "cuda"))
+    torch.cuda.synchronize()
+    log(f"train warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        state, metrics = step(state, batches[1 + i],
+                              sample_draws(cfg, b, gen, "cuda"))
+        history.append(metrics)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"train path launches ({TRAIN_STEPS} steps): {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "train path")
+    for metrics in history:
+        values = {k: v.item() for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"non-finite loss: {values}")
+        if not (values["rpn_cls"] > 0 and values["rfcn_cls"] > 0):
+            raise AssertionError(f"zero classification loss: {values}")
+    after = model.state_dict()
+    moved = [k for k in initial if not torch.equal(initial[k], after[k])]
+    frozen_moved = [k for k in moved if is_frozen(k, m.frozen_stages)]
+    if frozen_moved:
+        raise AssertionError(f"frozen leaves changed: {frozen_moved[:5]}")
+    for prefix in ("backbone.layer2.", "backbone.layer3.", "backbone.layer4.",
+                   "rpn.", "reduce.", "cls_maps.", "bbox_maps.",
+                   "track_maps."):
+        if not any(k.startswith(prefix) for k in moved):
+            raise AssertionError(f"no leaf of {prefix} changed")
+    ms = dt * 1e3 / TRAIN_STEPS
+    log(f"train path: {TRAIN_STEPS} steps in {dt * 1e3:.1f} ms: {ms:.1f} "
+        f"ms/step, {TRAIN_STEPS * b / dt:.3f} pairs/s on {card}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{len(moved)} of {len(initial)} leaves moved, none frozen; last "
+        f"losses {json.dumps({k: round(v, 4) for k, v in values.items()})}")
+    del initial, after
+
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint(d, state, cfg)
+        _, fresh = create_train_state(cfg, "cuda", tree=tree)
+        fresh = restore_checkpoint(path, fresh)
+    same = fresh.step == state.step and all(
+        torch.equal(v, state.model.state_dict()[k])
+        for k, v in fresh.model.state_dict().items())
+    bufs = [s_["momentum_buffer"] for s_ in state.optimizer.state.values()]
+    fresh_bufs = [s_["momentum_buffer"]
+                  for s_ in fresh.optimizer.state.values()]
+    same = same and len(bufs) == len(fresh_bufs) > 0 and all(
+        torch.equal(x, y) for x, y in zip(bufs, fresh_bufs))
+    if not same:
+        raise AssertionError("checkpoint did not restore bitwise")
+    log(f"train checkpoint: step {fresh.step}, {len(bufs)} momentum buffers "
+        "and every parameter restored bitwise")
+    del fresh
+    phase_train_stages(cfg, state, batches[-1], gen)
     return launches
+
+
+def phase_train_stages(cfg: Config, state, batch: dict, gen) -> None:
+    """One train step's time by stage, run one by one with a synchronize
+    after each (the second of two passes is reported)."""
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    anchors = torch.from_numpy(grid_anchors_for(cfg.model.anchors, h // 16,
+                                                w // 16)).cuda()
+    batch = batch_to_device(batch, torch.device("cuda"))
+    draws = sample_draws(cfg, cfg.train.batch_size_per_chip, gen, "cuda")
+    stage, times = stage_timer()
+    for _ in range(2):
+        state.optimizer.zero_grad(set_to_none=True)
+        feats, track = stage("forward trunk+heads+corr", lambda:
+                             train_losses.forward_heads(cfg, state.model,
+                                                        batch))
+        asg = stage("targets+proposals", lambda: train_losses.assign_targets(
+            cfg, feats, anchors, batch, draws))
+        lb = stage("pools+losses", lambda: train_losses.head_losses(
+            cfg, feats, track, asg))
+        stage("backward", lambda: lb.total.backward())
+        state = stage("optimizer", lambda: apply_gradients(cfg, state))
+    log_stages("one train step", times)
 
 
 def main() -> int:
@@ -359,9 +666,16 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
     phase_build()
     cfg = Config()
-    kernels = [phase_correlation(cfg), phase_psroi(cfg)]
+    kernels = [phase_correlation(cfg), phase_correlation_bwd(cfg),
+               phase_psroi(cfg), phase_psroi_bwd(cfg)]
     phase_reference()
-    launches = phase_main_path(cfg, card)
+    phase_train_reference()
+    t0 = time.perf_counter()
+    tree = init_jax_params(cfg.model, seed=0)
+    log(f"full-width weights from a numpy seed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase_main_path(cfg, card, tree)
+    launches = phase_train(cfg, tree, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

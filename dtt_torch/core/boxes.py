@@ -111,13 +111,15 @@ def decode_boxes(boxes: torch.Tensor, deltas: torch.Tensor,
 def clip_boxes(boxes: torch.Tensor, height, width) -> torch.Tensor:
     """Clip to the image extent [0, W-1] x [0, H-1] (ref clip_boxes).
 
-    `height`/`width` are Python numbers or 0-d tensors on the boxes' device.
-    Supports (..., 4) and (..., 4*K) layouts.
+    `height`/`width` are Python numbers or tensors on the boxes' device
+    that broadcast against ``boxes.shape[:-1]`` (e.g. (B, 1) per-frame
+    sizes for (B, N, 4) boxes). Supports (..., 4) and (..., 4*K) layouts.
     """
     shape = boxes.shape
     b = boxes.reshape(*shape[:-1], -1, 4)
     zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
     xmax = torch.as_tensor(width, dtype=boxes.dtype, device=boxes.device) - _ONE
     ymax = torch.as_tensor(height, dtype=boxes.dtype, device=boxes.device) - _ONE
-    lim = torch.stack([xmax, ymax, xmax, ymax])
+    xmax, ymax = torch.broadcast_tensors(xmax, ymax)
+    lim = torch.stack([xmax, ymax, xmax, ymax], dim=-1)[..., None, :]
     return torch.minimum(torch.maximum(b, zero), lim).reshape(shape)

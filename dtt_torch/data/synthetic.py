@@ -1,0 +1,153 @@
+"""Synthetic mini-VID frame pairs (a copy of ``dtt.data.synthetic``'s
+pair sampler and renderer, so the port loads without JAX).
+
+Moving class-coded rectangles with track identities on uint8 canvases:
+``sample_pair_params`` draws the scene, ``render_frame`` draws it, and
+``synthetic_batch`` stacks pairs into the batch dict the train step takes.
+The same numpy seed gives arrays equal to ``dtt``'s.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _background(rng: np.random.RandomState, shape) -> np.ndarray:
+    """uint8-native background, uniform integers in [23, 37] (~mean 30):
+    no full-canvas float pass on the generator's critical path."""
+    gen = np.random.default_rng(rng.randint(1 << 31))
+    return gen.integers(23, 38, shape, dtype=np.uint8)
+
+
+def object_texture(cls: int, yy: np.ndarray, xx: np.ndarray) -> np.ndarray:
+    """Class-coded texture patch (float, pre-clip) at absolute canvas coords.
+
+    Each class id maps to base-4 digits (d0, d1, d2) = (cls%4, cls//4%4,
+    cls//16%4) and each channel carries level 40+70*digit: any two classes
+    differ by >=70 on some channel, > 2x the stripe amplitude (20) plus
+    quantization — so downscaling can never collapse two classes onto the
+    same appearance. (The round-2 code packed 30 classes into a lattice
+    where pairs like 5<->20 and 17<->2 differed by only 30 on ONE channel;
+    both scored a persistent AP 0.0 in the flagship run — appearance
+    collision, i.e. label noise, not a property of the model graph.)
+    A diagonal stripe of period 4+cls keeps per-class high-frequency
+    texture. Shared formula with the device renderer
+    (dtt/data/device_synth.py), parity-tested.
+    """
+    base = np.empty((*np.broadcast_shapes(yy.shape, xx.shape), 3), np.float32)
+    base[..., 0] = 40.0 + 70.0 * (cls % 4)
+    base[..., 1] = 40.0 + 70.0 * ((cls // 4) % 4)
+    base[..., 2] = 40.0 + 70.0 * ((cls // 16) % 4)
+    stripe = 20.0 * np.sin(2 * np.pi * (yy + xx) / max(4 + cls, 4))
+    return base + stripe[..., None].astype(np.float32)
+
+
+def _draw_object(img: np.ndarray, box, cls: int):
+    """Draw one object onto a uint8 canvas (round->clamp box, clip texture)."""
+    x1, y1, x2, y2 = [int(round(float(v))) for v in box]
+    h, w = img.shape[:2]
+    x1, y1 = max(x1, 0), max(y1, 0)
+    x2, y2 = min(x2, w - 1), min(y2, h - 1)
+    if x2 <= x1 or y2 <= y1:
+        return
+    yy = np.arange(y1, y2 + 1, dtype=np.float32)[:, None]
+    xx = np.arange(x1, x2 + 1, dtype=np.float32)[None, :]
+    patch = object_texture(cls, yy, xx)
+    img[y1:y2 + 1, x1:x2 + 1] = np.clip(np.round(patch), 0, 255)
+
+
+def render_frame(canvas: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
+                 valid: np.ndarray) -> np.ndarray:
+    """Draw valid objects in slot order onto a uint8 canvas (in place)."""
+    assert canvas.dtype == np.uint8
+    for g in range(boxes.shape[0]):
+        if valid[g]:
+            _draw_object(canvas, boxes[g], int(labels[g]))
+    return canvas
+
+
+def _num_objects(rng, num_objects, cap: int) -> int:
+    if num_objects is None:
+        num_objects = (1, 3)
+    if isinstance(num_objects, (tuple, list)):
+        lo, hi = num_objects
+        return min(rng.randint(lo, hi + 1), cap)
+    return min(int(num_objects), cap)
+
+
+def sample_pair_params(rng: np.random.RandomState, height: int, width: int,
+                       num_classes: int, max_gt: int,
+                       num_objects=None, max_shift: float = 12.0) -> dict:
+    """Scene parameters for one frame pair (no pixels): gt_boxes (2, G, 4)
+    track-aligned, gt_labels (G,), gt_valid (2, G), im_scale, im_size.
+    `num_objects`: int, (lo, hi) range, or None for the (1, 3) default."""
+    g = max_gt
+    n = _num_objects(rng, num_objects, g)
+    gt_boxes = np.zeros((2, g, 4), np.float32)
+    gt_valid = np.zeros((2, g), bool)
+    gt_labels = np.zeros((g,), np.int32)
+    for i in range(n):
+        bw = rng.uniform(width * 0.15, width * 0.45)
+        bh = rng.uniform(height * 0.15, height * 0.45)
+        x1 = rng.uniform(0, width - bw - max_shift - 1)
+        y1 = rng.uniform(0, height - bh - max_shift - 1)
+        cls = rng.randint(1, num_classes)
+        dx = rng.uniform(-max_shift, max_shift)
+        dy = rng.uniform(-max_shift, max_shift)
+        box_t = np.array([x1, y1, x1 + bw, y1 + bh], np.float32)
+        box_tau = np.clip(box_t + np.array([dx, dy, dx, dy], np.float32),
+                          0, [width - 1, height - 1, width - 1, height - 1])
+        gt_boxes[0, i] = box_t
+        gt_boxes[1, i] = box_tau
+        gt_labels[i] = cls
+        gt_valid[:, i] = True
+    return {
+        "gt_boxes": gt_boxes,
+        "gt_labels": gt_labels,
+        "gt_valid": gt_valid,
+        "im_scale": np.float32(1.0),
+        "im_size": np.array([height, width], np.float32),
+    }
+
+
+def synthetic_pair(rng: np.random.RandomState, height: int, width: int,
+                   num_classes: int, max_gt: int, num_objects=None,
+                   max_shift: float = 12.0, uint8: bool = False):
+    """One frame pair with translated objects.
+
+    Returns dict:
+      images: (2, H, W, 3) uint8 canvas if `uint8`, else its exact float32 cast
+      gt_boxes: (2, G, 4) track-aligned
+      gt_labels: (G,) class ids in [1, num_classes-1]
+      gt_valid: (2, G) bool
+      im_scale: () float32
+    """
+    params = sample_pair_params(rng, height, width, num_classes, max_gt,
+                                num_objects, max_shift)
+    images = _background(rng, (2, height, width, 3))
+    for f in range(2):
+        render_frame(images[f], params["gt_boxes"][f], params["gt_labels"],
+                     params["gt_valid"][f])
+    if not uint8:
+        images = images.astype(np.float32)
+    return {"images": images, **params}
+
+
+def synthetic_batch(rng: np.random.RandomState, batch: int, height: int,
+                    width: int, num_classes: int, max_gt: int,
+                    pixel_means=(102.98, 115.95, 122.77), uint8: bool = False,
+                    num_objects=None):
+    """Stacked batch dict for the train step.
+
+    uint8=True ships the quantized un-normalized canvases natively — 4x
+    fewer H2D bytes; the train step normalizes on device
+    (normalize_device_images). Default emits host-mean-subtracted float32
+    of the SAME canvases (the reference semantics).
+    """
+    samples = [synthetic_pair(rng, height, width, num_classes, max_gt,
+                              num_objects=num_objects, uint8=uint8)
+               for _ in range(batch)]
+    out = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    if not uint8:
+        out["images"] = out["images"] - np.asarray(pixel_means, np.float32)
+    return out

@@ -1,16 +1,22 @@
-"""The Detect & Track network on the video-mode inference path
-(counterpart of ``dtt.models.dnt``).
+"""The Detect & Track network (counterpart of ``dtt.models.dnt``).
 
   ResNet (dilated conv5) -> c3 (s8), c4 (s16), c5 (s16)
   RPN on c4; 1x1 "reduce" conv c5 -> reduced                    [per frame]
   cosine correlation of (t, t+1) at c3 (pooled to s16), c4, reduced
-  fused cls|bbox|track ps-maps as three partial 1x1 products in f32
-  proposals + ONE direct PSRoI pool of the fused maps -> scores, deltas
-  per-class decode + NMS, with each kept box's tracked box in frame t+1
 
-Public functions take and return NHWC tensors (JAX's layouts); convs run
-on channels-last NCHW views of the same memory. Every ps-map channel is
-bin-major ``c = (ph*k + pw)*D + d``.
+Video-mode inference (``frame_trunk``, ``fused_psmaps``,
+``detect_track_fused``): fused cls|bbox|track ps-maps as three partial 1x1
+products in f32, proposals + ONE direct PSRoI pool of the fused maps, and
+per-class decode + NMS with each kept box's tracked box in frame t+1.
+
+Training (``frame_features``, ``track_psmaps``, ``pool_vote_batched``):
+the unfused cls/bbox maps per frame, the track maps from the concatenated
+[reduced_t | reduced_tau | corr x3] input, and differentiable pools.
+
+Parameters are float32 and cast to ``cfg.dtype`` at use, as the reference
+casts its float32 params. Public functions take and return NHWC tensors
+(JAX's layouts); convs run on channels-last NCHW views of the same memory.
+Every ps-map channel is bin-major ``c = (ph*k + pw)*D + d``.
 """
 
 from __future__ import annotations
@@ -23,10 +29,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dtt_torch.core import boxes as box_ops
-from dtt_torch.core.config import ModelConfig, RoIConfig
+from dtt_torch.core.config import ModelConfig
 from dtt_torch.core.device import resolve_device
-from dtt_torch.models.resnet import ResNetBackbone
+from dtt_torch.models.resnet import Conv2d, ResNetBackbone
 from dtt_torch.models.rpn import Proposals, RPNHead, proposal_layer, softmax
+from dtt_torch.models.targets import roi_norm_params
 from dtt_torch.ops.correlation import correlation
 from dtt_torch.ops.nms import multiclass_nms
 from dtt_torch.ops.psroi import psroi_pool_batched_direct
@@ -45,12 +52,16 @@ class FrameFeats(NamedTuple):
     rpn_bbox: torch.Tensor   # (B, H, W, 4A) float32
     reduced: torch.Tensor    # (B, H, W, reduced_channels)
     corr_feats: Dict[str, torch.Tensor]  # stride-16 maps for correlation
+    cls_maps: Optional[torch.Tensor] = None   # (B, H, W, k^2*C) float32
+    bbox_maps: Optional[torch.Tensor] = None  # (B, H, W, k^2*4*nb) float32
 
     def slice(self, sl: slice) -> "FrameFeats":
         """The same features for frames `sl`."""
+        pick = lambda t: None if t is None else t[sl]
         return FrameFeats(self.rpn_cls[sl], self.rpn_bbox[sl],
                           self.reduced[sl],
-                          {k: v[sl] for k, v in self.corr_feats.items()})
+                          {k: v[sl] for k, v in self.corr_feats.items()},
+                          pick(self.cls_maps), pick(self.bbox_maps))
 
 
 class Detections(NamedTuple):
@@ -81,6 +92,33 @@ def _matmul_f32(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         *x.shape[:-1], kernel.shape[-1])
 
 
+def _conv1x1(x: torch.Tensor, conv: PsConv) -> torch.Tensor:
+    """1x1 conv of NHWC `x` in its dtype (kernel and bias cast to it, the
+    bias added after the product as flax's ``nn.Conv`` does), as float32."""
+    y = x.reshape(-1, x.shape[-1]) @ conv.kernel.to(x.dtype)
+    y = y + conv.bias.to(x.dtype)
+    return y.reshape(*x.shape[:-1], -1).float()
+
+
+_FROZEN_AFFINE_PARENTS = ("bn1", "bn2", "bn3", "downsample_bn")
+
+
+def is_frozen(name: str, frozen_stages: int) -> bool:
+    """Whether the parameter or buffer `name` (``a.b.c.weight``) is frozen:
+    every frozen-BN affine, the stem for ``frozen_stages >= 1`` and
+    ``layer{s}`` for ``frozen_stages >= s + 1`` (dtt's ``_is_frozen``)."""
+    keys = name.split(".")
+    if len(keys) >= 2 and keys[-2] in _FROZEN_AFFINE_PARENTS:
+        return True
+    if keys[0] != "backbone":
+        return False
+    stage = keys[1]
+    if frozen_stages >= 1 and stage in ("conv1", "bn1"):
+        return True
+    return any(frozen_stages >= s + 1 and stage == f"layer{s}"
+               for s in range(1, 4))
+
+
 def cosine_prep(x: torch.Tensor) -> torch.Tensor:
     """Unit-normalize channels and rescale by sqrt(C), so correlation's 1/C
     mean lies in [-1, 1]; the norm and the rescale in the input dtype."""
@@ -100,24 +138,26 @@ class DnT(nn.Module):
                 f"dtt_torch implements pooling_mode='psroi' only, got "
                 f"{cfg.roi.pooling_mode!r}")
         self.cfg = cfg
-        self.dtype = getattr(torch, cfg.dtype)
-        factory = dict(device=device, dtype=self.dtype)
+        self.dtype = getattr(torch, cfg.dtype)     # compute dtype
         k2 = cfg.roi.ps_grid ** 2
         nb = 2 if cfg.roi.class_agnostic else cfg.num_classes
         cr = cfg.reduced_channels
         corr_ch = len(cfg.track.scales) * cfg.track.num_corr_channels
-        self.backbone = ResNetBackbone(_BACKBONES[cfg.backbone], **factory)
+        self.backbone = ResNetBackbone(_BACKBONES[cfg.backbone],
+                                       cfg.frozen_stages, device=device)
         self.rpn = RPNHead(1024, cfg.anchors.num_anchors, cfg.rpn.channels,
-                           **factory)
-        self.reduce = nn.Conv2d(2048, cr, 1, **factory)
+                           device=device)
+        self.reduce = Conv2d(2048, cr, 1, device=device)
         self.cls_maps = PsConv(cr, k2 * cfg.num_classes, device)
         self.bbox_maps = PsConv(cr, k2 * 4 * nb, device)
         self.track_maps = PsConv(2 * cr + corr_ch, k2 * 4, device)
         self.to(memory_format=torch.channels_last)
-        self.requires_grad_(False)
+        for name, p in self.named_parameters():
+            p.requires_grad_(not is_frozen(name, cfg.frozen_stages))
 
     def frame_trunk(self, images: torch.Tensor) -> FrameFeats:
-        """(B, H, W, 3) mean-subtracted images -> trunk outputs."""
+        """(B, H, W, 3) mean-subtracted images -> trunk outputs, without the
+        cls/bbox maps (``fused_psmaps`` computes them on the eval path)."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         c3, c4, c5 = self.backbone(x)
         rpn_cls, rpn_bbox = self.rpn(c4)
@@ -128,6 +168,14 @@ class DnT(nn.Module):
                           corr_feats={"c3": _nhwc(c3p), "c4": _nhwc(c4),
                                       "c5": _nhwc(reduced)})
 
+    def frame_features(self, images: torch.Tensor) -> FrameFeats:
+        """``frame_trunk`` plus the unfused cls/bbox ps-maps, each a 1x1
+        conv in the compute dtype cast to float32 (the training path)."""
+        feats = self.frame_trunk(images)
+        return feats._replace(cls_maps=_conv1x1(feats.reduced, self.cls_maps),
+                              bbox_maps=_conv1x1(feats.reduced,
+                                                 self.bbox_maps))
+
     def corr_volumes(self, feats_t: FrameFeats, feats_tau: FrameFeats
                      ) -> list:
         """Per-scale cosine-correlation volumes (B, H, W, nd^2)."""
@@ -137,6 +185,17 @@ class DnT(nn.Module):
                             prep(feats_tau.corr_feats[s]).contiguous(),
                             c.max_displacement, c.stride)
                 for s in c.scales]
+
+    def track_psmaps(self, feats_t: FrameFeats, feats_tau: FrameFeats
+                     ) -> torch.Tensor:
+        """Tracking-head maps (B, H, W, k^2*4) float32: one 1x1 conv of the
+        concatenation [reduced_t | reduced_tau | corr@scales] (D&T eq. 7),
+        in the compute dtype."""
+        dtype = feats_t.reduced.dtype
+        x = torch.cat([feats_t.reduced, feats_tau.reduced]
+                      + [v.to(dtype) for v in
+                         self.corr_volumes(feats_t, feats_tau)], dim=-1)
+        return _conv1x1(x, self.track_maps)
 
     def fused_psmaps(self, feats_t: FrameFeats, feats_tau: FrameFeats
                      ) -> torch.Tensor:
@@ -177,23 +236,35 @@ class DnT(nn.Module):
 def normalize_device_images(images: torch.Tensor, im_size: torch.Tensor,
                             pixel_means) -> torch.Tensor:
     """uint8 canvas -> mean-subtracted float32, exactly 0 beyond the true
-    `im_size` (h, w) extent. Float inputs pass through unchanged."""
+    `im_size` (h, w) extent: one (2,) size for all frames, or (..., 2)
+    sizes for images (..., H, W, 3). Float inputs pass through unchanged."""
     if images.dtype != torch.uint8:
         return images
     h, w = images.shape[-3], images.shape[-2]
     x = images.float()
     x = x - box_ops.constant(pixel_means, x)
-    rows = torch.arange(h, device=images.device)[:, None, None] < im_size[0]
-    cols = torch.arange(w, device=images.device)[None, :, None] < im_size[1]
+    hh = im_size[..., 0, None, None, None]
+    ww = im_size[..., 1, None, None, None]
+    rows = torch.arange(h, device=images.device)[:, None, None] < hh
+    cols = torch.arange(w, device=images.device)[None, :, None] < ww
     return torch.where(rows & cols, x, torch.zeros((), device=images.device))
 
 
-def roi_norm_params(cfg: RoIConfig):
-    """(means, stds) for RCNN bbox-target normalization (identity when the
-    targets are not normalized)."""
-    if cfg.bbox_normalize_targets_precomputed:
-        return cfg.bbox_normalize_means, cfg.bbox_normalize_stds
-    return (0.0, 0.0, 0.0, 0.0), (1.0, 1.0, 1.0, 1.0)
+def pool_vote_batched(cfg: ModelConfig, maps: torch.Tensor,
+                      rois: torch.Tensor, spatial_scale: float,
+                      impl: str = "direct") -> torch.Tensor:
+    """(B, H, W, k*k*D) maps, (B, N, 4) RoIs -> (B, N, D) float32 votes:
+    the direct PSRoI pool of the maps cast to the compute dtype (its
+    backward is the pool-backward kernel; the RoIs take no gradient), then
+    the float32 mean over the k*k bins."""
+    if impl != "direct":
+        raise NotImplementedError(
+            f"dtt_torch implements the 'direct' PSRoI pool only, got "
+            f"{impl!r}; the other forms are queued in ROADMAP.md")
+    pooled = psroi_pool_batched_direct(
+        maps.to(getattr(torch, cfg.dtype)).contiguous(), rois, spatial_scale,
+        cfg.roi.ps_grid)
+    return pooled.float().mean(dim=(2, 3))
 
 
 def detect_track_fused(cfg: ModelConfig, feats: FrameFeats,
@@ -203,16 +274,11 @@ def detect_track_fused(cfg: ModelConfig, feats: FrameFeats,
     """Batched proposals + ONE direct PSRoI pool of the fused maps ->
     detections + track deltas. Pooling is linear per channel, so splitting
     the pooled vote equals three separate pools."""
-    if cfg.roi.eval_pool_impl != "direct":
-        raise NotImplementedError(
-            "dtt_torch implements roi.eval_pool_impl='direct' only, got "
-            f"{cfg.roi.eval_pool_impl!r}")
     props = proposal_layer(feats.rpn_cls, feats.rpn_bbox, anchors,
                            im_height, im_width, im_scale, cfg.rpn)
-    pool = psroi_pool_batched_direct(
-        fused_maps.to(getattr(torch, cfg.dtype)).contiguous(), props.rois,
-        1.0 / cfg.anchors.feat_stride, cfg.roi.ps_grid)
-    pooled = pool.float().mean(dim=(2, 3))
+    pooled = pool_vote_batched(cfg, fused_maps, props.rois,
+                               1.0 / cfg.anchors.feat_stride,
+                               cfg.roi.eval_pool_impl)
     dc = cfg.num_classes
     db = 8 if cfg.roi.class_agnostic else 4 * cfg.num_classes
     det = Detections(rois=props.rois, roi_valid=props.valid,
@@ -256,7 +322,8 @@ def decode_detections_batched(cfg: ModelConfig, det: Detections,
 
 
 def make_model(cfg: ModelConfig, device=None) -> DnT:
-    """The model on `device` (CUDA unless the caller passes "cpu"), in
-    inference mode. Its weights are PyTorch's initial values; load real
-    ones with ``dtt_torch.utils.params.from_jax_params``."""
+    """The model on `device` (CUDA unless the caller passes "cpu"), with
+    float32 parameters (frozen ones without gradients). Its weights are
+    PyTorch's initial values; load real ones with
+    ``dtt_torch.utils.params.from_jax_params``."""
     return DnT(cfg, resolve_device(device)).eval()

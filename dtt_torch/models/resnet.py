@@ -1,6 +1,12 @@
 """Dilated ResNet with frozen BatchNorm (counterpart of ``dtt.models.resnet``).
 
-* Frozen BN is a per-channel affine ``x * scale + bias`` held in buffers.
+* Parameters are float32 and cast to the input's (compute) dtype at use,
+  as the reference casts its float32 params; gradients reach the float32
+  copies.
+* Frozen BN is a per-channel affine ``x * scale + bias`` held in float32
+  buffers, so it takes no gradient (the reference's ``stop_gradient``).
+* ``frozen_stages`` stops the gradient at the stem (>= 1), layer1 (>= 2)
+  and layer2 (>= 3) outputs, as the reference does.
 * Stride sits on the 3x3 conv of each bottleneck (torchvision layout);
   layer4 has no stride and dilation 2, so c5 stays at stride 16.
 * Paddings are the reference's: ``d*(k//2)`` per conv, 3 on the 7x7/2
@@ -19,8 +25,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with float32 weight and bias cast to the input's dtype at
+    use (the reference's ``param_dtype=float32, dtype=compute``)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class FrozenAffine(nn.Module):
-    """Frozen BatchNorm: per-channel scale and bias buffers."""
+    """Frozen BatchNorm: per-channel float32 scale and bias buffers, cast
+    to the input's dtype at use."""
 
     def __init__(self, features: int, **factory):
         super().__init__()
@@ -28,12 +44,13 @@ class FrozenAffine(nn.Module):
         self.register_buffer("bias", torch.zeros(features, **factory))
 
     def forward(self, x):
-        return x * self.scale[:, None, None] + self.bias[:, None, None]
+        scale = self.scale.to(x.dtype)[:, None, None]
+        return x * scale + self.bias.to(x.dtype)[:, None, None]
 
 
 def _conv(cin, cout, k, stride, dilation, **factory):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=dilation * (k // 2),
-                     dilation=dilation, bias=False, **factory)
+    return Conv2d(cin, cout, k, stride=stride, padding=dilation * (k // 2),
+                  dilation=dilation, bias=False, **factory)
 
 
 class Bottleneck(nn.Module):
@@ -76,10 +93,12 @@ class ResNetStage(nn.Sequential):
 class ResNetBackbone(nn.Module):
     """Dilated ResNet returning (c3, c4, c5)."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 23, 3), **factory):
+    def __init__(self, layers: Sequence[int] = (3, 4, 23, 3),
+                 frozen_stages: int = 2, **factory):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
-                               **factory)
+        self.frozen_stages = frozen_stages
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
+                            **factory)
         self.bn1 = FrozenAffine(64, **factory)
         self.layer1 = ResNetStage(64, 64, layers[0], **factory)
         self.layer2 = ResNetStage(256, 128, layers[1], stride=2, **factory)
@@ -89,7 +108,14 @@ class ResNetBackbone(nn.Module):
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        c3 = self.layer2(self.layer1(x))
+        if self.frozen_stages >= 1:
+            x = x.detach()
+        x = self.layer1(x)
+        if self.frozen_stages >= 2:
+            x = x.detach()
+        c3 = self.layer2(x)
+        if self.frozen_stages >= 3:
+            c3 = c3.detach()
         c4 = self.layer3(c3)
         c5 = self.layer4(c4)
         return c3, c4, c5

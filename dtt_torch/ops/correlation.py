@@ -11,8 +11,11 @@ NHWC, batched over frame pairs.
 * `correlation_cuda` — the hand-written kernel ``csrc/correlation.cu``,
   which replaces the TPU kernel ``_corr_mm_kernel``
   (dtt/ops/correlation.py). See the source for its design.
-* `correlation` — takes the plain version for CPU tensors and the kernel
-  for CUDA tensors.
+* `correlation_bwd_plain` / `correlation_bwd_cuda` — the gradients of both
+  inputs: the shifted multiply form, and a kernel in the same source (dtt
+  differentiates its forward with XLA's AD instead).
+* `correlation` — differentiable; takes the plain versions for CPU tensors
+  and the kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -53,6 +56,53 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
     return torch.stack(outs, dim=-1).to(f1.dtype)
 
 
+def correlation_bwd_plain(f1: torch.Tensor, f2: torch.Tensor,
+                          g: torch.Tensor, max_displacement: int = 8,
+                          stride: int = 2):
+    """Gradients of `correlation_plain` for the output gradient g
+    (B, H, W, nd^2): (df1, df2) in the inputs' dtype, summed in f32."""
+    _, h, w, c = f1.shape
+    d = max_displacement
+    pad = (0, 0, d, d, d, d)
+    a = f1.float()
+    f2p = F.pad(f2.float(), pad)
+    gg = g.float()
+    df1 = torch.zeros_like(a)
+    df2p = torch.zeros_like(f2p)
+    j = 0
+    for dy in offsets(d, stride):
+        for dx in offsets(d, stride):
+            gj = gg[..., j:j + 1]
+            df1 += gj * f2p[:, d + dy:d + dy + h, d + dx:d + dx + w, :]
+            df2p[:, d + dy:d + dy + h, d + dx:d + dx + w, :] += gj * a
+            j += 1
+    df2 = df2p[:, d:d + h, d:d + w, :]
+    return (df1 / c).to(f1.dtype), (df2 / c).to(f2.dtype)
+
+
+def _check_maps(name: str, f1: torch.Tensor, f2: torch.Tensor,
+                max_displacement: int, stride: int) -> None:
+    if not (f1.is_cuda and f2.device == f1.device):
+        raise ValueError(f"{name}: f1 and f2 must be on one CUDA device, got "
+                         f"{f1.device} and {f2.device}")
+    if f1.dim() != 4 or f1.shape != f2.shape:
+        raise ValueError(f"{name}: expected two (B, H, W, C) maps of one "
+                         f"shape, got {tuple(f1.shape)} and "
+                         f"{tuple(f2.shape)}")
+    if f1.dtype not in _DTYPE_CODES or f2.dtype != f1.dtype:
+        raise TypeError(f"{name}: float32 or bfloat16 maps of one dtype, got "
+                        f"{f1.dtype} and {f2.dtype}")
+    if not (f1.is_contiguous() and f2.is_contiguous()):
+        raise ValueError(f"{name}: maps must be contiguous NHWC")
+    if stride < 1 or max_displacement < 0 or (
+            len(offsets(max_displacement, stride)) > _MAX_ND):
+        raise ValueError(f"{name}: needs stride >= 1 and at most {_MAX_ND} "
+                         f"displacements per axis, got d={max_displacement},"
+                         f" s={stride}")
+    if f1.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: maps too large for int32 sizes")
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("correlation").dtt_correlation
@@ -69,25 +119,7 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
     Launches on the current stream; counts its launches in
     ``correlation_cuda.launches``.
     """
-    if not (f1.is_cuda and f2.device == f1.device):
-        raise ValueError("correlation_cuda: f1 and f2 must be on one CUDA "
-                         f"device, got {f1.device} and {f2.device}")
-    if f1.dim() != 4 or f1.shape != f2.shape:
-        raise ValueError("correlation_cuda: expected two (B, H, W, C) maps of "
-                         f"one shape, got {tuple(f1.shape)} and "
-                         f"{tuple(f2.shape)}")
-    if f1.dtype not in _DTYPE_CODES or f2.dtype != f1.dtype:
-        raise TypeError("correlation_cuda: float32 or bfloat16 maps of one "
-                        f"dtype, got {f1.dtype} and {f2.dtype}")
-    if not (f1.is_contiguous() and f2.is_contiguous()):
-        raise ValueError("correlation_cuda: maps must be contiguous NHWC")
-    if stride < 1 or max_displacement < 0 or (
-            len(offsets(max_displacement, stride)) > _MAX_ND):
-        raise ValueError("correlation_cuda: needs stride >= 1 and at most "
-                         f"{_MAX_ND} displacements per axis, got d="
-                         f"{max_displacement}, s={stride}")
-    if f1.numel() >= 2 ** 31:
-        raise ValueError("correlation_cuda: maps too large for int32 sizes")
+    _check_maps("correlation_cuda", f1, f2, max_displacement, stride)
     b, h, w, c = f1.shape
     out = torch.empty((b, h, w, num_corr_channels(max_displacement, stride)),
                       dtype=f1.dtype, device=f1.device)
@@ -106,10 +138,74 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
 correlation_cuda.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = _build.load("correlation").dtt_correlation_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
+                         max_displacement: int = 8, stride: int = 2):
+    """Gradients (df1, df2) of the correlation for the output gradient g
+    (B, H, W, nd^2) of the maps' dtype, by the CUDA kernel.
+
+    Launches on the current stream; counts its launches in
+    ``correlation_bwd_cuda.launches``.
+    """
+    _check_maps("correlation_bwd_cuda", f1, f2, max_displacement, stride)
+    b, h, w, c = f1.shape
+    nd2 = num_corr_channels(max_displacement, stride)
+    if g.shape != (b, h, w, nd2) or g.dtype != f1.dtype or \
+            g.device != f1.device or not g.is_contiguous():
+        raise ValueError(f"correlation_bwd_cuda: g must be a contiguous "
+                         f"({b}, {h}, {w}, {nd2}) {f1.dtype} tensor on "
+                         f"{f1.device}, got {tuple(g.shape)} {g.dtype}")
+    df1 = torch.empty_like(f1)
+    df2 = torch.empty_like(f2)
+    if df1.numel() == 0:
+        return df1, df2
+    err = _bwd_entry()(f1.data_ptr(), f2.data_ptr(), g.data_ptr(),
+                       df1.data_ptr(), df2.data_ptr(), b, h, w, c,
+                       max_displacement, stride, _DTYPE_CODES[f1.dtype],
+                       f1.device.index,
+                       torch.cuda.current_stream(f1.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"correlation backward kernel launch failed: "
+                           f"cudaError {err}")
+    correlation_bwd_cuda.launches += 1
+    return df1, df2
+
+
+correlation_bwd_cuda.launches = 0
+
+
+class _Correlation(torch.autograd.Function):
+    """Plain versions on CPU tensors, the kernels on CUDA tensors; the
+    output gradient is taken in the maps' dtype, as dtt casts it."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement, stride):
+        ctx.save_for_backward(f1, f2)
+        ctx.window = (max_displacement, stride)
+        if f1.device.type == "cpu":
+            return correlation_plain(f1, f2, max_displacement, stride)
+        return correlation_cuda(f1, f2, max_displacement, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        g = g.to(f1.dtype).contiguous()
+        bwd = (correlation_bwd_plain if f1.device.type == "cpu"
+               else correlation_bwd_cuda)
+        df1, df2 = bwd(f1, f2, g, *ctx.window)
+        return df1, df2, None, None
+
+
 def correlation(f1: torch.Tensor, f2: torch.Tensor,
                 max_displacement: int = 8, stride: int = 2) -> torch.Tensor:
-    """(B, H, W, C) x2 -> (B, H, W, nd^2): the plain version on CPU
-    tensors, the CUDA kernel otherwise (which raises off CUDA)."""
-    if f1.device.type == "cpu":
-        return correlation_plain(f1, f2, max_displacement, stride)
-    return correlation_cuda(f1, f2, max_displacement, stride)
+    """(B, H, W, C) x2 -> (B, H, W, nd^2), differentiable in both maps:
+    the plain versions on CPU tensors, the CUDA kernels otherwise (which
+    raise off CUDA)."""
+    return _Correlation.apply(f1, f2, max_displacement, stride)

@@ -1,5 +1,7 @@
-// FlowNet correlation for Hopper (sm_90a), plain C interface for ctypes.
+// FlowNet correlation and its backward for Hopper (sm_90a), plain C
+// interface for ctypes.
 //
+// Forward (dtt_correlation):
 // Replaces the TPU kernel _corr_mm_kernel (dtt/ops/correlation.py), which
 // computed each vertical displacement as a banded row matmul on the MXU and
 // read the horizontal displacements off as diagonals (84 columns computed to
@@ -120,6 +122,79 @@ int launch(const void* f1, const void* f2, void* out, int B, int H, int W,
   return (int)cudaGetLastError();
 }
 
+// Backward (dtt_correlation_bwd). dtt has no TPU kernel here: its backward
+// is XLA's AD of the banded-matmul form (dtt/ops/correlation.py _corr_bwd).
+// With g the output gradient, per input element
+//
+//   df1[b, y, x, c] = (1/C) * sum_j g[b, y, x, j] * f2[b, y + dy_j, x + dx_j, c]
+//   df2[b, y, x, c] = (1/C) * sum_j g[b, y - dy_j, x - dx_j, j]
+//                                 * f1[b, y - dy_j, x - dx_j, c]
+//
+// (terms outside the map are 0), summed in f32 and written in the input
+// dtype. Both are gathers, so no atomics: one launch, one thread per input
+// element computing both gradients.
+//
+// Bound: f1, f2 and g are read and df1, df2 written once; at the main-path
+// shapes that is ~40 operations (2 x 81 MACs) per byte moved, far below
+// the card's bf16 rate per byte, so the memory rate bounds it. Threads run channel-fastest: a warp shares one pixel, so its g
+// loads are broadcasts and its f1/f2 loads of the displaced pixel
+// coalesce; the 81-fold reuse of each f1/f2 value is left to the caches.
+template <typename T>
+__global__ void correlation_bwd_kernel(const T* __restrict__ f1,
+                                       const T* __restrict__ f2,
+                                       const T* __restrict__ g,
+                                       T* __restrict__ df1,
+                                       T* __restrict__ df2, int64_t total,
+                                       int H, int W, int C, int dmax,
+                                       int stride, int nd) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int c = (int)(i % C);
+  const int64_t p = i / C;                 // pixel (b*H + y)*W + x
+  const int x = (int)(p % W);
+  const int y = (int)((p / W) % H);
+  const int64_t frame = p - ((int64_t)y * W + x);
+  const int nd2 = nd * nd;
+  float a1 = 0.f, a2 = 0.f;
+  for (int iy = 0; iy < nd; ++iy) {
+    const int dy = -dmax + iy * stride;
+    const int y1 = y + dy, y2 = y - dy;
+    const bool in1 = y1 >= 0 && y1 < H, in2 = y2 >= 0 && y2 < H;
+    for (int ix = 0; ix < nd; ++ix) {
+      const int dx = -dmax + ix * stride;
+      const int j = iy * nd + ix;
+      const int x1 = x + dx, x2 = x - dx;
+      if (in1 && x1 >= 0 && x1 < W)
+        a1 += to_f32(g[p * nd2 + j])
+              * to_f32(f2[(frame + (int64_t)y1 * W + x1) * C + c]);
+      if (in2 && x2 >= 0 && x2 < W) {
+        const int64_t p2 = frame + (int64_t)y2 * W + x2;
+        a2 += to_f32(g[p2 * nd2 + j]) * to_f32(f1[p2 * C + c]);
+      }
+    }
+  }
+  const float fc = (float)C;
+  store(df1 + i, a1 / fc);
+  store(df2 + i, a2 / fc);
+}
+
+template <typename T>
+int launch_bwd(const void* f1, const void* f2, const void* g, void* df1,
+               void* df2, int B, int H, int W, int C, int dmax, int stride,
+               cudaStream_t stream) {
+  if (stride < 1 || dmax < 0) return (int)cudaErrorInvalidValue;
+  const int nd = (2 * dmax) / stride + 1;
+  const int64_t total = (int64_t)B * H * W * C;
+  if (total == 0) return (int)cudaSuccess;
+  constexpr int kThreads = 256;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  correlation_bwd_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(f1), static_cast<const T*>(f2),
+      static_cast<const T*>(g), static_cast<T*>(df1), static_cast<T*>(df2),
+      total, H, W, C, dmax, stride, nd);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // f1, f2: (B, H, W, C) contiguous; out: (B, H, W, nd*nd) of the same dtype.
@@ -134,5 +209,22 @@ extern "C" int dtt_correlation(const void* f1, const void* f2, void* out,
   if (dtype == 0) return launch<float>(f1, f2, out, B, H, W, C, dmax, stride, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(f1, f2, out, B, H, W, C, dmax, stride, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// f1, f2, df1, df2: (B, H, W, C) contiguous; g: (B, H, W, nd*nd); all of
+// one dtype (0 = float32, 1 = bfloat16). Returns a cudaError_t (0 = launched).
+extern "C" int dtt_correlation_bwd(const void* f1, const void* f2,
+                                   const void* g, void* df1, void* df2, int B,
+                                   int H, int W, int C, int dmax, int stride,
+                                   int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(f1, f2, g, df1, df2, B, H, W, C, dmax, stride, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(f1, f2, g, df1, df2, B, H, W, C, dmax,
+                                     stride, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-// Direct position-sensitive RoI pooling (bin sums) for Hopper (sm_90a),
-// plain C interface for ctypes.
+// Direct position-sensitive RoI pooling (bin sums) and its backward for
+// Hopper (sm_90a), plain C interface for ctypes.
 //
+// Forward (dtt_psroi_direct):
 // Replaces the TPU kernel _psroi_direct_kernel (dtt/ops/psroi.py), which
 // contracted 0/1 row and column interval indicators against each bin's map
 // slab with two MXU matmuls per (frame, bin). Here each sum is computed
@@ -26,8 +27,12 @@ namespace {
 
 constexpr int kThreads = 256;
 
+constexpr int kMaxBwdRois = 4000;  // 3 ints of shared memory per RoI, < 48 KB
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <typename T>
 __global__ void psroi_direct_kernel(const T* __restrict__ maps,
@@ -70,6 +75,96 @@ int launch(const void* maps, const int* hs, const int* he, const int* ws,
   return (int)cudaGetLastError();
 }
 
+// Backward (dtt_psroi_direct_bwd). Replaces the TPU kernel
+// _psroi_direct_bwd_kernel (dtt/ops/psroi.py), which expanded ghat along x
+// with a 0/1 selection matmul, masked it with the column indicator and
+// contracted the RoI axis against the row indicator on the MXU. Here, per
+// output element,
+//
+//   dmaps[b, y, x, (ph*k + pw)*D + d] = sum_n 1[hs <= y < he] 1[ws <= x < we]
+//                                       * ghat[b, n, ph, pw, d]
+//
+// with ghat = g / area (0 for empty bins) made outside the kernel, summed in
+// f32 and written in the maps' dtype. A gather form with no atomics, so the
+// result does not depend on the order blocks run in.
+//
+// Bound: each output is written once and ghat is read once, so the memory
+// rate bounds it. One block per (output row y, bin, frame): warp 0 first
+// lists, in RoI order, the RoIs whose bin row ph holds y and whose bin
+// column pw is not empty (a ballot compaction into shared memory), so the
+// block's threads then loop over the few RoIs that touch the row instead
+// of all N. Threads walk the row's (x, d) outputs with d fastest: ghat
+// loads for one RoI and the stores of one pixel coalesce.
+template <typename T>
+__global__ void psroi_direct_bwd_kernel(const float* __restrict__ ghat,
+                                        const int* __restrict__ hs,
+                                        const int* __restrict__ he,
+                                        const int* __restrict__ ws,
+                                        const int* __restrict__ we,
+                                        T* __restrict__ dmaps, int N, int H,
+                                        int W, int k, int D) {
+  extern __shared__ int smem[];
+  int* s_n = smem;            // [N] RoI index
+  int* s_x0 = smem + N;       // [N] its bin column [x0, x1)
+  int* s_x1 = smem + 2 * N;
+  __shared__ int s_count;
+  const int y = blockIdx.x;
+  const int bin = blockIdx.y;
+  const int ph = bin / k;
+  const int pw = bin % k;
+  const int64_t bn0 = (int64_t)blockIdx.z * N;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int count = 0;
+    for (int base = 0; base < N; base += 32) {
+      const int n = base + lane;
+      bool hit = false;
+      int x0 = 0, x1 = 0;
+      if (n < N) {
+        const int64_t r = (bn0 + n) * k;
+        x0 = ws[r + pw];
+        x1 = we[r + pw];
+        hit = hs[r + ph] <= y && y < he[r + ph] && x0 < x1;
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (hit) {
+        const int pos = count + __popc(mask & ((1u << lane) - 1u));
+        s_n[pos] = n;
+        s_x0[pos] = x0;
+        s_x1[pos] = x1;
+      }
+      count += __popc(mask);
+    }
+    if (lane == 0) s_count = count;
+  }
+  __syncthreads();
+  const int count = s_count;
+  const int C = k * k * D;
+  T* out = dmaps + ((int64_t)blockIdx.z * H + y) * W * C + bin * D;
+  const float* g = ghat + bin * D;
+  for (int e = threadIdx.x; e < W * D; e += blockDim.x) {
+    const int x = e / D;
+    const int d = e - x * D;
+    float acc = 0.f;
+    for (int j = 0; j < count; ++j)
+      if (s_x0[j] <= x && x < s_x1[j]) acc += g[(bn0 + s_n[j]) * C + d];
+    store(out + (int64_t)x * C + d, acc);
+  }
+}
+
+template <typename T>
+int launch_bwd(const float* ghat, const int* hs, const int* he, const int* ws,
+               const int* we, void* dmaps, int B, int N, int H, int W, int k,
+               int D, cudaStream_t stream) {
+  if (N > kMaxBwdRois) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * H * W * k * k * D == 0) return (int)cudaSuccess;
+  dim3 grid(H, k * k, B);
+  const size_t smem = sizeof(int) * 3 * (size_t)(N > 0 ? N : 1);
+  psroi_direct_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      ghat, hs, he, ws, we, static_cast<T*>(dmaps), N, H, W, k, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // maps: (B, H, W, k*k*D) contiguous; hs/he/ws/we: (B, N, k) int32;
@@ -92,5 +187,30 @@ extern "C" int dtt_psroi_direct(const void* maps, const void* hs,
     return launch<float>(maps, a, b, c, d, out, B, N, H, W, k, D, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(maps, a, b, c, d, out, B, N, H, W, k, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ghat: (B, N, k, k, D) float32 (g / area, 0 for empty bins);
+// hs/he/ws/we: (B, N, k) int32; dmaps: (B, H, W, k*k*D) of `dtype`
+// (0 = float32, 1 = bfloat16), every element written. N <= 4000.
+// Returns a cudaError_t (0 = launched).
+extern "C" int dtt_psroi_direct_bwd(const void* ghat, const void* hs,
+                                    const void* he, const void* ws,
+                                    const void* we, void* dmaps, int B, int N,
+                                    int H, int W, int k, int D, int dtype,
+                                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(ghat);
+  const int* a = static_cast<const int*>(hs);
+  const int* b = static_cast<const int*>(he);
+  const int* c = static_cast<const int*>(ws);
+  const int* d = static_cast<const int*>(we);
+  if (dtype == 0)
+    return launch_bwd<float>(g, a, b, c, d, dmaps, B, N, H, W, k, D, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(g, a, b, c, d, dmaps, B, N, H, W, k, D,
+                                     s);
   return (int)cudaErrorInvalidValue;
 }

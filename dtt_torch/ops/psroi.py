@@ -1,21 +1,25 @@
-"""Direct position-sensitive RoI pooling (counterpart of
-``dtt.ops.psroi.psroi_pool_batched_direct``).
+"""Direct position-sensitive RoI pooling and its gradient (counterpart of
+``dtt.ops.psroi.psroi_pool_batched_direct`` and ``_direct_ad``).
 
 Caffe/R-FCN bin bounds (``roi_bounds``), then per (frame, RoI, bin,
 channel) the sum of the map over the bin, divided by the bin's area, with
 empty bins 0. Channels are dtt's bin-major ``c = (ph*k + pw)*D + d``.
 
-* `psroi_sums_plain` — interval-indicator contractions in f32 (the
-  reference the kernel is held against; the CPU path).
-* `psroi_sums_cuda` — the hand-written kernel ``csrc/psroi.cu``, which
-  replaces the TPU kernel ``_psroi_direct_kernel`` (dtt/ops/psroi.py). See
-  the source for its design.
-* `psroi_sums` — takes the plain version for CPU tensors and the kernel for
-  CUDA tensors.
+* `psroi_sums_plain` / `psroi_sums_cuda` / `psroi_sums` — the bin sums:
+  interval-indicator contractions in f32 (the reference the kernel is held
+  against; the CPU path), the hand-written kernel ``csrc/psroi.cu``
+  (replaces the TPU kernel ``_psroi_direct_kernel``), and the dispatcher
+  that takes the plain version for CPU tensors and the kernel otherwise.
+* `psroi_bwd_plain` / `psroi_bwd_cuda` / `psroi_bwd` — the same three for
+  the map gradient from ghat = g/area (the kernel replaces
+  ``_psroi_direct_bwd_kernel``).
+* `psroi_pool_batched_direct` — the pool as an autograd function: the bin
+  means in the maps' dtype, the gradient in the maps' dtype, none for the
+  RoIs (the bin bounds are piecewise constant in them).
 
-Numerics: the sums stay f32 throughout. The TPU kernel rounds its bf16 row
-partial sums to bf16 before the column contraction, so bf16 results differ
-from it by that rounding.
+Numerics: the sums stay f32 throughout. The TPU kernels round their bf16
+row partial sums (forward) and ghat expansions (backward) to bf16 inside
+their matmuls, so bf16 results differ from them by that rounding.
 """
 
 from __future__ import annotations
@@ -147,18 +151,126 @@ def psroi_sums(maps: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
     return psroi_sums_cuda(maps, hs, he, ws, we)
 
 
+def psroi_bwd_plain(ghat: torch.Tensor, hs, he, ws, we, height: int,
+                    width: int, dtype: torch.dtype) -> torch.Tensor:
+    """(B, N, k, k, D) f32 ghat, (B, N, k) bounds -> (B, H, W, k*k*D) map
+    gradient in `dtype`: dF[b,y,x,p,q,d] = sum_n R[b,n,p,y] ghat[b,n,p,q,d]
+    C[b,n,q,x] in f32, the transpose of `psroi_sums_plain`."""
+    b, _, k, _, d = ghat.shape
+    r, cind = interval_indicators(hs, he, ws, we, height, width)
+    rows = [torch.einsum("bny,bnxqd->byxqd", r[:, :, ph],
+                         torch.einsum("bnqx,bnqd->bnxqd", cind,
+                                      ghat[:, :, ph].float()))
+            for ph in range(k)]
+    return torch.stack(rows, dim=3).reshape(b, height, width,
+                                            k * k * d).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = _build.load("psroi").dtt_psroi_direct_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_MAX_BWD_ROIS = 4000  # kMaxBwdRois in csrc/psroi.cu
+
+
+def psroi_bwd_cuda(ghat: torch.Tensor, hs, he, ws, we, height: int,
+                   width: int, dtype: torch.dtype) -> torch.Tensor:
+    """(B, N, k, k, D) f32 ghat, (B, N, k) int32 bounds -> (B, H, W, k*k*D)
+    map gradient in `dtype` by the CUDA kernel.
+
+    Launches on the current stream; counts its launches in
+    ``psroi_bwd_cuda.launches``.
+    """
+    bounds = (hs, he, ws, we)
+    if not ghat.is_cuda or any(t.device != ghat.device for t in bounds):
+        raise ValueError("psroi_bwd_cuda: ghat and bounds must be on one "
+                         "CUDA device")
+    if ghat.dim() != 5 or ghat.dtype != torch.float32 or dtype not in \
+            _DTYPE_CODES:
+        raise TypeError("psroi_bwd_cuda: ghat must be (B, N, k, k, D) "
+                        f"float32 and the output float32 or bfloat16, got "
+                        f"{tuple(ghat.shape)} {ghat.dtype} -> {dtype}")
+    b, n, k, k2, d = ghat.shape
+    if k2 != k or hs.shape != (b, n, k):
+        raise ValueError(f"psroi_bwd_cuda: bounds must be (B={b}, N={n}, "
+                         f"k={k}) for ghat {tuple(ghat.shape)}, got "
+                         f"{tuple(hs.shape)}")
+    if any(t.shape != hs.shape or t.dtype != torch.int32 for t in bounds):
+        raise TypeError("psroi_bwd_cuda: bounds must be four int32 tensors "
+                        "of one shape")
+    if not (ghat.is_contiguous() and all(t.is_contiguous() for t in bounds)):
+        raise ValueError("psroi_bwd_cuda: inputs must be contiguous")
+    if n > _MAX_BWD_ROIS:
+        raise ValueError(f"psroi_bwd_cuda: at most {_MAX_BWD_ROIS} RoIs per "
+                         f"frame, got {n}")
+    if height * width * k * k * d >= 2 ** 31:
+        raise ValueError("psroi_bwd_cuda: maps too large for int32 sizes")
+    out = torch.empty((b, height, width, k * k * d), dtype=dtype,
+                      device=ghat.device)
+    if out.numel() == 0:
+        return out
+    err = _bwd_entry()(ghat.data_ptr(), hs.data_ptr(), he.data_ptr(),
+                       ws.data_ptr(), we.data_ptr(), out.data_ptr(),
+                       b, n, height, width, k, d, _DTYPE_CODES[dtype],
+                       ghat.device.index,
+                       torch.cuda.current_stream(ghat.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"psroi backward kernel launch failed: cudaError "
+                           f"{err}")
+    psroi_bwd_cuda.launches += 1
+    return out
+
+
+psroi_bwd_cuda.launches = 0
+
+
+def psroi_bwd(ghat: torch.Tensor, hs, he, ws, we, height: int, width: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Map gradient: the plain version on CPU tensors, the CUDA kernel
+    otherwise (which raises off CUDA)."""
+    if ghat.device.type == "cpu":
+        return psroi_bwd_plain(ghat, hs, he, ws, we, height, width, dtype)
+    return psroi_bwd_cuda(ghat, hs, he, ws, we, height, width, dtype)
+
+
+class _DirectPool(torch.autograd.Function):
+    """Bin means of `maps` over integer bounds; the backward is the pool
+    backward of ghat = g/area (0 for empty bins), as dtt's ``_direct_ad``."""
+
+    @staticmethod
+    def forward(ctx, maps, hs, he, ws, we, area):
+        ctx.save_for_backward(hs, he, ws, we, area)
+        ctx.maps_shape = maps.shape
+        ctx.maps_dtype = maps.dtype
+        sums = psroi_sums(maps, hs, he, ws, we)
+        out = torch.where(area > 0, sums / area.clamp(min=1.0),
+                          torch.zeros((), device=sums.device))
+        return out.to(maps.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        hs, he, ws, we, area = ctx.saved_tensors
+        ghat = torch.where(area > 0, g.float() / area.clamp(min=1.0),
+                           torch.zeros((), device=g.device)).contiguous()
+        _, h, w, _ = ctx.maps_shape
+        dmaps = psroi_bwd(ghat, hs, he, ws, we, h, w, ctx.maps_dtype)
+        return dmaps, None, None, None, None, None
+
+
 def psroi_pool_batched_direct(features: torch.Tensor, rois: torch.Tensor,
                               spatial_scale: float, group_size: int
                               ) -> torch.Tensor:
     """(B, H, W, k*k*D) maps, (B, N, 4) RoIs -> (B, N, k, k, D) bin means
-    in the maps' dtype."""
+    in the maps' dtype; differentiable in the maps."""
     b, h, w, c = features.shape
     k = group_size
     if c % (k * k):
         raise ValueError(f"channels {c} not divisible by k^2={k * k}")
-    hs, he, ws, we = roi_bounds(rois, spatial_scale, k, h, w)
-    sums = psroi_sums(features, hs, he, ws, we)
+    hs, he, ws, we = (t.contiguous() for t in
+                      roi_bounds(rois.detach(), spatial_scale, k, h, w))
     area = bin_areas(hs, he, ws, we)[..., None]
-    out = torch.where(area > 0, sums / area.clamp(min=1.0),
-                      torch.zeros((), device=sums.device))
-    return out.to(features.dtype)
+    return _DirectPool.apply(features, hs, he, ws, we, area)

@@ -13,8 +13,9 @@ parameter or buffer ``a.b.c.weight|kernel|bias|scale`` reads the flax leaf
 * channel orders unchanged: ps channels stay bin-major, RPN cls logits stay
   anchor-major.
 
-Values are cast to each module's dtype on load, as the reference casts its
-float32 params to the compute dtype.
+The model keeps the values in float32, as the reference keeps its params,
+and casts them to the compute dtype at use. ``to_jax_tree`` is the reverse
+bridge: the model's values, or their gradients, in the flax layout.
 """
 
 from __future__ import annotations
@@ -40,6 +41,14 @@ def _to_torch_layout(torch_key: str, value: np.ndarray) -> np.ndarray:
         return value.transpose(3, 2, 0, 1)
     if torch_key.split(".")[0] in _PS_HEADS and torch_key.endswith(".kernel"):
         return value[0, 0]                       # (1, 1, I, O) -> (I, O)
+    return value
+
+
+def _to_flax_layout(torch_key: str, value: np.ndarray) -> np.ndarray:
+    if torch_key.endswith(".weight"):            # nn.Conv2d: OIHW -> HWIO
+        return value.transpose(2, 3, 1, 0)
+    if torch_key.split(".")[0] in _PS_HEADS and torch_key.endswith(".kernel"):
+        return value[None, None]                 # (I, O) -> (1, 1, I, O)
     return value
 
 
@@ -84,6 +93,27 @@ def load_jax_params(model: DnT, tree: dict) -> DnT:
         raise KeyError(f"flax params have {extra} leaves the model lacks")
     model.load_state_dict(loaded)
     return model
+
+
+def to_jax_tree(model: DnT, grads: bool = False) -> dict:
+    """The model's parameters and buffers as a flax variables tree
+    (``{"params": {...}}`` of float32 numpy arrays, OIHW -> HWIO and
+    (I, O) -> (1, 1, I, O)), the inverse of `load_jax_params`. With
+    `grads`, each leaf is the parameter's ``.grad`` instead, and zeros
+    where there is none (buffers, frozen parameters)."""
+    named = dict(model.named_parameters())
+    params: dict = {}
+    for key, value in model.state_dict().items():
+        if grads:
+            g = named[key].grad if key in named else None
+            value = torch.zeros_like(value) if g is None else g
+        v = value.detach().float().cpu().contiguous().numpy()
+        path = _flax_path(key)
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(_to_flax_layout(key, v))
+    return {"params": params}
 
 
 def from_jax_params(tree: dict, cfg: ModelConfig, device=None) -> DnT:

@@ -70,3 +70,71 @@ def test_psroi_kernel_matches_plain(cuda, dtype):
     assert got.dtype == torch.float32 and got.shape == (b, n, k, k, d)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d,s", [((2, 12, 20, 64), 2, 1),
+                                       ((3, 9, 37, 40), 8, 2)])
+def test_correlation_bwd_kernel_matches_plain(cuda, dtype, shape, d, s):
+    """Both gradients, f32 sums of up to 81 products in another order:
+    1e-5 in f32; bf16 outputs within one bf16 ulp (rtol 8e-3)."""
+    g = torch.Generator().manual_seed(1)
+    f1, f2 = (torch.randn(shape, generator=g).to(cuda, dtype)
+              for _ in range(2))
+    go = torch.randn((*shape[:3], tcorr.num_corr_channels(d, s)),
+                     generator=g).to(cuda, dtype)
+    before = tcorr.correlation_bwd_cuda.launches
+    got = tcorr.correlation_bwd_cuda(f1, f2, go, d, s)
+    torch.cuda.synchronize()
+    assert tcorr.correlation_bwd_cuda.launches == before + 1
+    want = tcorr.correlation_bwd_plain(f1, f2, go, d, s)
+    tol = (dict(rtol=0, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=8e-3, atol=1e-6))
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == f1.shape
+        torch.testing.assert_close(x.float(), w.float(), **tol)
+
+
+def test_correlation_autograd_launches_both_kernels(cuda):
+    f1, f2 = (torch.randn(1, 6, 10, 32, device=cuda, requires_grad=True)
+              for _ in range(2))
+    before = (tcorr.correlation_cuda.launches,
+              tcorr.correlation_bwd_cuda.launches)
+    tcorr.correlation(f1, f2, 2, 1).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tcorr.correlation_cuda.launches,
+            tcorr.correlation_bwd_cuda.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert f1.grad is not None and f2.grad is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,k,d,n", [(2, 10, 14, 7, 8, 16),
+                                         (3, 9, 13, 3, 31, 70)])
+def test_psroi_bwd_kernel_matches_plain(cuda, dtype, b, h, w, k, d, n):
+    """The map gradient through the pool's autograd: f32 sums of ghat in
+    RoI order vs the plain contraction (1e-5 in f32; bf16 outputs within
+    one bf16 ulp)."""
+    rng = np.random.RandomState(2)
+    xy = rng.uniform(-20, w * 16, (b, n, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(0, 160, (b, n, 2))], axis=-1)
+    rois[:, 0] = [0, 0, w * 16 - 1, h * 16 - 1]
+    rois[:, 1] = [40.5, 23.5, 72.5, 88.5]
+    rois[:, 2] = [41.5, 24.5, 41.5, 24.5]
+    rois = torch.from_numpy(rois.astype(np.float32)).to(cuda)
+    maps = torch.from_numpy(rng.randn(b, h, w, k * k * d).astype(
+        np.float32)).to(cuda, dtype).requires_grad_()
+    go = torch.from_numpy(rng.randn(b, n, k, k, d).astype(np.float32)).to(
+        cuda, dtype)
+    before = tpsroi.psroi_bwd_cuda.launches
+    tpsroi.psroi_pool_batched_direct(maps, rois, 1 / 16, k).backward(go)
+    torch.cuda.synchronize()
+    assert tpsroi.psroi_bwd_cuda.launches == before + 1
+    bounds = tpsroi.roi_bounds(rois, 1 / 16, k, h, w)
+    area = tpsroi.bin_areas(*bounds)[..., None]
+    ghat = torch.where(area > 0, go.float() / area.clamp(min=1.0), 0.0)
+    want = tpsroi.psroi_bwd_plain(ghat, *bounds, h, w, dtype)
+    assert maps.grad.dtype == dtype and maps.grad.shape == maps.shape
+    tol = (dict(rtol=0, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=8e-3, atol=1e-6))
+    torch.testing.assert_close(maps.grad.float(), want.float(), **tol)
