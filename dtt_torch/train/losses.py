@@ -66,10 +66,11 @@ def _pair_sum(per_frame: torch.Tensor) -> torch.Tensor:
 
 
 def _rfcn_losses(cfg: Config, cls_score: torch.Tensor,
-                 bbox_pred: torch.Tensor, tgts: RoITargets,
-                 decisions: dict | None = None):
+                 bbox_pred: torch.Tensor, tgts: RoITargets):
     """Per-frame cls CE + box smooth-L1, OHEM-ranked if configured:
-    (cls (F,), box (F,), fg_ce (F,)) for F frames of N RoIs.
+    (cls (F,), box (F,), fg_ce (F,), sel (F, N)) for F frames of N RoIs,
+    where `sel` marks the RoIs the losses average over (the OHEM selection,
+    else every valid RoI).
 
     OHEM with ``ohem_nms_thresh > 0`` runs NMS over the loss-ranked RoIs
     first (R-FCN practice), so near-duplicates of one hard object cannot
@@ -96,7 +97,7 @@ def _rfcn_losses(cfg: Config, cls_score: torch.Tensor,
     if not cfg.train.ohem:
         denom = valid.sum(-1).clamp(min=1)
         return (torch.where(valid, ce, 0.0).sum(-1) / denom,
-                box.sum(-1) / denom, fg_ce)
+                box.sum(-1) / denom, fg_ce, valid)
     k = min(cfg.train.ohem_top_k, per_roi.shape[-1])
     ranked = per_roi.detach()
     if cfg.train.ohem_nms_thresh > 0:
@@ -111,11 +112,9 @@ def _rfcn_losses(cfg: Config, cls_score: torch.Tensor,
     else:
         idx = _top_k_idx(torch.where(valid, ranked, -torch.inf), k)
         sel = torch.zeros_like(valid).scatter(-1, idx, True) & valid
-    if decisions is not None:
-        decisions["ohem_sel"] = sel
     denom = sel.sum(-1).clamp(min=1)
     return (torch.where(sel, ce, 0.0).sum(-1) / denom,
-            torch.where(sel, box, 0.0).sum(-1) / denom, fg_ce)
+            torch.where(sel, box, 0.0).sum(-1) / denom, fg_ce, sel)
 
 
 def forward_heads(cfg: Config, model: DnT, batch: dict):
@@ -164,8 +163,7 @@ def assign_targets(cfg: Config, feats: FrameFeats, anchors: torch.Tensor,
 
 
 def head_losses(cfg: Config, feats: FrameFeats, track_maps: torch.Tensor,
-                assignment: Assignment, decisions: dict | None = None
-                ) -> LossBreakdown:
+                assignment: Assignment) -> LossBreakdown:
     """RPN losses, the pooled R-FCN losses of both frames and the track
     loss of frame t, from the features and the assignment."""
     mcfg = cfg.model
@@ -180,8 +178,8 @@ def head_losses(cfg: Config, feats: FrameFeats, track_maps: torch.Tensor,
                                   spatial_scale, impl)
     bbox_pred = pool_vote_batched(mcfg, feats.bbox_maps, tgts.rois,
                                   spatial_scale, impl)
-    l_rcls, l_rbox, l_fg_ce = _rfcn_losses(cfg, cls_score, bbox_pred, tgts,
-                                           decisions)
+    l_rcls, l_rbox, l_fg_ce, _ = _rfcn_losses(cfg, cls_score, bbox_pred,
+                                              tgts)
 
     # tracking head: frame-t RoIs regressed to the frame-t+1 ground truth
     t = slice(0, None, 2)
@@ -202,24 +200,15 @@ def head_losses(cfg: Config, feats: FrameFeats, track_maps: torch.Tensor,
 
 
 def batch_loss(cfg: Config, model: DnT, anchors: torch.Tensor, batch: dict,
-               draws: Draws, decisions: dict | None = None
-               ) -> tuple[torch.Tensor, LossBreakdown]:
+               draws: Draws) -> tuple[torch.Tensor, LossBreakdown]:
     """Mean D&T loss over a batch of B pairs on the model's device.
 
     batch: images (B, 2, H, W, 3) uint8 or mean-subtracted float,
     gt_boxes (B, 2, G, 4), gt_labels (B, G) int64, gt_valid (B, 2, G),
     im_scale (B,), im_size (B, 2). `draws`: the sampling uniforms
-    (``sample_draws``). If `decisions` is a dict, it receives the discrete
-    decisions per frame: anchor labels, proposal validity and boxes, RoI
-    labels and validity, and the OHEM selection.
+    (``sample_draws``).
     """
     feats, track_maps = forward_heads(cfg, model, batch)
     assignment = assign_targets(cfg, feats, anchors, batch, draws)
-    lb = head_losses(cfg, feats, track_maps, assignment, decisions)
-    if decisions is not None:
-        decisions.update(anchor_labels=assignment.anchors.labels,
-                         proposal_valid=assignment.proposals.valid,
-                         proposal_rois=assignment.proposals.rois,
-                         roi_labels=assignment.rois.labels,
-                         roi_valid=assignment.rois.valid)
+    lb = head_losses(cfg, feats, track_maps, assignment)
     return lb.total, lb

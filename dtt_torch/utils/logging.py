@@ -1,4 +1,4 @@
-"""Metrics logging: structured jsonl + optional TensorBoard (a copy of
+"""Metrics logging: one json line per log call (the jsonl writer of
 ``dtt.utils.logging``). The train step returns a metrics dict; this module
 is the host-side sink.
 """
@@ -12,45 +12,20 @@ from typing import Mapping
 
 
 class MetricLogger:
-    """Writes one json line per log call; optionally mirrors to TensorBoard."""
+    """Appends one json line per log call to ``out_dir/metrics.jsonl``."""
 
-    def __init__(self, out_dir: str, use_tensorboard: bool = False,
-                 filename: str = "metrics.jsonl", run_name: str | None = None):
+    def __init__(self, out_dir: str, run_name: str | None = None):
         os.makedirs(out_dir, exist_ok=True)
-        self.path = os.path.join(out_dir, filename)
+        self.path = os.path.join(out_dir, "metrics.jsonl")
         self.run_name = run_name  # cfg.exp_name: stamped into every row
-        self._tb = None
-        if use_tensorboard:
-            try:
-                from torch.utils.tensorboard import SummaryWriter
-                self._tb = SummaryWriter(os.path.join(out_dir, "tb"))
-            except Exception as e:  # pragma: no cover
-                print(f"tensorboard unavailable ({e}); jsonl only")
         self._t0 = time.perf_counter()
 
-    def log(self, step: int, metrics: Mapping[str, float], prefix: str = ""):
+    def log(self, step: int, metrics: Mapping[str, float]):
         row = {"step": int(step), "wall_time": round(time.perf_counter() - self._t0, 3)}
         if self.run_name:
             row["exp"] = self.run_name
         for k, v in metrics.items():
-            row[prefix + k] = float(v)
+            row[k] = float(v)
         with open(self.path, "a") as f:
             f.write(json.dumps(row) + "\n")
-        if self._tb is not None:
-            for k, v in metrics.items():
-                self._tb.add_scalar(prefix + k, float(v), int(step))
         return row
-
-    def close(self):
-        if self._tb is not None:
-            self._tb.close()
-
-
-def read_metrics(path: str) -> list[dict]:
-    rows = []
-    with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if line:
-                rows.append(json.loads(line))
-    return rows

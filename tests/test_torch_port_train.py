@@ -1,8 +1,8 @@
 """dtt_torch's training slice held against dtt's on the CPU, at the tiny
 training config of ``tests/test_train.py`` (64x96 canvas, float32):
-``batch_loss`` (decisions, losses, gradients) with OHEM on and off, one
-optimizer update against dtt's optax chain, the synthetic batch, and the
-checkpoint round trip.
+``batch_loss``'s stages (decisions, losses, gradients) with OHEM on and
+off, one optimizer update against dtt's optax chain, the synthetic batch,
+and the checkpoint round trip.
 
 Both sides get the same weights (dtt's ``model.init`` through
 ``from_jax_params``) and the same batch; the port gets the uniforms that
@@ -14,6 +14,7 @@ rtol 2e-4 / atol 1e-5 on losses, rtol 5e-3 / atol 1e-5 per gradient leaf.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -36,11 +37,12 @@ from tests.test_train import tiny_config
 
 from dtt_torch.core import config as tcfg
 from dtt_torch.data.synthetic import synthetic_batch
+from dtt_torch.models import dnt as tdnt
 from dtt_torch.models.targets import Draws
+from dtt_torch.train import losses as tlosses
 from dtt_torch.train import trainer as ttrainer
 from dtt_torch.train.checkpoint import (latest_checkpoint, restore_checkpoint,
                                         save_checkpoint)
-from dtt_torch.train.losses import batch_loss
 from dtt_torch.utils import params as tparams
 from dtt_torch.utils.params import from_jax_params, to_jax_tree
 
@@ -146,6 +148,20 @@ def _jax_decisions(cfg, model, params, anchors, batch, key):
     return {k: jnp.stack(v, axis=1) for k, v in out.items()}
 
 
+def _torch_decisions(cfg, feats, asg):
+    """The port's discrete decisions from its stages: the assignment's,
+    and the OHEM selection of ``_rfcn_losses`` on the pooled votes."""
+    tgts = asg.rois
+    with torch.no_grad():
+        cls, bbox = (tdnt.pool_vote_batched(cfg.model, m, tgts.rois, 1 / 16)
+                     for m in (feats.cls_maps, feats.bbox_maps))
+        sel = tlosses._rfcn_losses(cfg, cls, bbox, tgts)[3]
+    return dict(anchor_labels=asg.anchors.labels,
+                proposal_valid=asg.proposals.valid,
+                proposal_rois=asg.proposals.rois, roi_labels=tgts.labels,
+                roi_valid=tgts.valid, ohem_sel=sel)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     """dtt's initial variables for the tiny config (the same tree for
@@ -186,13 +202,14 @@ def run(request, jax_params):
     draws = _jax_draws(key, anchors.shape[0],
                        tc.model.rpn.post_nms_top_n_train
                        + tc.input.max_gt_boxes)
-    decisions = {}
-    _, tlb = batch_loss(tc, tmodel, torch.from_numpy(anchors),
-                        ttrainer.batch_to_device(batch, torch.device("cpu")),
-                        draws, decisions)
+    tbatch = ttrainer.batch_to_device(batch, torch.device("cpu"))
+    feats, track_maps = tlosses.forward_heads(tc, tmodel, tbatch)
+    asg = tlosses.assign_targets(tc, feats, torch.from_numpy(anchors),
+                                 tbatch, draws)
+    tlb = tlosses.head_losses(tc, feats, track_maps, asg)
     tlb.total.backward()
     return dict(cfg=cfg, tcfg=tc, jlb=jlb, jgrads=jgrads, jdec=jdec,
-                tlb=tlb, tdec=decisions,
+                tlb=tlb, tdec=_torch_decisions(tc, feats, asg),
                 tgrads=to_jax_tree(tmodel, grads=True))
 
 
@@ -349,3 +366,16 @@ def test_train_step_and_checkpoint_round_trip(tmp_path):
                   for s in fresh.optimizer.state.values()]
     assert len(bufs) == len(fresh_bufs) > 0
     assert all(torch.equal(a, b) for a, b in zip(bufs, fresh_bufs))
+
+
+def test_metric_logger_writes_json_lines(tmp_path):
+    from dtt_torch.utils.logging import MetricLogger
+    logger = MetricLogger(str(tmp_path / "run"), run_name="exp")
+    logger.log(1, {"total": 2.5})
+    row = logger.log(2, {"total": 1.0})
+    with open(logger.path) as f:
+        rows = [json.loads(line) for line in f]
+    assert rows[1] == row
+    assert [r["step"] for r in rows] == [1, 2]
+    assert rows[0]["total"] == 2.5 and rows[1]["total"] == 1.0
+    assert all(r["exp"] == "exp" for r in rows)

@@ -120,7 +120,6 @@ def main(argv=None):
         if step % cfg.train.checkpoint_every == 0:
             print(f"checkpoint: {save_checkpoint(args.out, state, cfg)}")
     save_checkpoint(args.out, state, cfg)
-    logger.close()
     print(f"done at step {state.step}")
 
 
