@@ -1,5 +1,5 @@
-"""Drive dtt_torch's video-mode inference and training on one CUDA card
-and check them.
+"""Drive dtt_torch's video-mode inference, training and evaluation on one
+CUDA card and check them.
 
 Run from the repository root, with one card visible:
 
@@ -12,25 +12,34 @@ Phases, in order; any failure ends the script with a non-zero exit:
    started together);
 3. per kernel and per path that runs it (correlation and PSRoI pool
    forward on the video and the train path, their backwards on the train
-   path), at the shapes that path gives it, in bfloat16: every call of one
-   video chunk or one train step against its plain PyTorch version (stated
+   path, correlation and the SAT pool on the tau-strided pair path), at
+   the shapes that path gives it: every call of one video chunk, one train
+   step or one pair batch against its plain PyTorch version (stated
    tolerance), and CUDA-event times of those calls through the kernel,
    the plain version and, where one exists, one PyTorch call computing the
    same function, beside the least time the card could take;
 4. small references: the tiny test config in float32 through the kernels
-   on the card against the plain versions on the CPU, for the video path
-   and for one train step (same weights, same injected draws; losses,
-   every gradient leaf and the updated parameters);
+   on the card against the plain versions on the CPU, for the video path,
+   for one train step (same weights, same injected draws; losses, every
+   gradient leaf and the updated parameters) and for the pair path at
+   tau=2 with the SAT pool, tube linking included;
 5. the video path: ``Config()`` at full width (ResNet-101, 608x1088, bf16,
    31 classes), random flax-layout weights from a numpy seed carried over
    by ``from_jax_params``, and ``evaluate_snippet_video`` over a uint8
-   snippet of several chunks, with its launch counts and stage split;
+   snippet of several chunks, with its launch counts and the stage split
+   of a video chunk and of a pair batch;
 6. the training path: ``Config()`` at full width, the same weights,
    ``create_train_state``/``make_train_step`` on synthetic uint8 pairs:
    one warm-up step and several timed ones, its launch counts (read from
    the timed run), checks of the losses, the frozen and trained leaves
    and a checkpoint round trip, a few steps under ``torch.profiler`` (the
-   device's busy share, kernels per step) and one step split into stages.
+   device's busy share, kernels per step) and one step split into stages;
+7. the evaluation path: the same weights written as a port checkpoint and
+   ``eval_torch.main`` run on it twice at full width, tau=2 on the pair
+   path with the SAT pool (``roi.eval_pool_impl=pallas_mm``) and tau=1 on
+   the video path with tube linking, each with its launch counts, its
+   mAP line and its wall time split into detection, linking,
+   interpolation + NMS and ``eval_detections``.
 
 It prints a JSON line of the kernels' numbers before the last line, one
 entry per kernel and path, each with the launches of that path's run, and
@@ -40,6 +49,8 @@ without JAX. Without a CUDA card it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -52,10 +63,12 @@ import torch
 from dtt_torch.core.anchors import grid_anchors_for
 from dtt_torch.core.config import Config
 from dtt_torch.data.synthetic import synthetic_batch
-from dtt_torch.eval.inference import evaluate_snippet_video, make_video_step
+from dtt_torch.eval.inference import (evaluate_snippet, evaluate_snippet_video,
+                                      link_snippet, make_pair_step,
+                                      make_video_step)
 from dtt_torch.models.dnt import (Detections, cosine_prep,
                                   decode_detections_batched, is_frozen,
-                                  normalize_device_images)
+                                  normalize_device_images, pool_vote_fused)
 from dtt_torch.models.rpn import proposal_layer, softmax
 from dtt_torch.models.targets import sample_draws
 from dtt_torch.ops import _build
@@ -67,14 +80,24 @@ from dtt_torch.train.trainer import (apply_gradients, batch_to_device,
                                      create_train_state, make_train_step)
 from dtt_torch.utils.params import from_jax_params, init_jax_params
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
+import eval_torch
+
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor FLOP/s and
+# float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
 
 FRAMES_PER_CHUNK = 17        # 16 pairs per chunk
 SNIPPET_FRAMES = 40          # 3 chunks: 16 + 16 + 8 pairs
 CORR_TOL = 8e-3              # bf16 outputs in [-1, 1]: one bf16 ulp
 PSROI_TOL = 1e-3             # f32 sums of the same bf16 values, other order
+PAIR_BATCH = 4               # pairs per batch of the tau-strided pair step
+# SAT bin sums, kernel vs plain on one table: the same two f32 differences
+# in the same order, so 0 is expected; 1e-6 of the largest |sum| would
+# still flag a wrong corner or a reordered difference, which move a sum
+# by the SAT's own magnitude
+PSROI_MM_REL_TOL = 1e-6
 BWD_REL_TOL = 8e-3           # bf16 gradients: one bf16 ulp of the largest
 TRAIN_STEPS = 6              # timed full-width train steps (after 1 warm-up)
 TRAIN_REF_LOSS_TOL = 1e-4    # tiny f32 train step, card vs CPU, losses
@@ -91,7 +114,14 @@ PROFILE_STEPS = 3            # full-width train steps under torch.profiler
 KERNELS = {"correlation": corr_ops.correlation_cuda,
            "correlation_bwd": corr_ops.correlation_bwd_cuda,
            "psroi_direct": psroi_ops.psroi_sums_cuda,
-           "psroi_direct_bwd": psroi_ops.psroi_bwd_cuda}
+           "psroi_direct_bwd": psroi_ops.psroi_bwd_cuda,
+           "psroi_mm": psroi_ops.psroi_mm_sums_cuda}
+# the kernels each driven path must launch
+PATH_KERNELS = {"video": ("correlation", "psroi_direct"),
+                "train": ("correlation", "correlation_bwd", "psroi_direct",
+                          "psroi_direct_bwd"),
+                "pair": ("correlation", "psroi_mm"),
+                "eval_video": ("correlation", "psroi_direct")}
 
 
 def log(msg: str) -> None:
@@ -113,9 +143,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = BF16_OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / BF16_OPS_PER_S
+    t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -157,7 +188,8 @@ def corr_inputs(cfg: Config, pairs: int, seed: int) -> list:
 
 def phase_correlation(cfg: Config, path: str, pairs: int, seed: int) -> dict:
     """The correlation forward of one call of `path` (a video chunk's 16
-    pairs, or a train step's pair) at the 3 scales."""
+    pairs, a train step's pair or a pair batch's 4 pairs) at the 3
+    scales."""
     t = cfg.model.track
     d, s = t.max_displacement, t.stride
     cases = corr_inputs(cfg, pairs, seed)
@@ -255,6 +287,13 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def check_launches(path: str, launches: dict) -> None:
+    for name in PATH_KERNELS[path]:
+        if launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path} path")
 
 
 def pool_cases(cfg: Config, path: str) -> list:
@@ -399,6 +438,66 @@ def phase_psroi_bwd(cfg: Config, seed: int) -> dict:
             "library_ms": library_ms}
 
 
+def phase_psroi_mm(cfg: Config, seed: int) -> dict:
+    """The SAT pool's bin sums of one pair batch (the fused maps of its
+    PAIR_BATCH first frames at the test proposals, float32) against the
+    plain version; the SAT build is timed on its own."""
+    m = cfg.model
+    k = m.roi.ps_grid
+    hh, ww = cfg.input.canvas_height, cfg.input.canvas_width
+    h, w = hh // 16, ww // 16
+    dc = m.num_classes
+    d = dc + (8 if m.roi.class_agnostic else 4 * dc) + 4
+    b, n = PAIR_BATCH, m.rpn.post_nms_top_n_test
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    maps = torch.randn(b, h, w, k * k * d, device="cuda", generator=g)
+    table = psroi_ops.sat(maps).contiguous()
+    bd = [x.contiguous() for x in psroi_ops.roi_bounds(
+        draw_rois(np.random.RandomState(seed), b, n, hh, ww),
+        1.0 / m.anchors.feat_stride, k, h, w)]
+    got = psroi_ops.psroi_mm_sums_cuda(table, *bd)
+    torch.cuda.synchronize()
+    want = psroi_ops.psroi_mm_sums_plain(table, *bd)
+    err = (got - want).abs().max().item()
+    tol = PSROI_MM_REL_TOL * want.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"psroi SAT kernel vs plain (pair): max abs err "
+                             f"{err} > {tol}")
+    ms = time_ms(lambda: psroi_ops.psroi_mm_sums_cuda(table, *bd), iters=20)
+    plain_ms = time_ms(lambda: psroi_ops.psroi_mm_sums_plain(table, *bd),
+                       iters=3, warmup=1)
+    sat_ms = time_ms(lambda: psroi_ops.sat(maps), iters=20)
+    r, c = psroi_ops.row_col_indicators(*bd, h, w)
+    s6 = table.reshape(b, h + 1, w + 1, k, k, d)
+    library = lambda: torch.einsum("bnpy,byxpqd,bnqx->bnpqd", r, s6, c)
+    lib_err = (library() - got).abs().max().item()
+    library_ms = time_ms(library, iters=3, warmup=1)
+    # bytes this run's bins need: each distinct SAT corner of a non-empty
+    # bin read once (D channels), the sums written once, the bounds read
+    hs, he, ws, we = (x.long() for x in bd)
+    slab = ((torch.arange(b, device="cuda")[:, None, None, None] * k
+             + torch.arange(k, device="cuda")[:, None]) * k
+            + torch.arange(k, device="cuda")) * ((h + 1) * (w + 1))
+    full = psroi_ops.bin_areas(*bd) > 0                     # (B, N, k, k)
+    keys = torch.cat([(slab + y[..., :, None] * (w + 1) + x[..., None, :])[full]
+                      for y in (hs, he) for x in (ws, we)])
+    corners = torch.unique(keys).numel()
+    nbytes = corners * d * 4 + got.numel() * 4 + 4 * bd[0].numel() * 4
+    bound_ms, bound_by = bound(nbytes, 3 * got.numel(), F32_OPS_PER_S)
+    log(f"psroi_mm [pair]: SAT {tuple(table.shape)} f32, {n} RoIs, k={k}, "
+        f"D={d}: max_abs_err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms (f32, "
+        f"max abs diff {lib_err:.3g}), SAT build {sat_ms:.4f} ms, bound_us "
+        f"{bound_ms * 1e3:.1f} ({bound_by}, {nbytes / 1e6:.1f} MB: "
+        f"{corners} distinct corners of non-empty bins x {d} channels)")
+    return {"name": "psroi_mm", "path": "pair", "route": "cuda",
+            "source": "dtt_torch/ops/csrc/psroi.cu",
+            "replaces": "dtt/ops/psroi.py:311",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def tiny_config() -> Config:
     cfg = Config()
     m = cfg.model
@@ -434,6 +533,47 @@ def phase_reference() -> None:
         f"max |d box| {np.abs(gb - cb).max():.3g}")
 
 
+def phase_pair_reference() -> None:
+    """Tiny config, float32, SAT pool: the tau=2 pair step and tube
+    linking through the kernels on the card against the plain versions on
+    the CPU. `valid`, tube validity and claimed detections equal; scores
+    and rescored scores to 1e-4, boxes to 1e-2 (float32 roundoff of a
+    whole network, as the video reference)."""
+    cfg = tiny_config()
+    cfg = cfg.replace(model=cfg.model.replace(
+        roi=cfg.model.roi.replace(eval_pool_impl="pallas_mm")))
+    tree = init_jax_params(cfg.model, seed=3)
+    frames = np.random.RandomState(5).randint(0, 256, (7, 64, 96, 3)).astype(
+        np.uint8)
+    outs = {}
+    before = psroi_ops.psroi_mm_sums_cuda.launches
+    for dev in ("cpu", "cuda"):
+        model = from_jax_params(tree, cfg.model, device=dev)
+        step = make_pair_step(cfg, model, 3, device=dev)
+        boxes, scores, valid, tracked, ts = evaluate_snippet(
+            cfg, step, frames, tau=2, im_hw=(56, 80))
+        _, tubes = link_snippet(cfg, boxes, scores, tracked, valid, dev)
+        outs[dev] = (boxes, scores, valid, tracked, tubes)
+    if psroi_ops.psroi_mm_sums_cuda.launches == before:
+        raise AssertionError("the pair reference did not launch the SAT "
+                             "kernel")
+    (cb, cs, cv, ct, ctub), (gb, gs, gv, gt, gtub) = outs["cpu"], outs["cuda"]
+    np.testing.assert_array_equal(gv, cv)
+    np.testing.assert_array_equal(gtub.tube_valid, ctub.tube_valid)
+    np.testing.assert_array_equal(gtub.det_in_tube, ctub.det_in_tube)
+    np.testing.assert_allclose(gs, cs, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gtub.rescored, ctub.rescored, rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(gb, cb, rtol=0, atol=1e-2)
+    np.testing.assert_allclose(gt, ct, rtol=0, atol=1e-2)
+    log(f"pair reference: tiny config f32, pallas_mm, tau=2 keyframes {ts}, "
+        f"card vs CPU: {int(gv.sum())} valid detections equal, "
+        f"{int(gtub.tube_valid.sum())} tubes and {int(gtub.det_in_tube.sum())}"
+        f" claimed detections equal; max |d score| {np.abs(gs - cs).max():.3g}"
+        f", max |d rescored| {np.abs(gtub.rescored - ctub.rescored).max():.3g}"
+        f", max |d box| {np.abs(gb - cb).max():.3g}")
+
+
 def stage_timer():
     """(stage, times): ``stage(name, fn)`` runs fn after a synchronize and
     synchronizes after it, recording host wall ms (launches included) and
@@ -462,16 +602,24 @@ def log_stages(what: str, times: dict) -> None:
     log(f"stages ({what}, synchronized): {parts}; sum {total:.2f} ms wall")
 
 
-def phase_stages(cfg: Config, model, frames: np.ndarray) -> None:
-    """One chunk's time by stage, the step's stages run one by one with a
-    synchronize after each."""
+def phase_stages(cfg: Config, model, frames: np.ndarray, path: str) -> None:
+    """One video chunk's or one pair batch's time by stage, the step's
+    stages run one by one with a synchronize after each. The video chunk
+    pairs adjacent frames and pools directly; the pair batch pairs frames
+    0::2 with 1::2 and pools off the SAT (``pallas_mm``)."""
     mcfg, ecfg = cfg.model, cfg.eval
     h, w = cfg.input.canvas_height, cfg.input.canvas_width
     anchors = torch.from_numpy(grid_anchors_for(mcfg.anchors, h // 16,
                                                 w // 16)).cuda()
     im_hw = torch.tensor([h, w], dtype=torch.float32, device="cuda")
-    chunk = torch.from_numpy(frames[:FRAMES_PER_CHUNK]).cuda()
-    k = mcfg.roi.ps_grid
+    if path == "video":
+        n, halves = FRAMES_PER_CHUNK, (slice(None, -1), slice(1, None))
+        what = f"one {n}-frame chunk"
+    else:
+        n, halves = 2 * PAIR_BATCH, (slice(0, None, 2), slice(1, None, 2))
+        mcfg = mcfg.replace(roi=mcfg.roi.replace(eval_pool_impl="pallas_mm"))
+        what = f"one {PAIR_BATCH}-pair batch, SAT pool"
+    chunk = torch.from_numpy(frames[:n]).cuda()
     dc = mcfg.num_classes
     db = 8 if mcfg.roi.class_agnostic else 4 * dc
     stage, times = stage_timer()
@@ -481,23 +629,21 @@ def phase_stages(cfg: Config, model, frames: np.ndarray) -> None:
             images = stage("normalize", lambda: normalize_device_images(
                 chunk, im_hw, cfg.input.pixel_means))
             feats = stage("trunk", lambda: model.frame_trunk(images))
-            f_t = feats.slice(slice(None, -1))
-            f_tau = feats.slice(slice(1, None))
+            f_t, f_tau = (feats.slice(x) for x in halves)
             fused = stage("corr+fused_psmaps",
                           lambda: model.fused_psmaps(f_t, f_tau))
             props = stage("proposals", lambda: proposal_layer(
                 f_t.rpn_cls, f_t.rpn_bbox, anchors, im_hw[0], im_hw[1], 1.0,
                 mcfg.rpn))
-            pooled = stage("pool", lambda: psroi_ops.psroi_pool_batched_direct(
-                fused.to(model.dtype).contiguous(), props.rois,
-                1.0 / mcfg.anchors.feat_stride, k).float().mean(dim=(2, 3)))
+            pooled = stage("pool", lambda: pool_vote_fused(mcfg, fused,
+                                                           props.rois))
             det = Detections(props.rois, props.valid,
                              softmax(pooled[..., :dc]), pooled[..., dc:dc + db])
             stage("decode+nms", lambda: decode_detections_batched(
                 mcfg, det, im_hw[0], im_hw[1], ecfg.score_thresh,
                 ecfg.nms_thresh, ecfg.max_per_class,
                 track_deltas=pooled[..., dc + db:]))
-    log_stages(f"one {FRAMES_PER_CHUNK}-frame chunk", times)
+    log_stages(what, times)
 
 
 def phase_main_path(cfg: Config, card: str, tree: dict) -> dict:
@@ -525,10 +671,7 @@ def phase_main_path(cfg: Config, card: str, tree: dict) -> dict:
     dt = time.perf_counter() - t0
     launches = read_launches()
     log(f"video path launches: {launches}")
-    for name in ("correlation", "psroi_direct"):
-        if launches[name] < 1:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "video path")
+    check_launches("video", launches)
 
     c, t, mm = m.num_classes - 1, SNIPPET_FRAMES, cfg.eval.max_per_class
     shapes = {"boxes": (boxes.shape, (c, t, mm, 4)),
@@ -553,7 +696,8 @@ def phase_main_path(cfg: Config, card: str, tree: dict) -> dict:
         f"{dt * 1e3:.1f} ms, {t / dt:.2f} pairs/s on {card}; "
         f"{int(valid.sum())} valid detections; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    phase_stages(cfg, model, frames)
+    phase_stages(cfg, model, frames, "video")
+    phase_stages(cfg, model, frames, "pair")
     return launches
 
 
@@ -673,10 +817,7 @@ def phase_train(cfg: Config, tree: dict, card: str) -> dict:
     dt = time.perf_counter() - t0
     launches = read_launches()
     log(f"train path launches ({TRAIN_STEPS} steps): {launches}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "train path")
+    check_launches("train", launches)
     for metrics in history:
         values = {k: v.item() for k, v in metrics.items()}
         if not all(np.isfinite(v) for v in values.values()):
@@ -796,6 +937,58 @@ def phase_train_stages(cfg: Config, state, batch: dict, gen) -> None:
     log_stages("one train step", times)
 
 
+def run_eval(argv: list) -> tuple:
+    """``eval_torch.main(argv)`` in this process, its printed lines logged
+    with a prefix; returns its result, wall ms by phase and pairs."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = eval_torch.main(argv)
+    for line in buf.getvalue().splitlines():
+        log(f"  eval_torch: {line}")
+    return out
+
+
+def phase_eval(cfg: Config, tree: dict, card: str) -> dict:
+    """The evaluation path at full width: the weights written as a port
+    checkpoint, then ``eval_torch.main`` on the pair path (tau=2, SAT
+    pool) and on the video path with linking, each once to warm up on one
+    snippet and once with its kernel launches counted (returned per
+    path)."""
+    runs = {"pair": ["--synthetic-snippets", "2", "--synthetic-frames", "16",
+                     "--tau", "2", "--set", "model.roi.eval_pool_impl=pallas_mm"],
+            "eval_video": ["--synthetic-snippets", "1", "--synthetic-frames",
+                           "16", "--link"]}
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        _, state = create_train_state(cfg, "cuda", tree=tree)
+        save_checkpoint(d, state, cfg)
+        del state
+        for path, flags in runs.items():
+            argv = ["--synthetic", "--checkpoint", d, *flags]
+            run_eval(argv + ["--max-snippets", "1"])
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out, clock, pairs = run_eval(argv)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches[path] = read_launches()
+            log(f"eval {path} launches: {launches[path]}")
+            check_launches(path, launches[path])
+            for key in ("mAP", "mAP_nolink", "link_uplift"):
+                if not (key in out and np.isfinite(out[key])
+                        and -1 <= out[key] <= 1):
+                    raise AssertionError(f"eval {path}: {key} is "
+                                         f"{out.get(key)!r}")
+            split = ", ".join(f"{k} {v:.1f} ms" for k, v in clock.items())
+            log(f"eval {path} ({' '.join(flags)}): {pairs} pairs in "
+                f"{wall:.1f} ms wall ({split}); {pairs * 1e3 / clock['detect']:.2f}"
+                f" pairs/s in detection, {pairs * 1e3 / wall:.2f} end to end on "
+                f"{card}; mAP {out['mAP']}, mAP_nolink {out['mAP_nolink']}, "
+                f"link_uplift {out['link_uplift']} (random weights)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -813,15 +1006,19 @@ def main() -> int:
                phase_correlation(cfg, "train", pairs, seed=5),
                phase_correlation_bwd(cfg, pairs, seed=4),
                phase_psroi(cfg, "train", seed=6),
-               phase_psroi_bwd(cfg, seed=3)]
+               phase_psroi_bwd(cfg, seed=3),
+               phase_correlation(cfg, "pair", PAIR_BATCH, seed=7),
+               phase_psroi_mm(cfg, seed=8)]
     phase_reference()
     phase_train_reference()
+    phase_pair_reference()
     t0 = time.perf_counter()
     tree = init_jax_params(cfg.model, seed=0)
     log(f"full-width weights from a numpy seed in "
         f"{time.perf_counter() - t0:.1f} s")
     launches = {"video": phase_main_path(cfg, card, tree),
-                "train": phase_train(cfg, tree, card)}
+                "train": phase_train(cfg, tree, card),
+                **phase_eval(cfg, tree, card)}
     for k in kernels:
         k["launches"] = launches[k["path"]][k["name"]]
     print(json.dumps({"kernels": kernels}))

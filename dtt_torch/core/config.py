@@ -73,7 +73,7 @@ class RoIConfig(_Replaceable):
     # The port implements "psroi" only; the other modes raise.
     pooling_mode: str = "psroi"
     class_agnostic: bool = True
-    eval_pool_impl: str = "direct"  # the port implements "direct" only
+    eval_pool_impl: str = "direct"  # "direct" | "pallas_mm" | "gather"
     train_pool_impl: str = "direct"
 
 
@@ -190,19 +190,17 @@ def _merge_into(obj, data: dict):
     return dataclasses.replace(obj, **updates)
 
 
-def load_config(yaml_path: str | None = None, overrides: list[str] | None = None) -> Config:
-    """Build a Config from defaults, an optional YAML file, and CLI overrides.
+def config_from_dict(data: dict) -> Config:
+    """A Config from a nested dict, as a YAML file or ``dataclasses.asdict``
+    (lists for tuples) gives it; missing keys keep their defaults."""
+    return _merge_into(Config(), data)
 
-    `overrides` are ``dotted.key=value`` strings, e.g.
-    ``model.roi.ps_grid=3`` or ``train.learning_rate=0.01``.
-    """
+
+def apply_overrides(cfg: Config, overrides: list[str] | None) -> Config:
+    """`cfg` with ``dotted.key=value`` overrides applied, e.g.
+    ``model.roi.ps_grid=3`` or ``train.learning_rate=0.01``."""
     import yaml
 
-    cfg = Config()
-    if yaml_path:
-        with open(yaml_path) as f:
-            data = yaml.safe_load(f) or {}
-        cfg = _merge_into(cfg, data)
     for item in overrides or []:
         key, _, raw = item.partition("=")
         if not _:
@@ -213,6 +211,18 @@ def load_config(yaml_path: str | None = None, overrides: list[str] | None = None
             tree = {part: tree}
         cfg = _merge_into(cfg, tree)
     return cfg
+
+
+def load_config(yaml_path: str | None = None, overrides: list[str] | None = None) -> Config:
+    """Build a Config from defaults, an optional YAML file, and CLI overrides
+    (see `apply_overrides`)."""
+    import yaml
+
+    cfg = Config()
+    if yaml_path:
+        with open(yaml_path) as f:
+            cfg = config_from_dict(yaml.safe_load(f) or {})
+    return apply_overrides(cfg, overrides)
 
 
 def save_config(cfg: Config, path: str) -> None:

@@ -1,10 +1,12 @@
-"""Synthetic mini-VID frame pairs (a copy of ``dtt.data.synthetic``'s
-pair sampler and renderer, so the port loads without JAX).
+"""Synthetic mini-VID (a copy of ``dtt.data.synthetic``'s samplers and
+renderer, so the port loads without JAX).
 
 Moving class-coded rectangles with track identities on uint8 canvases:
-``sample_pair_params`` draws the scene, ``render_frame`` draws it, and
-``synthetic_batch`` stacks pairs into the batch dict the train step takes.
-The same numpy seed gives arrays equal to ``dtt``'s.
+``sample_pair_params`` draws a pair's scene, ``render_frame`` draws it,
+and ``synthetic_batch`` stacks pairs into the batch dict the train step
+takes; ``sample_snippet_params`` and ``synthetic_snippet`` make the
+constant-velocity snippets evaluation runs on. The same numpy seed gives
+arrays equal to ``dtt``'s.
 """
 
 from __future__ import annotations
@@ -151,3 +153,55 @@ def synthetic_batch(rng: np.random.RandomState, batch: int, height: int,
     if not uint8:
         out["images"] = out["images"] - np.asarray(pixel_means, np.float32)
     return out
+
+
+def sample_snippet_params(rng: np.random.RandomState, num_frames: int,
+                          height: int, width: int, num_classes: int,
+                          max_gt: int, num_objects: int = 2,
+                          max_step: float = 6.0):
+    """Constant-velocity snippet scene: gt_boxes (T, G, 4), gt_labels (G,),
+    gt_valid (T, G)."""
+    g = max_gt
+    n = min(num_objects, g)
+    gt_boxes = np.zeros((num_frames, g, 4), np.float32)
+    gt_valid = np.zeros((num_frames, g), bool)
+    gt_labels = np.zeros((g,), np.int32)
+    for i in range(n):
+        bw = rng.uniform(width * 0.15, width * 0.35)
+        bh = rng.uniform(height * 0.15, height * 0.35)
+        x1 = rng.uniform(max_step * num_frames,
+                         width - bw - max_step * num_frames - 1)
+        y1 = rng.uniform(max_step * num_frames,
+                         height - bh - max_step * num_frames - 1)
+        vx = rng.uniform(-max_step, max_step)
+        vy = rng.uniform(-max_step, max_step)
+        cls = rng.randint(1, num_classes)
+        gt_labels[i] = cls
+        for t in range(num_frames):
+            box = np.array([x1 + vx * t, y1 + vy * t,
+                            x1 + bw + vx * t, y1 + bh + vy * t], np.float32)
+            box = np.clip(box, 0, [width - 1, height - 1, width - 1, height - 1])
+            gt_boxes[t, i] = box
+            gt_valid[t, i] = True
+    return gt_boxes, gt_labels, gt_valid
+
+
+def synthetic_snippet(rng: np.random.RandomState, num_frames: int, height: int,
+                      width: int, num_classes: int, max_gt: int,
+                      num_objects: int = 2, max_step: float = 6.0,
+                      uint8: bool = False):
+    """A T-frame snippet with constant-velocity objects (for linking tests).
+
+    Returns images (T, H, W, 3) — the uint8 canvases when `uint8`, else
+    their exact float32 cast (same pixel distribution as training either
+    way) — plus gt_boxes (T, G, 4), gt_labels (G,), gt_valid (T, G).
+    """
+    gt_boxes, gt_labels, gt_valid = sample_snippet_params(
+        rng, num_frames, height, width, num_classes, max_gt, num_objects,
+        max_step)
+    images = _background(rng, (num_frames, height, width, 3))
+    for t in range(num_frames):
+        render_frame(images[t], gt_boxes[t], gt_labels, gt_valid[t])
+    if not uint8:
+        images = images.astype(np.float32)
+    return images, gt_boxes, gt_labels, gt_valid

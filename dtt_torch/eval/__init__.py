@@ -1,1 +1,2 @@
-"""Video-mode inference drivers."""
+"""Snippet inference (video and tau-strided pair steps), tube linking and
+VID mAP."""

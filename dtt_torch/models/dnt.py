@@ -6,8 +6,9 @@
 
 Video-mode inference (``frame_trunk``, ``fused_psmaps``,
 ``detect_track_fused``): fused cls|bbox|track ps-maps as three partial 1x1
-products in f32, proposals + ONE direct PSRoI pool of the fused maps, and
-per-class decode + NMS with each kept box's tracked box in frame t+1.
+products in f32, proposals + ONE PSRoI pool of the fused maps (direct, SAT
+kernel or gather, by ``roi.eval_pool_impl``), and per-class decode + NMS
+with each kept box's tracked box in frame t+tau.
 
 Training (``frame_features``, ``track_psmaps``, ``pool_vote_batched``):
 the unfused cls/bbox maps per frame, the track maps from the concatenated
@@ -36,7 +37,9 @@ from dtt_torch.models.rpn import Proposals, RPNHead, proposal_layer, softmax
 from dtt_torch.models.targets import roi_norm_params
 from dtt_torch.ops.correlation import correlation
 from dtt_torch.ops.nms import multiclass_nms
-from dtt_torch.ops.psroi import psroi_pool_batched_direct
+from dtt_torch.ops.psroi import (psroi_pool_batched,
+                                 psroi_pool_batched_direct,
+                                 psroi_pool_batched_pallas_mm)
 
 _BACKBONES = {
     "resnet101": (3, 4, 23, 3),
@@ -253,32 +256,54 @@ def normalize_device_images(images: torch.Tensor, im_size: torch.Tensor,
 def pool_vote_batched(cfg: ModelConfig, maps: torch.Tensor,
                       rois: torch.Tensor, spatial_scale: float,
                       impl: str = "direct") -> torch.Tensor:
-    """(B, H, W, k*k*D) maps, (B, N, 4) RoIs -> (B, N, D) float32 votes:
-    the direct PSRoI pool of the maps cast to the compute dtype (its
-    backward is the pool-backward kernel; the RoIs take no gradient), then
-    the float32 mean over the k*k bins."""
-    if impl != "direct":
-        raise NotImplementedError(
-            f"dtt_torch implements the 'direct' PSRoI pool only, got "
-            f"{impl!r}; the other forms are queued in ROADMAP.md")
-    pooled = psroi_pool_batched_direct(
-        maps.to(getattr(torch, cfg.dtype)).contiguous(), rois, spatial_scale,
-        cfg.roi.ps_grid)
-    return pooled.float().mean(dim=(2, 3))
+    """(B, H, W, k*k*D) maps, (B, N, 4) RoIs -> (B, N, D) votes, the mean
+    over the k*k bins of a differentiable PSRoI pool (the RoIs take no
+    gradient), as ``dtt``'s ``pool_vote_batched``:
+
+    * ``"direct"`` pools the maps cast to the compute dtype (its backward
+      is the pool-backward kernel), then averages in float32;
+    * ``"gather"`` pools the maps as they are (float32 on the train path)
+      from their SAT, with autograd's scatter-add backward.
+    """
+    k = cfg.roi.ps_grid
+    if impl == "direct":
+        pooled = psroi_pool_batched_direct(
+            maps.to(getattr(torch, cfg.dtype)).contiguous(), rois,
+            spatial_scale, k)
+        return pooled.float().mean(dim=(2, 3))
+    if impl == "gather":
+        return psroi_pool_batched(maps, rois, spatial_scale, k).mean(
+            dim=(2, 3))
+    raise ValueError(f"unknown batched psroi impl {impl!r}")
+
+
+def pool_vote_fused(cfg: ModelConfig, fused_maps: torch.Tensor,
+                    rois: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, k*k*D) float32 fused maps, (B, N, 4) RoIs -> (B, N, D)
+    float32 votes by ``cfg.roi.eval_pool_impl``, with ``dtt``'s dtype per
+    form: ``"direct"`` pools the maps cast to the compute dtype,
+    ``"pallas_mm"`` (the SAT kernel, inference only) and ``"gather"`` pool
+    them in float32."""
+    impl = cfg.roi.eval_pool_impl
+    scale = 1.0 / cfg.anchors.feat_stride
+    if impl == "pallas_mm":
+        return psroi_pool_batched_pallas_mm(fused_maps, rois, scale,
+                                            cfg.roi.ps_grid).mean(dim=(2, 3))
+    if impl not in ("direct", "gather"):
+        raise ValueError(f"unknown roi.eval_pool_impl {impl!r}")
+    return pool_vote_batched(cfg, fused_maps, rois, scale, impl)
 
 
 def detect_track_fused(cfg: ModelConfig, feats: FrameFeats,
                        fused_maps: torch.Tensor, anchors: torch.Tensor,
                        im_height, im_width, im_scale: float
                        ) -> tuple[Proposals, Detections, torch.Tensor]:
-    """Batched proposals + ONE direct PSRoI pool of the fused maps ->
-    detections + track deltas. Pooling is linear per channel, so splitting
-    the pooled vote equals three separate pools."""
+    """Batched proposals + ONE PSRoI pool of the fused maps
+    (`pool_vote_fused`) -> detections + track deltas. Pooling is linear per channel, so
+    splitting the pooled vote equals three separate pools."""
     props = proposal_layer(feats.rpn_cls, feats.rpn_bbox, anchors,
                            im_height, im_width, im_scale, cfg.rpn)
-    pooled = pool_vote_batched(cfg, fused_maps, props.rois,
-                               1.0 / cfg.anchors.feat_stride,
-                               cfg.roi.eval_pool_impl)
+    pooled = pool_vote_fused(cfg, fused_maps, props.rois)
     dc = cfg.num_classes
     db = 8 if cfg.roi.class_agnostic else 4 * cfg.num_classes
     det = Detections(rois=props.rois, roi_valid=props.valid,

@@ -1,5 +1,6 @@
-// Direct position-sensitive RoI pooling (bin sums) and its backward for
-// Hopper (sm_90a), plain C interface for ctypes.
+// Position-sensitive RoI pooling for Hopper (sm_90a), plain C interface for
+// ctypes: the direct bin sums and their backward, and the bin sums off a
+// summed-area table (dtt_psroi_sat, below).
 //
 // Forward (dtt_psroi_direct):
 // Replaces the TPU kernel _psroi_direct_kernel (dtt/ops/psroi.py), which
@@ -165,7 +166,82 @@ int launch_bwd(const float* ghat, const int* hs, const int* he, const int* ws,
   return (int)cudaGetLastError();
 }
 
+// SAT bin sums (dtt_psroi_sat). Replaces the TPU kernel _psroi_mm_kernel_b
+// (dtt/ops/psroi.py), which contracted one-hot +-1 row and column
+// difference indicators against each (frame, bin) slab of the summed-area
+// table on the MXU at HIGHEST precision: dense matmul work over almost all
+// zeros, done to avoid the TPU's slow gathers. On Hopper the same value is
+// four loads per output:
+//
+//   sums[b, n, ph, pw, d] = (S[he, we] - S[hs, we]) - (S[he, ws] - S[hs, ws])
+//
+// with S = SAT[b, :, :, (ph*k + pw)*D + d], in the row-first order the
+// indicator form evaluates (rows give t1[x] = S[he, x] - S[hs, x], then the
+// columns t1[we] - t1[ws]). A one-hot contraction adds only exact zeros
+// beside its two nonzero terms, so the plain einsum form gives the same
+// bits on the same table. The subtractions are __fsub_rn: nothing may
+// contract or reorder them (no --use_fast_math). The wrapper divides by the
+// area and zeroes empty bins.
+//
+// Bound: 4 f32 corner reads and one f32 write per output, so the memory
+// rate bounds it. A pair batch (4 frames x 300 RoIs x 2107 channels) needs
+// ~29 MB of distinct table corners and writes 10 MB of sums: ~12 us at
+// 3.35 TB/s; on an H100 80GB HBM3 at 700 W the kernel takes 0.028-0.051 ms
+// (chip_smoke.py). One thread per output, channel fastest: for a fixed RoI
+// and bin a warp reads 32 consecutive channels of each corner pixel, so
+// the corner loads coalesce.
+__global__ void psroi_sat_kernel(const float* __restrict__ sat,
+                                 const int* __restrict__ hs,
+                                 const int* __restrict__ he,
+                                 const int* __restrict__ ws,
+                                 const int* __restrict__ we,
+                                 float* __restrict__ sums, int64_t total,
+                                 int N, int H, int W, int k, int D) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int ckk = k * k * D;
+  const int c = (int)(i % ckk);          // channel (ph*k + pw)*D + d
+  const int64_t bn = i / ckk;            // b*N + n
+  const int64_t b = bn / N;
+  const int bin = c / D;
+  const int ph = bin / k;
+  const int pw = bin % k;
+  // bounds from roi_bounds lie in [0, H] x [0, W]; clamp anyway so a bad
+  // bound can never read outside the table
+  const int y0 = min(max(hs[bn * k + ph], 0), H);
+  const int y1 = min(max(he[bn * k + ph], 0), H);
+  const int x0 = min(max(ws[bn * k + pw], 0), W);
+  const int x1 = min(max(we[bn * k + pw], 0), W);
+  const int64_t row = (int64_t)(W + 1) * ckk;
+  const float* s = sat + b * (H + 1) * row + c;
+  const float t_we = __fsub_rn(__ldg(s + y1 * row + (int64_t)x1 * ckk),
+                               __ldg(s + y0 * row + (int64_t)x1 * ckk));
+  const float t_ws = __fsub_rn(__ldg(s + y1 * row + (int64_t)x0 * ckk),
+                               __ldg(s + y0 * row + (int64_t)x0 * ckk));
+  sums[i] = __fsub_rn(t_we, t_ws);
+}
+
 }  // namespace
+
+// sat: (B, H+1, W+1, k*k*D) float32 contiguous; hs/he/ws/we: (B, N, k)
+// int32; sums: (B, N, k, k, D) float32. Returns a cudaError_t (0 = launched).
+extern "C" int dtt_psroi_sat(const void* sat, const void* hs, const void* he,
+                             const void* ws, const void* we, void* sums,
+                             int B, int N, int H, int W, int k, int D,
+                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t total = (int64_t)B * N * k * k * D;
+  if (total == 0) return (int)cudaSuccess;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  psroi_sat_kernel<<<(unsigned)blocks, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sat), static_cast<const int*>(hs),
+      static_cast<const int*>(he), static_cast<const int*>(ws),
+      static_cast<const int*>(we), static_cast<float*>(sums), total, N, H, W,
+      k, D);
+  return (int)cudaGetLastError();
+}
 
 // maps: (B, H, W, k*k*D) contiguous; hs/he/ws/we: (B, N, k) int32;
 // sums: (B, N, k, k, D) float32. dtype: 0 = float32, 1 = bfloat16.

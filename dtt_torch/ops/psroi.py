@@ -1,5 +1,6 @@
-"""Direct position-sensitive RoI pooling and its gradient (counterpart of
-``dtt.ops.psroi.psroi_pool_batched_direct`` and ``_direct_ad``).
+"""Frame-batched position-sensitive RoI pooling (counterpart of
+``dtt.ops.psroi``'s ``psroi_pool_batched_direct`` with ``_direct_ad``,
+``psroi_pool_batched`` and ``psroi_pool_batched_pallas_mm``).
 
 Caffe/R-FCN bin bounds (``roi_bounds``), then per (frame, RoI, bin,
 channel) the sum of the map over the bin, divided by the bin's area, with
@@ -17,9 +18,27 @@ empty bins 0. Channels are dtt's bin-major ``c = (ph*k + pw)*D + d``.
   means in the maps' dtype, the gradient in the maps' dtype, none for the
   RoIs (the bin bounds are piecewise constant in them).
 
+Summed-area-table (SAT) forms, the other two ``roi.eval_pool_impl``s:
+
+* `sat` — the zero-padded float32 2-D cumsum, (B, H+1, W+1, C); every bin
+  sum is then a difference of 4 corners.
+* `psroi_pool_batched` — the ``"gather"`` form (``dtt``'s
+  ``psroi_pool_batched``, XLA there): the corners gathered from the SAT in
+  plain PyTorch, differentiable through autograd (scatter-add backward).
+* `psroi_mm_sums_plain` / `psroi_mm_sums_cuda` / `psroi_mm_sums` — the
+  ``"pallas_mm"`` bin sums off the SAT: one-hot +-1 row and column
+  indicator contractions, rows first (the reference the kernel is held
+  against; the CPU path), the kernel ``dtt_psroi_sat`` in
+  ``csrc/psroi.cu`` (replaces the TPU kernel ``_psroi_mm_kernel_b``), and
+  the dispatcher.
+* `psroi_pool_batched_pallas_mm` — area and division around those sums,
+  inference only, as ``dtt``'s function of the same name.
+
 Numerics: the sums stay f32 throughout. The TPU kernels round their bf16
 row partial sums (forward) and ghat expansions (backward) to bf16 inside
-their matmuls, so bf16 results differ from them by that rounding.
+their matmuls, so bf16 results differ from them by that rounding. SAT
+entries grow to H*W times the map's values, so a SAT pool's bin mean is a
+difference of large f32 numbers; its error is a few ulps of the SAT.
 """
 
 from __future__ import annotations
@@ -28,6 +47,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from dtt_torch.ops import _build
 
@@ -274,3 +294,150 @@ def psroi_pool_batched_direct(features: torch.Tensor, rois: torch.Tensor,
                       roi_bounds(rois.detach(), spatial_scale, k, h, w))
     area = bin_areas(hs, he, ws, we)[..., None]
     return _DirectPool.apply(features, hs, he, ws, we, area)
+
+
+def sat(features: torch.Tensor) -> torch.Tensor:
+    """Zero-padded summed-area table: (B, H, W, C) -> (B, H+1, W+1, C)
+    float32, the cumsum over H first, then W (``dtt``'s ``_sat``)."""
+    s = features.float().cumsum(dim=1).cumsum(dim=2)
+    return F.pad(s, (0, 0, 1, 0, 1, 0))
+
+
+def psroi_pool_batched(features: torch.Tensor, rois: torch.Tensor,
+                       spatial_scale: float, group_size: int) -> torch.Tensor:
+    """(B, H, W, k*k*D) maps, (B, N, 4) RoIs -> (B, N, k, k, D) bin means
+    in the maps' dtype: the 4 SAT corners of each bin gathered in plain
+    PyTorch (the ``"gather"`` pool). Differentiable in the maps through
+    autograd; the RoIs take no gradient."""
+    b, h, w, c = features.shape
+    k = group_size
+    if c % (k * k):
+        raise ValueError(f"channels {c} not divisible by k^2={k * k}")
+    d = c // (k * k)
+    hs, he, ws, we = roi_bounds(rois.detach(), spatial_scale, k, h, w)
+    w1 = w + 1
+    flat = sat(features).reshape(b * (h + 1) * w1, k * k, d)
+    base = (torch.arange(b, device=rois.device) * ((h + 1) * w1))[
+        :, None, None, None]
+    bins = torch.arange(k * k, device=rois.device).reshape(k, k)
+    a, bb = hs[..., :, None].long(), he[..., :, None].long()   # (B, N, k, 1)
+    c0, c1 = ws[..., None, :].long(), we[..., None, :].long()  # (B, N, 1, k)
+    corner = lambda y, x: flat[base + y * w1 + x, bins]        # (B, N, k, k, D)
+    total = corner(bb, c1) - corner(a, c1) - corner(bb, c0) + corner(a, c0)
+    area = ((bb - a) * (c1 - c0)).float()[..., None]
+    out = torch.where(area > 0, total / area.clamp(min=1.0),
+                      torch.zeros((), device=total.device))
+    return out.to(features.dtype)
+
+
+def row_col_indicators(hs, he, ws, we, height: int, width: int):
+    """One-hot difference indicators over the SAT's rows and columns:
+    R (..., N, k, H+1) = e_he - e_hs, C (..., N, k, W+1) = e_we - e_ws,
+    float32."""
+    yy = torch.arange(height + 1, device=hs.device)
+    xx = torch.arange(width + 1, device=ws.device)
+    r = (he[..., None] == yy).float() - (hs[..., None] == yy).float()
+    c = (we[..., None] == xx).float() - (ws[..., None] == xx).float()
+    return r, c
+
+
+def psroi_mm_sums_plain(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
+    """(B, H+1, W+1, k*k*D) f32 SAT, (B, N, k) bounds -> (B, N, k, k, D)
+    f32 bin sums, plain PyTorch: the bilinear form R^T SAT C per bin, the
+    rows contracted first (``dtt``'s ``psroi_pool_mm`` order), one bin row
+    at a time to bound the row product's memory."""
+    b, h1, w1, c = table.shape
+    k = hs.shape[-1]
+    d = c // (k * k)
+    r, cind = row_col_indicators(hs, he, ws, we, h1 - 1, w1 - 1)
+    s6 = table.reshape(b, h1, w1, k, k, d)
+    rows = [torch.einsum("bnqx,bnxqd->bnqd", cind,
+                         torch.einsum("bny,byxqd->bnxqd", r[:, :, ph],
+                                      s6[:, :, :, ph]))
+            for ph in range(k)]
+    return torch.stack(rows, dim=2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sat_entry():
+    fn = _build.load("psroi").dtt_psroi_sat
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def psroi_mm_sums_cuda(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
+    """(B, H+1, W+1, k*k*D) float32 SAT, (B, N, k) int32 bounds ->
+    (B, N, k, k, D) f32 bin sums by the CUDA kernel (4 corner reads per
+    output). Bounds outside [0, H] x [0, W] are clamped to the table.
+
+    Launches on the current stream; counts its launches in
+    ``psroi_mm_sums_cuda.launches``.
+    """
+    bounds = (hs, he, ws, we)
+    if not table.is_cuda or any(t.device != table.device for t in bounds):
+        raise ValueError("psroi_mm_sums_cuda: table and bounds must be on one "
+                         "CUDA device")
+    if table.dim() != 4 or table.dtype != torch.float32:
+        raise TypeError("psroi_mm_sums_cuda: the SAT must be (B, H+1, W+1, "
+                        f"k*k*D) float32, got {tuple(table.shape)} "
+                        f"{table.dtype}")
+    b, h1, w1, c = table.shape
+    if hs.dim() != 3 or hs.shape[0] != b:
+        raise ValueError(f"psroi_mm_sums_cuda: bounds must be (B={b}, N, k), "
+                         f"got {tuple(hs.shape)}")
+    n, k = hs.shape[1], hs.shape[2]
+    if any(t.shape != hs.shape or t.dtype != torch.int32 for t in bounds):
+        raise TypeError("psroi_mm_sums_cuda: bounds must be four int32 "
+                        "tensors of one shape")
+    if c % (k * k) or min(h1, w1) < 1:
+        raise ValueError(f"psroi_mm_sums_cuda: {c} channels not divisible by "
+                         f"k^2={k * k}, or an empty table")
+    if not (table.is_contiguous() and all(t.is_contiguous() for t in bounds)):
+        raise ValueError("psroi_mm_sums_cuda: inputs must be contiguous")
+    if h1 * w1 * c >= 2 ** 31 or b * n * c >= 2 ** 62:
+        raise ValueError("psroi_mm_sums_cuda: table too large for int32 sizes")
+    d = c // (k * k)
+    sums = torch.empty((b, n, k, k, d), dtype=torch.float32,
+                       device=table.device)
+    if sums.numel() == 0:
+        return sums
+    err = _sat_entry()(table.data_ptr(), hs.data_ptr(), he.data_ptr(),
+                       ws.data_ptr(), we.data_ptr(), sums.data_ptr(),
+                       b, n, h1 - 1, w1 - 1, k, d, table.device.index,
+                       torch.cuda.current_stream(table.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"psroi SAT kernel launch failed: cudaError {err}")
+    psroi_mm_sums_cuda.launches += 1
+    return sums
+
+
+psroi_mm_sums_cuda.launches = 0
+
+
+def psroi_mm_sums(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
+    """SAT bin sums: the plain version on CPU tensors, the CUDA kernel
+    otherwise (which raises off CUDA)."""
+    if table.device.type == "cpu":
+        return psroi_mm_sums_plain(table, hs, he, ws, we)
+    return psroi_mm_sums_cuda(table, hs, he, ws, we)
+
+
+def psroi_pool_batched_pallas_mm(features: torch.Tensor, rois: torch.Tensor,
+                                 spatial_scale: float, group_size: int
+                                 ) -> torch.Tensor:
+    """(B, H, W, k*k*D) maps, (B, N, 4) RoIs -> (B, N, k, k, D) bin means
+    in the maps' dtype, off the f32 SAT (the ``"pallas_mm"`` pool, named
+    after ``dtt``'s function and setting). Area and division outside the
+    sums, empty bins 0. Inference only: the CUDA path has no gradient."""
+    b, h, w, c = features.shape
+    k = group_size
+    if c % (k * k):
+        raise ValueError(f"channels {c} not divisible by k^2={k * k}")
+    hs, he, ws, we = (t.contiguous() for t in
+                      roi_bounds(rois.detach(), spatial_scale, k, h, w))
+    sums = psroi_mm_sums(sat(features).contiguous(), hs, he, ws, we)
+    area = bin_areas(hs, he, ws, we)[..., None]
+    out = torch.where(area > 0, sums / area.clamp(min=1.0),
+                      torch.zeros((), device=sums.device))
+    return out.to(features.dtype)

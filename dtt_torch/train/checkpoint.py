@@ -7,7 +7,9 @@ One directory per step, ``<ckpt_dir>/step_XXXXXXXX``, holding
               optimizer (its state dict), step, config (a plain dict)}
   meta.json — step and wall time
 and ``<ckpt_dir>/LATEST`` naming the newest. Restore pours the saved
-tensors into a train state built from the same config.
+tensors into a train state built from the same config; evaluation reads
+the saved config first (``checkpoint_config``) and restores only the
+parameters (``restore_params_only``).
 """
 
 from __future__ import annotations
@@ -57,3 +59,21 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     state.model.load_state_dict(saved["params"])
     state.optimizer.load_state_dict(saved["optimizer"])
     return state._replace(step=int(saved["step"]))
+
+
+def checkpoint_config(path: str) -> dict:
+    """The config dict saved in the checkpoint at `path` (tuples come back
+    as lists; ``dtt_torch.core.config.config_from_dict`` rebuilds the Config)."""
+    saved = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    return saved["config"]
+
+
+def restore_params_only(path: str, model: torch.nn.Module) -> tuple[dict, int]:
+    """Load only the model parameters of the checkpoint at `path` into
+    `model` (in place, on its device), as evaluation needs; returns the
+    saved config dict and step. The optimizer state stays on the disk."""
+    saved = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    model.load_state_dict(saved["params"])
+    return saved["config"], int(saved["step"])

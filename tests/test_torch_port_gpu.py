@@ -138,3 +138,36 @@ def test_psroi_bwd_kernel_matches_plain(cuda, dtype, b, h, w, k, d, n):
     tol = (dict(rtol=0, atol=1e-5) if dtype == torch.float32
            else dict(rtol=8e-3, atol=1e-6))
     torch.testing.assert_close(maps.grad.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("b,h,w,k,d,n", [(2, 10, 14, 7, 9, 24),
+                                         (3, 9, 13, 3, 43, 70)])
+def test_psroi_sat_kernel_matches_plain(cuda, b, h, w, k, d, n):
+    """The SAT bin sums: four corner reads subtracted in the order the
+    plain version's one-hot contractions add them, so the two agree to
+    the bit on one table (TF32 off). RoIs cover the whole map, sit on .5
+    coordinates, have zero-area bins and cross the map's edges."""
+    rng = np.random.RandomState(3)
+    xy = rng.uniform(-40, w * 16, (b, n, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(0, 200, (b, n, 2))], axis=-1)
+    rois[:, 0] = [0, 0, w * 16 - 1, h * 16 - 1]
+    rois[:, 1] = [40.5, 23.5, 72.5, 88.5]
+    rois[:, 2] = [41.5, 24.5, 41.5, 24.5]
+    rois = torch.from_numpy(rois.astype(np.float32)).to(cuda)
+    maps = torch.from_numpy(rng.randn(b, h, w, k * k * d).astype(
+        np.float32)).to(cuda)
+    table = tpsroi.sat(maps).contiguous()
+    bounds = [x.contiguous() for x in tpsroi.roi_bounds(rois, 1 / 16, k, h, w)]
+    before = tpsroi.psroi_mm_sums_cuda.launches
+    got = tpsroi.psroi_mm_sums(table, *bounds)
+    torch.cuda.synchronize()
+    assert tpsroi.psroi_mm_sums_cuda.launches == before + 1
+    want = tpsroi.psroi_mm_sums_plain(table, *bounds)
+    assert got.dtype == torch.float32 and got.shape == (b, n, k, k, d)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    pooled = tpsroi.psroi_pool_batched_pallas_mm(maps, rois, 1 / 16, k)
+    assert tpsroi.psroi_mm_sums_cuda.launches == before + 2
+    torch.testing.assert_close(
+        pooled, tpsroi.psroi_pool_batched_direct(maps, rois, 1 / 16, k),
+        rtol=1e-5, atol=8 * torch.finfo(torch.float32).eps
+        * table.abs().max().item())

@@ -1,0 +1,80 @@
+"""dtt_torch's tube linking held against dtt's on the CPU:
+``link_all_classes`` (repeated Viterbi over padded per-frame detections,
+virtual skip slots on empty frames, tube rescoring) on random detections
+made with numpy from a seed and given to both packages.
+
+The discrete results (paths, tube validity, claimed detections) must be
+equal. Both sides add the same float32 terms in the same order, so the
+rescored scores and tube scores agree to float32 roundoff (1e-6; they
+are sums of a few scores below 1, or multiples of -1e9 divided by T-1).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dtt.eval.linking import link_all_classes as j_link_all_classes
+
+from dtt_torch.eval.linking import link_all_classes
+
+
+def _detections(seed, c=4, t=7, n=5, tied=False):
+    """Random padded detections: objects drifting across frames with the
+    tracked box near the next frame's box, some slots invalid, one class
+    with no valid detection at all and one with frames left empty."""
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, 200, (c, 1, n, 2)) + np.arange(t)[None, :, None,
+                                                          None] * 3.0
+    wh = rng.uniform(10, 60, (c, 1, n, 2)).repeat(t, axis=1)
+    boxes = np.concatenate([xy, xy + wh], axis=-1)
+    boxes += rng.uniform(-4, 4, boxes.shape)
+    tracked = np.roll(boxes, -1, axis=1) + rng.uniform(-3, 3, boxes.shape)
+    if tied:   # few distinct scores and repeated boxes: argmax ties
+        scores = rng.choice(np.float32([0.9, 0.5, 0.5, 0.2]), (c, t, n))
+        boxes[:, :, 1] = boxes[:, :, 0]
+        tracked[:, :, 1] = tracked[:, :, 0]
+    else:
+        scores = rng.uniform(0.01, 1.0, (c, t, n))
+    valid = rng.rand(c, t, n) > 0.3
+    valid[1] = False                     # a class with no detection
+    valid[2, 2:t:2] = False              # empty frames: virtual skip slots
+    if t > 1:
+        valid[3, 0] = False              # no detection at frame 0
+    return (boxes.astype(np.float32), scores.astype(np.float32),
+            tracked.astype(np.float32), valid)
+
+
+@pytest.mark.parametrize("score_boost", ["mean_top_half", "mean", "max"])
+@pytest.mark.parametrize("seed,t,tied", [(0, 7, False), (1, 7, True),
+                                         (2, 1, False)])
+def test_link_all_classes_matches_dtt(score_boost, seed, t, tied):
+    boxes, scores, tracked, valid = _detections(seed, t=t, tied=tied)
+    kw = dict(max_tubes=6, link_iou_weight=1.5, score_boost=score_boost)
+    want = j_link_all_classes(*(jnp.asarray(x) for x in
+                                (boxes, scores, tracked, valid)), **kw)
+    got = link_all_classes(*(torch.from_numpy(x) for x in
+                             (boxes, scores, tracked, valid)), **kw)
+    for name in ("det_idx", "tube_valid", "det_in_tube"):
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.shape == w.shape, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    for name in ("rescored", "tube_score"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    ok = got.tube_valid.numpy()
+    assert not ok[1].any()               # nothing to link in class 1
+    assert ok.any()
+    # claimed detections were valid, and only they were rescored
+    in_tube = got.det_in_tube.numpy()
+    assert not (in_tube & ~valid).any()
+    np.testing.assert_array_equal(got.rescored.numpy()[~in_tube],
+                                  scores[~in_tube])
+
+
+def test_link_all_classes_refuses_unknown_boost():
+    boxes, scores, tracked, valid = (torch.from_numpy(x) for x in
+                                     _detections(0, t=3))
+    with pytest.raises(ValueError, match="tube_score_boost"):
+        link_all_classes(boxes, scores, tracked, valid, score_boost="median")

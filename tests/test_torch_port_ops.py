@@ -334,13 +334,18 @@ def test_psroi_direct_grad_matches_pallas_f32():
 
 
 def test_pool_vote_refuses_other_impls():
-    """Only the direct pool is ported: the gather form raises and says
-    where it is queued."""
+    """The train pool takes dtt's two forms, "direct" and "gather"; any
+    other name raises, as dtt asserts."""
     from dtt_torch.models.dnt import pool_vote_batched
     maps, rois = _psroi_case(np.random.RandomState(0), d=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pool_vote_batched(tcfg.Config().model, _t(maps), _t(rois), 1 / 16,
-                          "gather")
+    for impl in ("direct", "gather"):
+        out = pool_vote_batched(tcfg.Config().model, _t(maps), _t(rois),
+                                1 / 16, impl)
+        assert out.shape == (2, 16, 4)
+    for impl in ("pallas_mm", "xla"):
+        with pytest.raises(ValueError, match="unknown batched psroi impl"):
+            pool_vote_batched(tcfg.Config().model, _t(maps), _t(rois),
+                              1 / 16, impl)
 
 
 def test_psroi_direct_grad_matches_pallas_bf16():
@@ -387,17 +392,18 @@ def test_kernel_build_targets_hopper():
 # ------------------------------------------------------------------ hygiene
 
 def test_import_leaves_out_jax_and_dtt():
-    """Importing dtt_torch, every submodule, chip_smoke and train_torch
-    (with its lazily imported modules) pulls in no JAX, flax or dtt
-    module."""
+    """Importing dtt_torch, every submodule, chip_smoke, train_torch and
+    eval_torch (with their lazily imported modules) pulls in no JAX, flax,
+    dtt or eval.py module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dtt_torch\n"
         "for m in pkgutil.walk_packages(dtt_torch.__path__, 'dtt_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, train_torch\n"
+        "import chip_smoke, train_torch, eval_torch\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt',\n"
+        "                                    'eval'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('dtt_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -409,7 +415,8 @@ def test_import_leaves_out_jax_and_dtt():
 def test_entry_points_raise_without_gpu(monkeypatch):
     """Called without device="cpu" on a machine with no GPU, every entry
     point raises instead of running on the CPU."""
-    from dtt_torch.eval.inference import make_video_step
+    from dtt_torch.eval.inference import (link_snippet, make_pair_step,
+                                          make_video_step)
     from dtt_torch.models.dnt import make_model
     from dtt_torch.train.trainer import create_train_state, make_train_step
     from dtt_torch.utils.params import from_jax_params
@@ -422,6 +429,11 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     model = make_model(cfg.model.replace(backbone="tiny"), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_video_step(cfg, model, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pair_step(cfg, model, 4)
+    box = np.zeros((1, 2, 3, 4), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        link_snippet(cfg, box, box[..., 0], box, box[..., 0] > 0)
     tiny = cfg.replace(model=cfg.model.replace(backbone="tiny"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_train_state(tiny)
@@ -440,6 +452,29 @@ def test_train_torch_refuses_what_is_not_ported(flags):
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 2
     assert "ROADMAP.md Queue 1 item" in out.stderr
+
+
+@pytest.mark.parametrize("flags", [
+    ["--synthetic", "--parallel"], ["--dataset", "imagenet_vid_val"],
+    ["--synthetic", "--data-root", "/data"], []])
+def test_eval_torch_refuses_what_is_not_ported(flags):
+    """eval_torch.py exits with an error naming the ROADMAP item for each
+    eval.py option it does not implement, and without --synthetic (real
+    datasets), instead of ignoring them."""
+    out = subprocess.run([sys.executable, "eval_torch.py", "--checkpoint",
+                          os.devnull, *flags], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 2
+    assert "ROADMAP.md Queue 1 item" in out.stderr
+
+
+def test_eval_torch_raises_without_gpu(monkeypatch, tmp_path):
+    """Without a card, eval_torch.py --synthetic raises instead of
+    evaluating on the CPU."""
+    import eval_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_torch.main(["--synthetic", "--checkpoint", str(tmp_path)])
 
 
 def test_train_torch_raises_without_gpu(monkeypatch):
