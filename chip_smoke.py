@@ -1,5 +1,5 @@
-"""Drive dtt_torch's video-mode inference, training and evaluation on one
-CUDA card and check them.
+"""Drive dtt_torch's video-mode inference, training, evaluation and
+single-frame detection on one CUDA card and check them.
 
 Run from the repository root, with one card visible:
 
@@ -12,17 +12,22 @@ Phases, in order; any failure ends the script with a non-zero exit:
    started together);
 3. per kernel and per path that runs it (correlation and PSRoI pool
    forward on the video and the train path, their backwards on the train
-   path, correlation and the SAT pool on the tau-strided pair path), at
-   the shapes that path gives it: every call of one video chunk, one train
-   step or one pair batch against its plain PyTorch version (stated
-   tolerance), and CUDA-event times of those calls through the kernel,
-   the plain version and, where one exists, one PyTorch call computing the
-   same function, beside the least time the card could take;
+   path, correlation and the SAT pool on the tau-strided pair path, the
+   SAT pools at one frame and both correlation forwards at one pair on the
+   single-frame path), at the shapes that path gives it: every call of one
+   video chunk, one train step, one pair batch or one frame against its
+   plain PyTorch version (stated tolerance), and CUDA-event times of those
+   calls through the kernel, the plain version and, where one exists, one
+   PyTorch call computing the same function, beside the least time the
+   card could take; the channel-split correlation also beside the unsplit
+   one at a video chunk's 16 pairs;
 4. small references: the tiny test config in float32 through the kernels
    on the card against the plain versions on the CPU, for the video path,
    for one train step (same weights, same injected draws; losses, every
-   gradient leaf and the updated parameters) and for the pair path at
-   tau=2 with the SAT pool, tube linking included;
+   gradient leaf and the updated parameters), for the pair path at
+   tau=2 with the SAT pool, tube linking included, and for the
+   single-frame step, every per-frame pool form and the split
+   correlation with their gradients;
 5. the video path: ``Config()`` at full width (ResNet-101, 608x1088, bf16,
    31 classes), random flax-layout weights from a numpy seed carried over
    by ``from_jax_params``, and ``evaluate_snippet_video`` over a uint8
@@ -39,7 +44,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    path with the SAT pool (``roi.eval_pool_impl=pallas_mm``) and tau=1 on
    the video path with tube linking, each with its launch counts, its
    mAP line and its wall time split into detection, linking,
-   interpolation + NMS and ``eval_detections``.
+   interpolation + NMS and ``eval_detections``;
+8. the single-frame path: ``make_single_frame_step`` at full width on the
+   same weights, one warm-up and several timed uint8 frames with a stage
+   split, then on the last frame ``rfcn_head`` under every ``impl`` and
+   ``correlation`` under both kernel forms at one pair's three scales,
+   each checked, its launches counted and timed.
 
 It prints a JSON line of the kernels' numbers before the last line, one
 entry per kernel and path, each with the launches of that path's run, and
@@ -65,11 +75,13 @@ from dtt_torch.core.config import Config
 from dtt_torch.data.synthetic import synthetic_batch
 from dtt_torch.eval.inference import (evaluate_snippet, evaluate_snippet_video,
                                       link_snippet, make_pair_step,
-                                      make_video_step)
+                                      make_single_frame_step, make_video_step)
 from dtt_torch.models.dnt import (Detections, cosine_prep,
-                                  decode_detections_batched, is_frozen,
-                                  normalize_device_images, pool_vote_fused)
-from dtt_torch.models.rpn import proposal_layer, softmax
+                                  decode_detections_batched,
+                                  decode_frame_detections, is_frozen,
+                                  normalize_device_images, pool_vote_fused,
+                                  rfcn_head)
+from dtt_torch.models.rpn import Proposals, proposal_layer, softmax
 from dtt_torch.models.targets import sample_draws
 from dtt_torch.ops import _build
 from dtt_torch.ops import correlation as corr_ops
@@ -111,17 +123,26 @@ TRAIN_REF_GRAD_REL = 1e-4
 # 1% of a typical lr * g update of ~1e-5
 TRAIN_REF_PARAM_TOL = (2e-8, 2.5e-7)
 PROFILE_STEPS = 3            # full-width train steps under torch.profiler
+FRAME_STEPS = 8              # timed full-width single frames (after 1 warm-up)
+# SAT bin means, kernel vs plain on one table: the same corner order and
+# division, so 0 is expected; 1e-6 of the largest |mean| guards the same
+# faults as PSROI_MM_REL_TOL
+PSROI_MEAN_REL_TOL = 1e-6
 KERNELS = {"correlation": corr_ops.correlation_cuda,
+           "correlation_split": corr_ops.correlation_split_cuda,
            "correlation_bwd": corr_ops.correlation_bwd_cuda,
            "psroi_direct": psroi_ops.psroi_sums_cuda,
            "psroi_direct_bwd": psroi_ops.psroi_bwd_cuda,
-           "psroi_mm": psroi_ops.psroi_mm_sums_cuda}
+           "psroi_mm": psroi_ops.psroi_mm_sums_cuda,
+           "psroi_sat_mean": psroi_ops.psroi_sat_means_cuda}
 # the kernels each driven path must launch
 PATH_KERNELS = {"video": ("correlation", "psroi_direct"),
                 "train": ("correlation", "correlation_bwd", "psroi_direct",
                           "psroi_direct_bwd"),
                 "pair": ("correlation", "psroi_mm"),
-                "eval_video": ("correlation", "psroi_direct")}
+                "eval_video": ("correlation", "psroi_direct"),
+                "frame": ("correlation", "correlation_split", "psroi_mm",
+                          "psroi_sat_mean")}
 
 
 def log(msg: str) -> None:
@@ -186,6 +207,18 @@ def corr_inputs(cfg: Config, pairs: int, seed: int) -> list:
     return out
 
 
+def corr_bound(cases: list, d: int, s: int) -> tuple:
+    """(bound ms, what bounds it, bytes, operations) of the correlation
+    forward of `cases`: both maps read and the output written once, a
+    multiply-add per channel of each output."""
+    nd2 = corr_ops.num_corr_channels(d, s)
+    nbytes = sum(2 * f1.numel() * f1.element_size()
+                 + f1[..., 0].numel() * nd2 * f1.element_size()
+                 for f1, _ in cases)
+    ops = sum(2 * f1.numel() * nd2 for f1, _ in cases)
+    return (*bound(nbytes, ops), nbytes, ops)
+
+
 def phase_correlation(cfg: Config, path: str, pairs: int, seed: int) -> dict:
     """The correlation forward of one call of `path` (a video chunk's 16
     pairs, a train step's pair or a pair batch's 4 pairs) at the 3
@@ -206,11 +239,7 @@ def phase_correlation(cfg: Config, path: str, pairs: int, seed: int) -> dict:
                           for a, c in cases], iters=20)
     plain_ms = time_ms(lambda: [corr_ops.correlation_plain(a, c, d, s)
                                 for a, c in cases], iters=3, warmup=1)
-    nd2 = corr_ops.num_corr_channels(d, s)
-    nbytes = sum(2 * f1.numel() * 2 + f1[..., 0].numel() * nd2 * 2
-                 for f1, _ in cases)
-    ops = sum(2 * f1.numel() * nd2 for f1, _ in cases)
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by, nbytes, ops = corr_bound(cases, d, s)
     log(f"correlation [{path}]: {pairs} pair(s) x 3 scales "
         f"{[tuple(c[0].shape) for c in cases]} bf16 d={d} s={s}: max_abs_err"
         f" {err:.3g} (tol {CORR_TOL}), kernel {ms:.4f} ms, plain "
@@ -474,16 +503,8 @@ def phase_psroi_mm(cfg: Config, seed: int) -> dict:
     library_ms = time_ms(library, iters=3, warmup=1)
     # bytes this run's bins need: each distinct SAT corner of a non-empty
     # bin read once (D channels), the sums written once, the bounds read
-    hs, he, ws, we = (x.long() for x in bd)
-    slab = ((torch.arange(b, device="cuda")[:, None, None, None] * k
-             + torch.arange(k, device="cuda")[:, None]) * k
-            + torch.arange(k, device="cuda")) * ((h + 1) * (w + 1))
-    full = psroi_ops.bin_areas(*bd) > 0                     # (B, N, k, k)
-    keys = torch.cat([(slab + y[..., :, None] * (w + 1) + x[..., None, :])[full]
-                      for y in (hs, he) for x in (ws, we)])
-    corners = torch.unique(keys).numel()
-    nbytes = corners * d * 4 + got.numel() * 4 + 4 * bd[0].numel() * 4
-    bound_ms, bound_by = bound(nbytes, 3 * got.numel(), F32_OPS_PER_S)
+    bound_ms, bound_by, nbytes, corners = sat_bound(bd, b, h, w, k, d,
+                                                    got.numel(), 3)
     log(f"psroi_mm [pair]: SAT {tuple(table.shape)} f32, {n} RoIs, k={k}, "
         f"D={d}: max_abs_err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms (f32, "
@@ -496,6 +517,146 @@ def phase_psroi_mm(cfg: Config, seed: int) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def sat_bound(bd: list, b: int, h: int, w: int, k: int, d: int,
+              outputs: int, ops_per_output: int) -> tuple:
+    """(bound ms, what bounds it, bytes, distinct corners) of a SAT pool
+    call: each distinct table corner of a non-empty bin read once (D
+    float32 channels), the f32 outputs written once, the bounds read."""
+    hs, he, ws, we = (x.long() for x in bd)
+    dev = hs.device
+    slab = ((torch.arange(b, device=dev)[:, None, None, None] * k
+             + torch.arange(k, device=dev)[:, None]) * k
+            + torch.arange(k, device=dev)) * ((h + 1) * (w + 1))
+    full = psroi_ops.bin_areas(*bd) > 0                     # (B, N, k, k)
+    keys = torch.cat([(slab + y[..., :, None] * (w + 1) + x[..., None, :])[full]
+                      for y in (hs, he) for x in (ws, we)])
+    corners = torch.unique(keys).numel()
+    nbytes = corners * d * 4 + outputs * 4 + 4 * bd[0].numel() * 4
+    return (*bound(nbytes, ops_per_output * outputs, F32_OPS_PER_S), nbytes,
+            corners)
+
+
+def phase_frame_pools(cfg: Config, seed: int) -> list:
+    """Kernels 5 and 6 at one frame's shapes: the SAT bin sums
+    (``psroi_mm_sums_cuda`` at B=1, the per-frame ``pallas_mm`` pool) and
+    the SAT bin means (``psroi_sat_means_cuda``, the ``pallas`` pool) of
+    one frame's float32 cls, bbox and track maps at the test proposals,
+    each call against its plain version; times are for the three calls.
+    The SAT build is timed on its own."""
+    m = cfg.model
+    k = m.roi.ps_grid
+    hh, ww = cfg.input.canvas_height, cfg.input.canvas_width
+    h, w = hh // 16, ww // 16
+    dc = m.num_classes
+    ds = (dc, 8 if m.roi.class_agnostic else 4 * dc, 4)
+    n = m.rpn.post_nms_top_n_test
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    maps = [torch.randn(1, h, w, k * k * d, device="cuda", generator=g)
+            for d in ds]
+    tables = [psroi_ops.sat(x).contiguous() for x in maps]
+    rng = np.random.RandomState(seed)
+    bds = [[x.contiguous() for x in psroi_ops.roi_bounds(
+        draw_rois(rng, 1, n, hh, ww), 1.0 / m.anchors.feat_stride, k, h, w)]
+        for _ in ds]
+    calls = list(zip(tables, bds))
+    sat_ms = time_ms(lambda: [psroi_ops.sat(x) for x in maps], iters=20)
+    lib_inputs = [(*psroi_ops.row_col_indicators(*bd, h, w),
+                   t.reshape(1, h + 1, w + 1, k, k, -1)) for t, bd in calls]
+    library = lambda: [torch.einsum("bnpy,byxpqd,bnqx->bnpqd", r, s6, c)
+                       for r, c, s6 in lib_inputs]
+    library_ms = time_ms(library, iters=3, warmup=1)
+    forms = (("psroi_mm", psroi_ops.psroi_mm_sums_cuda,
+              psroi_ops.psroi_mm_sums_plain, PSROI_MM_REL_TOL, 3,
+              "dtt/ops/psroi.py:226"),
+             ("psroi_sat_mean", psroi_ops.psroi_sat_means_cuda,
+              psroi_ops.psroi_sat_means_plain, PSROI_MEAN_REL_TOL, 4,
+              "dtt/ops/psroi.py:586"))
+    entries = []
+    for name, kernel, plain, rel_tol, ops, replaces in forms:
+        err = 0.0
+        for t, bd in calls:
+            got = kernel(t, *bd)
+            torch.cuda.synchronize()
+            want = plain(t, *bd)
+            e = (got - want).abs().max().item()
+            tol = rel_tol * want.abs().max().item()
+            if not e <= tol:
+                raise AssertionError(f"{name} kernel vs plain (frame, "
+                                     f"{tuple(t.shape)}): max abs err {e} > "
+                                     f"{tol}")
+            err = max(err, e)
+        ms = time_ms(lambda: [kernel(t, *bd) for t, bd in calls], iters=20)
+        plain_ms = time_ms(lambda: [plain(t, *bd) for t, bd in calls],
+                           iters=3, warmup=1)
+        bounds = [sat_bound(bd, 1, h, w, k, d, n * k * k * d, ops)
+                  for (_, bd), d in zip(calls, ds)]
+        nbytes = sum(x[2] for x in bounds)
+        bound_ms, bound_by = bound(nbytes, sum(ops * n * k * k * d
+                                               for d in ds), F32_OPS_PER_S)
+        log(f"{name} [frame]: SAT {[tuple(t.shape) for t, _ in calls]} f32, "
+            f"{n} RoIs, k={k}, D={ds}: max_abs_err {err:.3g} (tol {rel_tol} "
+            f"of the largest), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library einsum {library_ms:.4f} ms (f32 bin sums), bound_us "
+            f"{bound_ms * 1e3:.2f} ({bound_by}, {nbytes / 1e6:.2f} MB: "
+            f"{[x[3] for x in bounds]} distinct corners of non-empty bins)")
+        entries.append({"name": name, "path": "frame", "route": "cuda",
+                        "source": "dtt_torch/ops/csrc/psroi.cu",
+                        "replaces": replaces, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms})
+    log(f"SAT build [frame]: 3 tables {[tuple(t.shape) for t in tables]} "
+        f"f32: {sat_ms:.4f} ms")
+    return entries
+
+
+def phase_correlation_forms(cfg: Config, pairs: int, seed: int) -> list:
+    """Both correlation forward kernels on one set of inputs, `pairs`
+    pairs x 3 scales: the unsplit kernel 1 (``correlation_cuda``) and the
+    channel-split kernel 7 (``correlation_split_cuda``), each against the
+    plain version and timed in turns (split, unsplit, unsplit, split).
+    Returns their entries for the single-frame path."""
+    t = cfg.model.track
+    d, s = t.max_displacement, t.stride
+    cases = corr_inputs(cfg, pairs, seed)
+    kernels = {"correlation": corr_ops.correlation_cuda,
+               "correlation_split": corr_ops.correlation_split_cuda}
+    errs = dict.fromkeys(kernels, 0.0)
+    for f1, f2 in cases:
+        want = corr_ops.correlation_plain(f1, f2, d, s).float()
+        for name, kernel in kernels.items():
+            got = kernel(f1, f2, d, s)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name],
+                             (got.float() - want).abs().max().item())
+    if not max(errs.values()) <= CORR_TOL:
+        raise AssertionError(f"correlation kernels vs plain ({pairs} pairs):"
+                             f" max abs err {errs} > {CORR_TOL}")
+    run = lambda kernel: time_ms(lambda: [kernel(a, c, d, s)
+                                          for a, c in cases], iters=20)
+    ms = dict.fromkeys(kernels, 0.0)
+    for name in ("correlation_split", "correlation", "correlation",
+                 "correlation_split"):
+        ms[name] += run(kernels[name]) / 2
+    plain_ms = time_ms(lambda: [corr_ops.correlation_plain(a, c, d, s)
+                                for a, c in cases], iters=3, warmup=1)
+    bound_ms, bound_by, nbytes, ops = corr_bound(cases, d, s)
+    log(f"correlation forms: {pairs} pair(s) x 3 scales "
+        f"{[tuple(c[0].shape) for c in cases]} bf16 d={d} s={s}: split "
+        f"kernel {ms['correlation_split']:.4f} ms (max_abs_err "
+        f"{errs['correlation_split']:.3g}), unsplit kernel "
+        f"{ms['correlation']:.4f} ms (max_abs_err {errs['correlation']:.3g}),"
+        f" tol {CORR_TOL}; plain {plain_ms:.4f} ms, library: none, bound_us "
+        f"{bound_ms * 1e3:.1f} ({bound_by}, {nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP)")
+    replaces = {"correlation": "dtt/ops/correlation.py:135",
+                "correlation_split": "dtt/ops/correlation.py:275"}
+    return [{"name": name, "path": "frame", "route": "cuda",
+             "source": "dtt_torch/ops/csrc/correlation.cu",
+             "replaces": replaces[name], "max_abs_err": errs[name],
+             "ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None} for name in kernels]
 
 
 def tiny_config() -> Config:
@@ -572,6 +733,76 @@ def phase_pair_reference() -> None:
         f" claimed detections equal; max |d score| {np.abs(gs - cs).max():.3g}"
         f", max |d rescored| {np.abs(gtub.rescored - ctub.rescored).max():.3g}"
         f", max |d box| {np.abs(gb - cb).max():.3g}")
+
+
+def phase_frame_reference() -> None:
+    """Tiny config, float32: the single-frame step, every per-frame pool
+    form and the split correlation, each with its gradients, through the
+    kernels on the card against the plain versions on the CPU. The step:
+    `valid` equal, scores to 1e-4, boxes to 1e-2 (as the video reference).
+    Pools: rtol 1e-5 with an atol of 8 float32 ulps of the SAT's largest
+    entry (the table is a cumsum in another order on each device), map
+    gradients to 1e-5 of the largest. Correlation: 1e-5, gradients 1e-5."""
+    cfg = tiny_config()
+    tree = init_jax_params(cfg.model, seed=3)
+    image = np.random.RandomState(6).randint(0, 256, (1, 64, 96, 3)).astype(
+        np.uint8)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = from_jax_params(tree, cfg.model, device=dev)
+        step = make_single_frame_step(cfg, model, device=dev)
+        outs[dev] = [x.cpu().numpy() for x in step(torch.from_numpy(image),
+                                                   (56, 80))]
+    (cb, cs, cv), (gb, gs, gv) = outs["cpu"], outs["cuda"]
+    np.testing.assert_array_equal(gv, cv)
+    np.testing.assert_allclose(gs, cs, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gb, cb, rtol=0, atol=1e-2)
+    rng = np.random.RandomState(7)
+    h, w, k, d = 10, 14, 7, 9
+    maps = torch.from_numpy(rng.randn(h, w, k * k * d).astype(np.float32))
+    xy = rng.uniform(-40, w * 16, (40, 2))
+    rois = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(0, 200, (40, 2))], axis=-1).astype(np.float32))
+    go = torch.from_numpy(rng.randn(40, k, k, d).astype(np.float32))
+    atol = 8 * np.finfo(np.float32).eps * psroi_ops.sat(maps[None]).abs().max()
+    before = read_launches()
+    worst = {}
+    for impl in ("xla", "mm", "pallas_mm", "pallas"):
+        res = []
+        for dev in ("cpu", "cuda"):
+            m = maps.to(dev).detach().clone().requires_grad_()
+            out = psroi_ops.psroi_pool(m, rois.to(dev), 1 / 16, k, impl)
+            out.backward(go.to(dev))
+            res.append((out.detach().cpu(), m.grad.cpu()))
+        (co, cg), (go_, gg) = res
+        torch.testing.assert_close(go_, co, rtol=1e-5, atol=atol.item())
+        torch.testing.assert_close(gg, cg, rtol=0,
+                                   atol=1e-5 * cg.abs().max().item())
+        worst[impl] = (go_ - co).abs().max().item()
+    f1, f2 = (torch.from_numpy(rng.randn(2, 7, 11, 160).astype(np.float32))
+              for _ in range(2))
+    gc = torch.from_numpy(rng.randn(2, 7, 11, 81).astype(np.float32))
+    res = []
+    for dev in ("cpu", "cuda"):
+        a, b = (x.to(dev).detach().clone().requires_grad_()
+                for x in (f1, f2))
+        out = corr_ops.correlation(a, b, 8, 2, "pallas")
+        out.backward(gc.to(dev))
+        res.append([x.detach().cpu() for x in (out, a.grad, b.grad)])
+    for x, y in zip(res[1], res[0]):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+    launched = {n: c - before[n] for n, c in read_launches().items()
+                if c > before[n]}
+    for name in ("psroi_mm", "psroi_sat_mean", "correlation_split",
+                 "correlation_bwd"):
+        if name not in launched:
+            raise AssertionError(f"the frame reference did not launch {name}")
+    log(f"frame reference: tiny config f32, card vs CPU: single-frame step "
+        f"{int(gv.sum())} valid detections equal, max |d score| "
+        f"{np.abs(gs - cs).max():.3g}, max |d box| {np.abs(gb - cb).max():.3g};"
+        f" psroi_pool max |d| by impl {worst} (atol {atol.item():.3g}); "
+        f"correlation pallas max |d| {(res[1][0] - res[0][0]).abs().max():.3g}"
+        f", gradients equal to 1e-5; launches {launched}")
 
 
 def stage_timer():
@@ -989,6 +1220,137 @@ def phase_eval(cfg: Config, tree: dict, card: str) -> dict:
     return launches
 
 
+def frame_detections(m, feats, props: Proposals) -> Detections:
+    """``detect_frame``'s heads on one frame's features and proposals."""
+    cls_score, bbox_pred = rfcn_head(m, feats.cls_maps[0], feats.bbox_maps[0],
+                                     props.rois, 1.0 / m.anchors.feat_stride)
+    return Detections(props.rois, props.valid, softmax(cls_score), bbox_pred)
+
+
+def phase_frame_path(cfg: Config, tree: dict, card: str) -> dict:
+    """The single-frame path at full width: ``make_single_frame_step`` on
+    one warm-up and FRAME_STEPS timed uint8 frames; then, on the last
+    frame's features and proposals, ``rfcn_head`` under every ``impl``
+    (each against ``xla``: ``pallas`` to the bit, the SAT forms to the
+    SAT's f32 error) and ``correlation`` under both kernel forms at one
+    pair's three scales. The kernel launches of that run are returned;
+    the per-impl timings after it are not counted."""
+    m, ecfg = cfg.model, cfg.eval
+    hh, ww = cfg.input.canvas_height, cfg.input.canvas_width
+    model = from_jax_params(tree, m, device="cuda")
+    step = make_single_frame_step(cfg, model)
+    frames = np.random.RandomState(11).randint(
+        0, 256, (FRAME_STEPS + 1, hh, ww, 3)).astype(np.uint8)
+    im_hw = (hh - 8, ww - 48)
+    log(f"frame path: {m.backbone} {hh}x{ww} {m.dtype} compute, float32 "
+        f"parameters, {m.num_classes} classes, k={m.roi.ps_grid}, "
+        f"{m.rpn.post_nms_top_n_test} proposals, single-frame R-FCN step")
+    reset_launches()
+    t0 = time.perf_counter()
+    step(torch.from_numpy(frames[:1]), im_hw)
+    torch.cuda.synchronize()
+    log(f"frame warm-up: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    t0 = time.perf_counter()
+    outs = [step(torch.from_numpy(frames[i:i + 1]), im_hw)
+            for i in range(1, FRAME_STEPS + 1)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c, mm = m.num_classes - 1, ecfg.max_per_class
+    for boxes, scores, valid in ([x.cpu().numpy() for x in o] for o in outs):
+        if boxes.shape != (c, mm, 4) or scores.shape != valid.shape != (c, mm):
+            raise AssertionError(f"frame outputs {boxes.shape} "
+                                 f"{scores.shape} {valid.shape}")
+        if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):
+            raise AssertionError("frame outputs have non-finite values")
+        if not ((scores >= 0) & (scores <= 1)).all():
+            raise AssertionError("frame scores outside [0, 1]")
+        if boxes[..., 2].max() > im_hw[1] - 1 or \
+                boxes[..., 3].max() > im_hw[0] - 1:
+            raise AssertionError("frame boxes reach past the true extent")
+    n_valid = sum(int(o[2].sum()) for o in outs)
+    if not n_valid:
+        raise AssertionError("no valid detection in the timed frames")
+    log(f"frame path: {FRAME_STEPS} frames in {dt * 1e3:.1f} ms: "
+        f"{dt * 1e3 / FRAME_STEPS:.2f} ms/frame, {FRAME_STEPS / dt:.2f} "
+        f"frames/s on {card}; {n_valid} valid detections")
+
+    anchors = torch.from_numpy(grid_anchors_for(m.anchors, hh // 16,
+                                                ww // 16)).cuda()
+    hw = torch.tensor(im_hw, dtype=torch.float32, device="cuda")
+    image = torch.from_numpy(frames[-1:]).cuda()
+    scale = 1.0 / m.anchors.feat_stride
+    stage, times = stage_timer()
+    with torch.inference_mode():
+        for _ in range(2):                  # report the second pass
+            feats = stage("trunk", lambda: model.frame_features(
+                normalize_device_images(image, hw, cfg.input.pixel_means)))
+            props = stage("proposals", lambda: Proposals(*(x[0] for x in (
+                proposal_layer(feats.rpn_cls, feats.rpn_bbox, anchors, hw[0],
+                               hw[1], 1.0, m.rpn)))))
+            det = stage("heads", lambda: frame_detections(m, feats, props))
+            stage("decode", lambda: decode_frame_detections(
+                m, det, hw[0], hw[1], ecfg.score_thresh, ecfg.nms_thresh,
+                ecfg.max_per_class))
+        log_stages("one full-width frame", times)
+
+        maps = (feats.cls_maps[0], feats.bbox_maps[0])
+        heads = {impl: lambda impl=impl: rfcn_head(m, *maps, props.rois,
+                                                   scale, impl)
+                 for impl in ("xla", "mm", "pallas_mm", "pallas")}
+        want = heads["xla"]()
+        sat_atol = [8 * np.finfo(np.float32).eps
+                    * psroi_ops.sat(x[None]).abs().max().item() for x in maps]
+        errs = {}
+        for impl, fn in heads.items():
+            got = fn()
+            torch.cuda.synchronize()
+            errs[impl] = [(g - w_).abs().max().item()
+                          for g, w_ in zip(got, want)]
+            tol = [0.0] * 2 if impl in ("xla", "pallas") else [
+                a + 1e-5 * w_.abs().max().item()
+                for a, w_ in zip(sat_atol, want)]
+            if not all(e <= t for e, t in zip(errs[impl], tol)):
+                raise AssertionError(f"rfcn_head({impl}) vs xla: max abs err "
+                                     f"{errs[impl]} > {tol}")
+        pair = model.frame_trunk(normalize_device_images(
+            torch.from_numpy(frames[-2:]).cuda(), hw, cfg.input.pixel_means))
+        t = m.track
+        corr_cases = [(cosine_prep(pair.corr_feats[sc][:1]).contiguous(),
+                       cosine_prep(pair.corr_feats[sc][1:]).contiguous())
+                      for sc in t.scales]
+        corrs = {impl: lambda impl=impl: [
+            corr_ops.correlation(a, b, t.max_displacement, t.stride, impl)
+            for a, b in corr_cases] for impl in ("pallas_mm", "pallas")}
+        corr_err = 0.0
+        results = {impl: fn() for impl, fn in corrs.items()}
+        for i, (a, b) in enumerate(corr_cases):
+            plain = corr_ops.correlation_plain(a, b, t.max_displacement,
+                                               t.stride).float()
+            for impl in corrs:
+                corr_err = max(corr_err, (results[impl][i].float() - plain)
+                               .abs().max().item())
+        if not corr_err <= CORR_TOL:
+            raise AssertionError(f"frame correlation vs plain: max abs err "
+                                 f"{corr_err} > {CORR_TOL}")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"frame path launches: {launches}")
+        check_launches("frame", launches)
+        head_ms = {impl: time_ms(fn, iters=10) for impl, fn in heads.items()}
+        corr_ms = {impl: time_ms(fn, iters=10) for impl, fn in corrs.items()}
+    errs = {k: [f"{e:.3g}" for e in v] for k, v in errs.items()}
+    log(f"frame heads (cls D={maps[0].shape[-1] // m.roi.ps_grid ** 2}, bbox "
+        f"D={maps[1].shape[-1] // m.roi.ps_grid ** 2}, "
+        f"{props.rois.shape[0]} RoIs) by impl: ms "
+        f"{ {k: round(v, 4) for k, v in head_ms.items()} }, max abs err vs "
+        f"xla (cls, bbox) {errs}")
+    log(f"frame correlation at one pair x 3 scales "
+        f"{[tuple(a.shape) for a, _ in corr_cases]} by impl: ms "
+        f"{ {k: round(v, 4) for k, v in corr_ms.items()} }, max abs err vs "
+        f"plain {corr_err:.3g} (tol {CORR_TOL})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1008,17 +1370,22 @@ def main() -> int:
                phase_psroi(cfg, "train", seed=6),
                phase_psroi_bwd(cfg, seed=3),
                phase_correlation(cfg, "pair", PAIR_BATCH, seed=7),
-               phase_psroi_mm(cfg, seed=8)]
+               phase_psroi_mm(cfg, seed=8),
+               *phase_frame_pools(cfg, seed=9),
+               *phase_correlation_forms(cfg, 1, seed=10)]
+    phase_correlation_forms(cfg, FRAMES_PER_CHUNK - 1, seed=1)
     phase_reference()
     phase_train_reference()
     phase_pair_reference()
+    phase_frame_reference()
     t0 = time.perf_counter()
     tree = init_jax_params(cfg.model, seed=0)
     log(f"full-width weights from a numpy seed in "
         f"{time.perf_counter() - t0:.1f} s")
     launches = {"video": phase_main_path(cfg, card, tree),
                 "train": phase_train(cfg, tree, card),
-                **phase_eval(cfg, tree, card)}
+                **phase_eval(cfg, tree, card),
+                "frame": phase_frame_path(cfg, tree, card)}
     for k in kernels:
         k["launches"] = launches[k["path"]][k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,8 @@
   min(t+tau, T-1), in batches of pairs; ``interpolate_tubes`` fills the
   skipped frames along the linked tubes.
 * ``link_snippet``: tube linking + rescoring on the device.
+* Single-frame R-FCN detection (``make_single_frame_step``): no tracking
+  head, one frame per call.
 
 Both drivers keep two batches in flight: CUDA work is queued
 asynchronously and only the ``.cpu()`` of a finished batch waits.
@@ -28,6 +30,7 @@ from dtt_torch.core.config import Config
 from dtt_torch.core.device import resolve_device
 from dtt_torch.eval.linking import Tubes, link_all_classes
 from dtt_torch.models.dnt import (DnT, decode_detections_batched,
+                                  decode_frame_detections, detect_frame,
                                   detect_track_fused, normalize_device_images)
 
 
@@ -150,6 +153,39 @@ def make_pair_step(cfg: Config, model: DnT, batch: int = 4, device=None):
                                        scale)
 
     step.batch = batch
+    step.device = device
+    return step
+
+
+def make_single_frame_step(cfg: Config, model: DnT, device=None):
+    """(image (1, H, W, 3), im_hw=None, scale) -> per-class detections
+    (boxes (C-1, M, 4), scores (C-1, M), valid (C-1, M)) as device tensors:
+    ``frame_features`` -> ``detect_frame`` -> ``decode_frame_detections``
+    with the eval thresholds (single-frame R-FCN detection, no tracking).
+
+    A uint8 image is normalized on the device; `im_hw` is its true (h, w)
+    extent (default: the canvas). Runs on `device` (CUDA unless the caller
+    passes "cpu"), which must hold `model`.
+    """
+    device, anchors = _step_setup(cfg, model, device)
+    mcfg, ecfg = cfg.model, cfg.eval
+    canvas = (cfg.input.canvas_height, cfg.input.canvas_width)
+
+    @torch.inference_mode()
+    def step(image: torch.Tensor, im_hw=None, scale: float = 1.0):
+        if image.dim() != 4 or image.shape[0] != 1:
+            raise ValueError(f"expected one image (1, H, W, 3), got "
+                             f"{tuple(image.shape)}")
+        hw = torch.as_tensor(canvas if im_hw is None else im_hw,
+                             dtype=torch.float32, device=device)
+        image = normalize_device_images(_upload(image, device), hw,
+                                        cfg.input.pixel_means)
+        feats = model.frame_features(image)
+        _, det = detect_frame(mcfg, feats, anchors, hw[0], hw[1], scale)
+        return decode_frame_detections(mcfg, det, hw[0], hw[1],
+                                       ecfg.score_thresh, ecfg.nms_thresh,
+                                       ecfg.max_per_class)
+
     step.device = device
     return step
 

@@ -14,6 +14,12 @@ Training (``frame_features``, ``track_psmaps``, ``pool_vote_batched``):
 the unfused cls/bbox maps per frame, the track maps from the concatenated
 [reduced_t | reduced_tau | corr x3] input, and differentiable pools.
 
+Single-frame R-FCN detection (``detect_frame``, ``rfcn_head``,
+``pool_vote``, ``decode_frame_detections``; ``track_rois``): one frame's
+proposals and per-frame ``psroi_pool`` votes by ``impl``; the batched
+forms ``detect_frames_batched`` and ``track_rois_batched`` pool with the
+gather form.
+
 Parameters are float32 and cast to ``cfg.dtype`` at use, as the reference
 casts its float32 params. Public functions take and return NHWC tensors
 (JAX's layouts); convs run on channels-last NCHW views of the same memory.
@@ -37,7 +43,7 @@ from dtt_torch.models.rpn import Proposals, RPNHead, proposal_layer, softmax
 from dtt_torch.models.targets import roi_norm_params
 from dtt_torch.ops.correlation import correlation
 from dtt_torch.ops.nms import multiclass_nms
-from dtt_torch.ops.psroi import (psroi_pool_batched,
+from dtt_torch.ops.psroi import (psroi_pool, psroi_pool_batched,
                                  psroi_pool_batched_direct,
                                  psroi_pool_batched_pallas_mm)
 
@@ -131,15 +137,21 @@ def cosine_prep(x: torch.Tensor) -> torch.Tensor:
     return (x / n.to(x.dtype)) * root_c.to(x.dtype).item()
 
 
+def require_psroi(cfg: ModelConfig) -> None:
+    """Raise for the pooling modes the port does not implement."""
+    if cfg.roi.pooling_mode != "psroi":
+        raise NotImplementedError(
+            f"dtt_torch implements pooling_mode='psroi' only, got "
+            f"{cfg.roi.pooling_mode!r} (align/pool/crop: ROADMAP.md Queue 1 "
+            "item 13)")
+
+
 class DnT(nn.Module):
     """All parameterized layers of the D&T model (psroi pooling mode)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.roi.pooling_mode != "psroi":
-            raise NotImplementedError(
-                f"dtt_torch implements pooling_mode='psroi' only, got "
-                f"{cfg.roi.pooling_mode!r}")
+        require_psroi(cfg)
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)     # compute dtype
         k2 = cfg.roi.ps_grid ** 2
@@ -344,6 +356,88 @@ def decode_detections_batched(cfg: ModelConfig, det: Detections,
     frames = torch.arange(tracked.shape[0], device=tracked.device)
     det_tracked = tracked[frames[:, None, None], det_idx] * det_valid[..., None]
     return det_boxes, det_scores, det_valid, det_tracked
+
+
+def pool_vote(cfg: ModelConfig, maps: torch.Tensor, rois: torch.Tensor,
+              spatial_scale: float, impl: str = "auto") -> torch.Tensor:
+    """(H, W, k*k*D) maps, (N, 4) RoIs -> (N, D) votes: the mean over the
+    k*k bins of ``psroi_pool(impl)``, in the maps' dtype."""
+    require_psroi(cfg)
+    return psroi_pool(maps, rois, spatial_scale, cfg.roi.ps_grid,
+                      impl).mean(dim=(1, 2))
+
+
+def rfcn_head(cfg: ModelConfig, cls_maps: torch.Tensor,
+              bbox_maps: torch.Tensor, rois: torch.Tensor,
+              spatial_scale: float, impl: str = "auto"):
+    """One frame's per-RoI class scores (N, C) and box deltas (N, 4*nb)."""
+    return (pool_vote(cfg, cls_maps, rois, spatial_scale, impl),
+            pool_vote(cfg, bbox_maps, rois, spatial_scale, impl))
+
+
+def detect_frame(cfg: ModelConfig, feats: FrameFeats, anchors: torch.Tensor,
+                 im_height, im_width, im_scale, frame_idx: int = 0,
+                 train: bool = False) -> tuple[Proposals, Detections]:
+    """Single-frame R-FCN detection on frame `frame_idx` of a batched
+    ``frame_features`` output: its proposals (the batched proposal layer at
+    B=1) and ``rfcn_head``'s votes, unbatched: rois (N, 4), valid (N,),
+    cls_prob (N, C), bbox_pred (N, 4*nb)."""
+    i = frame_idx
+    props = proposal_layer(feats.rpn_cls[i:i + 1], feats.rpn_bbox[i:i + 1],
+                           anchors, im_height, im_width, im_scale, cfg.rpn,
+                           train)
+    props = Proposals(*(x[0] for x in props))
+    cls_score, bbox_pred = rfcn_head(cfg, feats.cls_maps[i],
+                                     feats.bbox_maps[i], props.rois,
+                                     1.0 / cfg.anchors.feat_stride)
+    return props, Detections(rois=props.rois, roi_valid=props.valid,
+                             cls_prob=softmax(cls_score), bbox_pred=bbox_pred)
+
+
+def detect_frames_batched(cfg: ModelConfig, feats: FrameFeats,
+                          anchors: torch.Tensor, im_height, im_width,
+                          im_scale, train: bool = False
+                          ) -> tuple[Proposals, Detections]:
+    """Detection over the whole frame batch: one proposal call, and the
+    cls/bbox maps pooled by the gather form (``pool_vote_batched``)."""
+    props = proposal_layer(feats.rpn_cls, feats.rpn_bbox, anchors, im_height,
+                           im_width, im_scale, cfg.rpn, train)
+    scale = 1.0 / cfg.anchors.feat_stride
+    cls_score = pool_vote_batched(cfg, feats.cls_maps, props.rois, scale,
+                                  "gather")
+    bbox_pred = pool_vote_batched(cfg, feats.bbox_maps, props.rois, scale,
+                                  "gather")
+    return props, Detections(rois=props.rois, roi_valid=props.valid,
+                             cls_prob=softmax(cls_score), bbox_pred=bbox_pred)
+
+
+def track_rois_batched(cfg: ModelConfig, track_maps: torch.Tensor,
+                       rois: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, k^2*4), (B, N, 4) -> (B, N, 4) tracking deltas (gather
+    pool)."""
+    return pool_vote_batched(cfg, track_maps, rois,
+                             1.0 / cfg.anchors.feat_stride, "gather")
+
+
+def track_rois(cfg: ModelConfig, track_maps: torch.Tensor, rois: torch.Tensor,
+               frame_idx: int = 0) -> torch.Tensor:
+    """RoI-pooled tracking deltas (N, 4) for frame `frame_idx`'s RoIs."""
+    return pool_vote(cfg, track_maps[frame_idx], rois,
+                     1.0 / cfg.anchors.feat_stride)
+
+
+def decode_frame_detections(cfg: ModelConfig, det: Detections, im_height,
+                            im_width, score_thresh=None, nms_thresh=None,
+                            max_per_class: int = 20,
+                            track_deltas: Optional[torch.Tensor] = None):
+    """One frame's per-class decode + NMS: `decode_detections_batched` at
+    B=1. Returns boxes (C-1, M, 4), scores (C-1, M), valid (C-1, M) [and,
+    with `track_deltas` (N, 4), each kept detection's tracked box]."""
+    out = decode_detections_batched(
+        cfg, Detections(*(x[None] for x in det)), im_height, im_width,
+        score_thresh, nms_thresh, max_per_class,
+        None if track_deltas is None else track_deltas[None])
+    return tuple(x[0] for x in out)
 
 
 def make_model(cfg: ModelConfig, device=None) -> DnT:

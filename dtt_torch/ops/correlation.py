@@ -6,16 +6,27 @@ with dy, dx in {-d, -d+s, ..., d}, dy-major channel order, zero padding
 outside f2, f32 accumulation and the result in the input dtype. Maps are
 NHWC, batched over frame pairs.
 
-* `correlation_plain` — shifted multiply-reduce in PyTorch (the reference
-  the kernel is held against; the CPU path).
-* `correlation_cuda` — the hand-written kernel ``csrc/correlation.cu``,
-  which replaces the TPU kernel ``_corr_mm_kernel``
-  (dtt/ops/correlation.py). See the source for its design.
+* `correlation_plain` (also `correlation_xla`) — shifted multiply-reduce
+  in PyTorch (the reference the kernels are held against; the CPU path).
+* `correlation_mm`, `correlation_mm_diag` — dtt's banded-matmul forms in
+  plain PyTorch: per vertical displacement the band of row products, the
+  horizontal displacements read off by a 0/1 selector contraction or by
+  strided slices.
+* `correlation_cuda` — the hand-written kernel ``dtt_correlation`` in
+  ``csrc/correlation.cu``, which replaces the TPU kernel
+  ``_corr_mm_kernel`` (dtt/ops/correlation.py). See the source for its
+  design.
+* `correlation_split_cuda` — the kernel ``dtt_correlation_split`` in the
+  same source, channel blocks summed by concurrent blocks; replaces the TPU
+  kernel ``_corr_kernel``.
 * `correlation_bwd_plain` / `correlation_bwd_cuda` — the gradients of both
   inputs: the shifted multiply form, and a kernel in the same source (dtt
   differentiates its forward with XLA's AD instead).
-* `correlation` — differentiable; takes the plain versions for CPU tensors
-  and the kernels for CUDA tensors.
+* `correlation_pallas_mm` / `correlation_pallas` — differentiable forms over
+  the two forward kernels sharing that backward (the plain versions for
+  CPU tensors).
+* `correlation(impl=...)` — dtt's names: ``"auto"`` (= ``"pallas_mm"``),
+  ``"xla"``, ``"mm"``, ``"mm_diag"``, ``"pallas_mm"``, ``"pallas"``.
 """
 
 from __future__ import annotations
@@ -54,6 +65,59 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
             sl = f2p[:, d + dy:d + dy + h, d + dx:d + dx + w, :]
             outs.append((a * sl).sum(dim=-1) / c)
     return torch.stack(outs, dim=-1).to(f1.dtype)
+
+
+correlation_xla = correlation_plain
+
+
+def _band(a: torch.Tensor, f2p: torch.Tensor, dy: int, d: int) -> torch.Tensor:
+    """(B, H, W, C) f1 and padded f2 (f32) -> (B, H, W, W+2d) row products
+    f1[y] @ f2p[y + dy]^T, dtt's band for one vertical displacement."""
+    h = a.shape[1]
+    return torch.einsum("bywc,byvc->bywv", a, f2p[:, d + dy:d + dy + h])
+
+
+def correlation_mm(f1: torch.Tensor, f2: torch.Tensor,
+                   max_displacement: int = 8, stride: int = 2
+                   ) -> torch.Tensor:
+    """(B, H, W, C) x2 -> (B, H, W, nd^2): ``dtt``'s ``correlation_mm``,
+    the band of each vertical displacement in f32 and its horizontal
+    displacements read off by a 0/1 diagonal selector contraction."""
+    _, h, w, c = f1.shape
+    d = max_displacement
+    offs = offsets(d, stride)
+    v = w + 2 * d
+    a = f1.float()
+    f2p = F.pad(f2.float(), (0, 0, d, d, d, d))
+    dev = f1.device
+    # sel[x, vv, i] = 1 iff vv == x + offs[i] + d
+    sel = (torch.arange(v, device=dev)[None, :, None]
+           == torch.arange(w, device=dev)[:, None, None]
+           + torch.tensor(offs, device=dev)[None, None, :] + d).float()
+    out = torch.cat([torch.einsum("bywv,wvj->bywj", _band(a, f2p, dy, d), sel)
+                     for dy in offs], dim=-1)               # dy-major
+    return (out / c).to(f1.dtype)
+
+
+def correlation_mm_diag(f1: torch.Tensor, f2: torch.Tensor,
+                        max_displacement: int = 8, stride: int = 2
+                        ) -> torch.Tensor:
+    """(B, H, W, C) x2 -> (B, H, W, nd^2): ``dtt``'s
+    ``correlation_mm_diag``, the same bands with each diagonal read off as
+    a strided slice of the flattened band (stride W+2d+1)."""
+    b, h, w, c = f1.shape
+    d = max_displacement
+    offs = offsets(d, stride)
+    v = w + 2 * d
+    a = f1.float()
+    f2p = F.pad(f2.float(), (0, 0, d, d, d, d))
+    outs = []
+    for dy in offs:
+        flat = _band(a, f2p, dy, d).reshape(b, h, w * v)
+        for dx in offs:
+            k = dx + d
+            outs.append(flat[..., k:k + (w - 1) * (v + 1) + 1:v + 1])
+    return (torch.stack(outs, dim=-1) / c).to(f1.dtype)
 
 
 def correlation_bwd_plain(f1: torch.Tensor, f2: torch.Tensor,
@@ -137,6 +201,53 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
 
 correlation_cuda.launches = 0
 
+# channels per block of dtt_correlation_split (dtt's channel_block)
+_SPLIT_C = 128
+
+
+@functools.lru_cache(maxsize=None)
+def _split_entry():
+    fn = _build.load("correlation").dtt_correlation_split
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def correlation_split_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                           max_displacement: int = 8, stride: int = 2
+                           ) -> torch.Tensor:
+    """(B, H, W, C) x2 -> (B, H, W, nd^2) by the channel-split CUDA kernel:
+    one block per 128-channel block writes its f32 partial planes to a
+    workspace, a second kernel sums them in block order.
+
+    Launches on the current stream; counts its launches in
+    ``correlation_split_cuda.launches``.
+    """
+    _check_maps("correlation_split_cuda", f1, f2, max_displacement, stride)
+    b, h, w, c = f1.shape
+    nblk = -(-c // _SPLIT_C)
+    if c < 1 or b * nblk >= 2 ** 16:
+        raise ValueError(f"correlation_split_cuda: needs 1 <= C and B * "
+                         f"ceil(C / {_SPLIT_C}) < 65536, got B={b}, C={c}")
+    nd2 = num_corr_channels(max_displacement, stride)
+    out = torch.empty((b, h, w, nd2), dtype=f1.dtype, device=f1.device)
+    if out.numel() == 0:
+        return out
+    part = torch.empty((nblk, b, h, w, nd2), dtype=torch.float32,
+                       device=f1.device)
+    err = _split_entry()(f1.data_ptr(), f2.data_ptr(), part.data_ptr(),
+                         out.data_ptr(), b, h, w, c, max_displacement, stride,
+                         _SPLIT_C, _DTYPE_CODES[f1.dtype], f1.device.index,
+                         torch.cuda.current_stream(f1.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"correlation split kernel launch failed: "
+                           f"cudaError {err}")
+    correlation_split_cuda.launches += 1
+    return out
+
+
+correlation_split_cuda.launches = 0
+
 
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
@@ -182,16 +293,17 @@ correlation_bwd_cuda.launches = 0
 
 
 class _Correlation(torch.autograd.Function):
-    """Plain versions on CPU tensors, the kernels on CUDA tensors; the
-    output gradient is taken in the maps' dtype, as dtt casts it."""
+    """The plain versions on CPU tensors; on CUDA tensors the forward
+    kernel `kernel` and the backward kernel. The output gradient is taken
+    in the maps' dtype, as dtt casts it."""
 
     @staticmethod
-    def forward(ctx, f1, f2, max_displacement, stride):
+    def forward(ctx, f1, f2, max_displacement, stride, kernel):
         ctx.save_for_backward(f1, f2)
         ctx.window = (max_displacement, stride)
         if f1.device.type == "cpu":
             return correlation_plain(f1, f2, max_displacement, stride)
-        return correlation_cuda(f1, f2, max_displacement, stride)
+        return kernel(f1, f2, max_displacement, stride)
 
     @staticmethod
     def backward(ctx, g):
@@ -200,12 +312,44 @@ class _Correlation(torch.autograd.Function):
         bwd = (correlation_bwd_plain if f1.device.type == "cpu"
                else correlation_bwd_cuda)
         df1, df2 = bwd(f1, f2, g, *ctx.window)
-        return df1, df2, None, None
+        return df1, df2, None, None, None
+
+
+def correlation_pallas_mm(f1: torch.Tensor, f2: torch.Tensor,
+                          max_displacement: int = 8, stride: int = 2
+                          ) -> torch.Tensor:
+    """Differentiable correlation by ``correlation_cuda`` on CUDA tensors,
+    the plain version on CPU tensors."""
+    return _Correlation.apply(f1, f2, max_displacement, stride,
+                              correlation_cuda)
+
+
+def correlation_pallas(f1: torch.Tensor, f2: torch.Tensor,
+                       max_displacement: int = 8, stride: int = 2
+                       ) -> torch.Tensor:
+    """Differentiable correlation by ``correlation_split_cuda`` on CUDA
+    tensors, the plain version on CPU tensors; the backward is
+    ``correlation_pallas_mm``'s, as dtt pins both to one backward."""
+    return _Correlation.apply(f1, f2, max_displacement, stride,
+                              correlation_split_cuda)
+
+
+_FORMS = {"xla": correlation_xla, "mm": correlation_mm,
+          "mm_diag": correlation_mm_diag, "pallas_mm": correlation_pallas_mm,
+          "pallas": correlation_pallas}
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor,
-                max_displacement: int = 8, stride: int = 2) -> torch.Tensor:
-    """(B, H, W, C) x2 -> (B, H, W, nd^2), differentiable in both maps:
-    the plain versions on CPU tensors, the CUDA kernels otherwise (which
-    raise off CUDA)."""
-    return _Correlation.apply(f1, f2, max_displacement, stride)
+                max_displacement: int = 8, stride: int = 2,
+                impl: str = "auto") -> torch.Tensor:
+    """(B, H, W, C) x2 -> (B, H, W, nd^2), differentiable in both maps, by
+    `impl` (dtt's names; ``"auto"`` is ``"pallas_mm"``: the CUDA kernels on
+    CUDA tensors, which raise off CUDA, the plain versions on the CPU)."""
+    if f1.shape != f2.shape:
+        raise ValueError(f"correlation: maps of one shape, got "
+                         f"{tuple(f1.shape)} and {tuple(f2.shape)}")
+    if impl == "auto":
+        impl = "pallas_mm"
+    if impl not in _FORMS:
+        raise ValueError(f"unknown correlation impl {impl!r}")
+    return _FORMS[impl](f1, f2, max_displacement, stride)

@@ -1,5 +1,5 @@
-// FlowNet correlation and its backward for Hopper (sm_90a), plain C
-// interface for ctypes.
+// FlowNet correlation, its channel-split form and its backward for Hopper
+// (sm_90a), plain C interface for ctypes.
 //
 // Forward (dtt_correlation):
 // Replaces the TPU kernel _corr_mm_kernel (dtt/ops/correlation.py), which
@@ -37,12 +37,17 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T>
+// The body is shared with the channel-split forward (dtt_correlation_split,
+// below): with kSplit each block sums only the channels [cb*block_c,
+// (cb+1)*block_c) of its pair, blockIdx.z = cb*B + b, and writes its raw f32
+// sums to the (nblk, B, H, W, nd*nd) workspace; without it blockIdx.z = b,
+// block_c = C, and the block writes the channel mean in the input dtype.
+template <typename T, bool kSplit>
 __global__ void correlation_kernel(const T* __restrict__ f1,
                                    const T* __restrict__ f2,
-                                   T* __restrict__ out,
-                                   int H, int W, int C, int dmax, int stride,
-                                   int nd) {
+                                   void* __restrict__ out_,
+                                   int B, int H, int W, int C, int dmax,
+                                   int stride, int nd, int block_c) {
   extern __shared__ float smem[];
   const int halo_w = kTileX + 2 * dmax;
   const int pitch2 = halo_w | 1;
@@ -55,14 +60,17 @@ __global__ void correlation_kernel(const T* __restrict__ f1,
   const int nthreads = kTileX * nd;
   const int x0 = blockIdx.x * kTileX;
   const int y = blockIdx.y;
-  const int64_t frame = (int64_t)blockIdx.z * H * W * C;
+  const int b = kSplit ? blockIdx.z % B : blockIdx.z;
+  const int c_lo = kSplit ? (blockIdx.z / B) * block_c : 0;
+  const int c_hi = kSplit ? min(C, c_lo + block_c) : C;
+  const int64_t frame = (int64_t)b * H * W * C;
 
   float acc[kMaxNd];
 #pragma unroll
   for (int j = 0; j < kMaxNd; ++j) acc[j] = 0.f;
 
-  for (int c0 = 0; c0 < C; c0 += kChunkC) {
-    const int cc = min(kChunkC, C - c0);
+  for (int c0 = c_lo; c0 < c_hi; c0 += kChunkC) {
+    const int cc = min(kChunkC, c_hi - c0);
     // channel-fastest global reads (contiguous in NHWC), transposed stores
     for (int i = tid; i < kTileX * kChunkC; i += nthreads) {
       const int c = i % kChunkC;
@@ -97,28 +105,93 @@ __global__ void correlation_kernel(const T* __restrict__ f1,
 
   const int x = x0 + tx;
   if (x < W) {
-    T* o = out + (((int64_t)blockIdx.z * H + y) * W + x) * nd * nd + ty * nd;
-    const float fc = (float)C;
+    const int64_t o = (((int64_t)blockIdx.z * H + y) * W + x) * nd * nd + ty * nd;
+    if (kSplit) {
+      float* part = static_cast<float*>(out_) + o;
 #pragma unroll
-    for (int j = 0; j < kMaxNd; ++j)
-      if (j < nd) store(o + j, acc[j] / fc);
+      for (int j = 0; j < kMaxNd; ++j)
+        if (j < nd) part[j] = acc[j];
+    } else {
+      T* dst = static_cast<T*>(out_) + o;
+      const float fc = (float)C;
+#pragma unroll
+      for (int j = 0; j < kMaxNd; ++j)
+        if (j < nd) store(dst + j, acc[j] / fc);
+    }
   }
+}
+
+template <typename T, bool kSplit>
+int launch_corr(const void* f1, const void* f2, void* out, int B, int H,
+                int W, int C, int dmax, int stride, int block_c, int nblk,
+                cudaStream_t stream) {
+  const int nd = (2 * dmax) / stride + 1;
+  const int halo_w = kTileX + 2 * dmax;
+  const size_t smem = sizeof(float) *
+      (kChunkC * kPitch1 + (size_t)nd * kChunkC * (halo_w | 1));
+  dim3 grid((W + kTileX - 1) / kTileX, H, B * nblk);
+  dim3 block(kTileX, nd);
+  correlation_kernel<T, kSplit><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(f1), static_cast<const T*>(f2), out, B, H, W, C,
+      dmax, stride, nd, block_c);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* f1, const void* f2, void* out, int B, int H, int W,
            int C, int dmax, int stride, cudaStream_t stream) {
   if (stride < 1 || dmax < 0) return (int)cudaErrorInvalidValue;
+  if ((2 * dmax) / stride + 1 > kMaxNd) return (int)cudaErrorInvalidValue;
+  return launch_corr<T, false>(f1, f2, out, B, H, W, C, dmax, stride, C, 1,
+                               stream);
+}
+
+// Channel-split forward (dtt_correlation_split). Replaces the TPU kernel
+// _corr_kernel (dtt/ops/correlation.py), which walked a sequential grid of
+// 128-channel blocks (channels zero-padded to a whole block) and added each
+// block's 81 planes into one f32 accumulator that stayed in VMEM. On Hopper
+// blocks run in parallel in no order, so the channel blocks become
+// concurrent CUDA blocks: the body above, one block per (column tile, row,
+// pair, channel block), e.g. 3 x 38 x 8 = 912 blocks for one pair at
+// C = 1024 where the unsplit kernel has 114 (under one wave of 132 SMs).
+// Each writes its partial planes to an f32 workspace; a second kernel adds
+// the partials in block order, divides by C and casts to the input dtype,
+// so the result does not depend on the order the blocks ran in (no
+// atomics). Channels past C are not read, which the zero padding made
+// inert on the TPU.
+//
+// Bound: the maps are read once and the output written once (~13 bf16 MAC
+// per input byte at the main-path shapes), so the memory rate bounds it;
+// the workspace adds nblk x 4 bytes per output each way.
+template <typename T>
+__global__ void correlation_split_sum_kernel(const float* __restrict__ part,
+                                             T* __restrict__ out,
+                                             int64_t total, int nblk, int C) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float acc = 0.f;
+  for (int cb = 0; cb < nblk; ++cb) acc = __fadd_rn(acc, part[cb * total + i]);
+  store(out + i, acc / (float)C);
+}
+
+template <typename T>
+int launch_split(const void* f1, const void* f2, void* part, void* out,
+                 int B, int H, int W, int C, int dmax, int stride,
+                 int block_c, cudaStream_t stream) {
+  if (stride < 1 || dmax < 0 || C < 1 || block_c < 1)
+    return (int)cudaErrorInvalidValue;
   const int nd = (2 * dmax) / stride + 1;
   if (nd > kMaxNd) return (int)cudaErrorInvalidValue;
-  const int halo_w = kTileX + 2 * dmax;
-  const size_t smem = sizeof(float) *
-      (kChunkC * kPitch1 + (size_t)nd * kChunkC * (halo_w | 1));
-  dim3 grid((W + kTileX - 1) / kTileX, H, B);
-  dim3 block(kTileX, nd);
-  correlation_kernel<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(f1), static_cast<const T*>(f2),
-      static_cast<T*>(out), H, W, C, dmax, stride, nd);
+  const int nblk = (C + block_c - 1) / block_c;
+  int err = launch_corr<T, true>(f1, f2, part, B, H, W, C, dmax, stride,
+                                 block_c, nblk, stream);
+  if (err) return err;
+  const int64_t total = (int64_t)B * H * W * nd * nd;
+  if (total == 0) return (int)cudaSuccess;
+  constexpr int kThreads = 256;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  correlation_split_sum_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(out), total, nblk, C);
   return (int)cudaGetLastError();
 }
 
@@ -209,6 +282,26 @@ extern "C" int dtt_correlation(const void* f1, const void* f2, void* out,
   if (dtype == 0) return launch<float>(f1, f2, out, B, H, W, C, dmax, stride, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(f1, f2, out, B, H, W, C, dmax, stride, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// f1, f2: (B, H, W, C) contiguous; part: (ceil(C / block_c), B, H, W,
+// nd*nd) float32 workspace; out: (B, H, W, nd*nd) of the maps' dtype.
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+extern "C" int dtt_correlation_split(const void* f1, const void* f2,
+                                     void* part, void* out, int B, int H,
+                                     int W, int C, int dmax, int stride,
+                                     int block_c, int dtype, int device,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_split<float>(f1, f2, part, out, B, H, W, C, dmax, stride,
+                               block_c, s);
+  if (dtype == 1)
+    return launch_split<__nv_bfloat16>(f1, f2, part, out, B, H, W, C, dmax,
+                                       stride, block_c, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
 // Position-sensitive RoI pooling for Hopper (sm_90a), plain C interface for
-// ctypes: the direct bin sums and their backward, and the bin sums off a
-// summed-area table (dtt_psroi_sat, below).
+// ctypes: the direct bin sums and their backward, and the bin sums and bin
+// means off a summed-area table (dtt_psroi_sat, dtt_psroi_sat_mean, below).
 //
 // Forward (dtt_psroi_direct):
 // Replaces the TPU kernel _psroi_direct_kernel (dtt/ops/psroi.py), which
@@ -181,21 +181,34 @@ int launch_bwd(const float* ghat, const int* hs, const int* he, const int* ws,
 // beside its two nonzero terms, so the plain einsum form gives the same
 // bits on the same table. The subtractions are __fsub_rn: nothing may
 // contract or reorder them (no --use_fast_math). The wrapper divides by the
-// area and zeroes empty bins.
+// area and zeroes empty bins. The per-frame TPU kernel _psroi_mm_kernel
+// (dtt/ops/psroi.py) has the same body without the frame axis; the port
+// launches this entry at B=1 for it.
+//
+// SAT bin means (dtt_psroi_sat_mean). Replaces the TPU kernel _psroi_kernel
+// (dtt/ops/psroi.py), which kept one bin's SAT slab in VMEM (bin-major, for
+// Mosaic's block rules), read the RoIs' bounds from SMEM and walked the
+// RoIs one by one: the 4-corner difference ((S11 - S01) - S10) + S00,
+// divided by the area inside the kernel, empty bins 0. Here the index is
+// computed straight off the NHWC table and every output is its own
+// thread; the corners are combined in that order with __fsub_rn/__fadd_rn
+// and divided with __fdiv_rn, so the result equals the plain gather form
+// to the bit.
 //
 // Bound: 4 f32 corner reads and one f32 write per output, so the memory
-// rate bounds it. A pair batch (4 frames x 300 RoIs x 2107 channels) needs
+// rate bounds both. A pair batch (4 frames x 300 RoIs x 2107 channels) needs
 // ~29 MB of distinct table corners and writes 10 MB of sums: ~12 us at
-// 3.35 TB/s; on an H100 80GB HBM3 at 700 W the kernel takes 0.028-0.051 ms
+// 3.35 TB/s; on an H100 80GB HBM3 at 700 W the sums take 0.028-0.051 ms
 // (chip_smoke.py). One thread per output, channel fastest: for a fixed RoI
 // and bin a warp reads 32 consecutive channels of each corner pixel, so
 // the corner loads coalesce.
+template <bool kMean>
 __global__ void psroi_sat_kernel(const float* __restrict__ sat,
                                  const int* __restrict__ hs,
                                  const int* __restrict__ he,
                                  const int* __restrict__ ws,
                                  const int* __restrict__ we,
-                                 float* __restrict__ sums, int64_t total,
+                                 float* __restrict__ out, int64_t total,
                                  int N, int H, int W, int k, int D) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
@@ -214,11 +227,35 @@ __global__ void psroi_sat_kernel(const float* __restrict__ sat,
   const int x1 = min(max(we[bn * k + pw], 0), W);
   const int64_t row = (int64_t)(W + 1) * ckk;
   const float* s = sat + b * (H + 1) * row + c;
-  const float t_we = __fsub_rn(__ldg(s + y1 * row + (int64_t)x1 * ckk),
-                               __ldg(s + y0 * row + (int64_t)x1 * ckk));
-  const float t_ws = __fsub_rn(__ldg(s + y1 * row + (int64_t)x0 * ckk),
-                               __ldg(s + y0 * row + (int64_t)x0 * ckk));
-  sums[i] = __fsub_rn(t_we, t_ws);
+  const float s11 = __ldg(s + y1 * row + (int64_t)x1 * ckk);
+  const float s01 = __ldg(s + y0 * row + (int64_t)x1 * ckk);
+  const float s10 = __ldg(s + y1 * row + (int64_t)x0 * ckk);
+  const float s00 = __ldg(s + y0 * row + (int64_t)x0 * ckk);
+  if (kMean) {
+    const float sum = __fadd_rn(__fsub_rn(__fsub_rn(s11, s01), s10), s00);
+    const int area = max(y1 - y0, 0) * max(x1 - x0, 0);
+    out[i] = area > 0 ? __fdiv_rn(sum, fmaxf((float)area, 1.f)) : 0.f;
+  } else {
+    out[i] = __fsub_rn(__fsub_rn(s11, s01), __fsub_rn(s10, s00));
+  }
+}
+
+template <bool kMean>
+int launch_sat(const void* sat, const void* hs, const void* he,
+               const void* ws, const void* we, void* out, int B, int N,
+               int H, int W, int k, int D, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t total = (int64_t)B * N * k * k * D;
+  if (total == 0) return (int)cudaSuccess;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  psroi_sat_kernel<kMean><<<(unsigned)blocks, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sat), static_cast<const int*>(hs),
+      static_cast<const int*>(he), static_cast<const int*>(ws),
+      static_cast<const int*>(we), static_cast<float*>(out), total, N, H, W,
+      k, D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -229,18 +266,19 @@ extern "C" int dtt_psroi_sat(const void* sat, const void* hs, const void* he,
                              const void* ws, const void* we, void* sums,
                              int B, int N, int H, int W, int k, int D,
                              int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t total = (int64_t)B * N * k * k * D;
-  if (total == 0) return (int)cudaSuccess;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  psroi_sat_kernel<<<(unsigned)blocks, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sat), static_cast<const int*>(hs),
-      static_cast<const int*>(he), static_cast<const int*>(ws),
-      static_cast<const int*>(we), static_cast<float*>(sums), total, N, H, W,
-      k, D);
-  return (int)cudaGetLastError();
+  return launch_sat<false>(sat, hs, he, ws, we, sums, B, N, H, W, k, D,
+                           device, stream);
+}
+
+// The same arguments; means: (B, N, k, k, D) float32 bin means, 0 for empty
+// bins. Returns a cudaError_t (0 = launched).
+extern "C" int dtt_psroi_sat_mean(const void* sat, const void* hs,
+                                  const void* he, const void* ws,
+                                  const void* we, void* means, int B, int N,
+                                  int H, int W, int k, int D, int device,
+                                  void* stream) {
+  return launch_sat<true>(sat, hs, he, ws, we, means, B, N, H, W, k, D,
+                          device, stream);
 }
 
 // maps: (B, H, W, k*k*D) contiguous; hs/he/ws/we: (B, N, k) int32;

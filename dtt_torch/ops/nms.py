@@ -74,6 +74,20 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
     return keep_idx, keep_valid
 
 
+def nms_gather(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
+               max_outputs: int, valid: torch.Tensor | None = None,
+               score_threshold=_NEG / 2):
+    """`nms_padded` returning the kept (boxes (..., M, 4), scores (..., M),
+    valid (..., M)) instead of indices; empty slots are 0."""
+    idx, keep = nms_padded(boxes, scores, iou_threshold, max_outputs, valid,
+                           score_threshold)
+    kept_boxes = take_along(boxes, idx) * keep[..., None].to(boxes.dtype)
+    kept_scores = torch.where(keep, torch.gather(scores, -1, idx),
+                              torch.zeros((), dtype=scores.dtype,
+                                          device=scores.device))
+    return kept_boxes, kept_scores, keep
+
+
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
                    max_per_class: int, score_threshold=0.0,
                    valid: torch.Tensor | None = None,

@@ -71,7 +71,6 @@ def test_psroi_kernel_matches_plain(cuda, dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,d,s", [((2, 12, 20, 64), 2, 1),
                                        ((3, 9, 37, 40), 8, 2)])
@@ -171,3 +170,139 @@ def test_psroi_sat_kernel_matches_plain(cuda, b, h, w, k, d, n):
         pooled, tpsroi.psroi_pool_batched_direct(maps, rois, 1 / 16, k),
         rtol=1e-5, atol=8 * torch.finfo(torch.float32).eps
         * table.abs().max().item())
+
+
+def _frame_pool_case(rng, h, w, k, d, n, dtype, cuda):
+    """One frame's maps and RoIs that cover the whole map, sit on .5
+    coordinates, have zero-area bins and cross the map's edges."""
+    xy = rng.uniform(-40, w * 16, (n, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(0, 200, (n, 2))], axis=-1)
+    rois[0] = [0, 0, w * 16 - 1, h * 16 - 1]
+    rois[1] = [40.5, 23.5, 72.5, 88.5]
+    rois[2] = [41.5, 24.5, 41.5, 24.5]
+    maps = torch.from_numpy(rng.randn(h, w, k * k * d).astype(np.float32))
+    return (maps.to(cuda, dtype),
+            torch.from_numpy(rois.astype(np.float32)).to(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,k,d,n", [(10, 14, 7, 9, 24), (9, 13, 3, 43, 70)])
+def test_psroi_sat_mean_kernel_matches_plain(cuda, dtype, h, w, k, d, n):
+    """Kernel 6 (``dtt_psroi_sat_mean``): the gather form's corner order and
+    division, so the same bits as its plain version on one table, and
+    ``psroi_pool(impl="pallas")`` the same bits as the ``"xla"`` form, map
+    gradient included (the xla form's scatter-add)."""
+    maps, rois = _frame_pool_case(np.random.RandomState(4), h, w, k, d, n,
+                                  dtype, cuda)
+    table = tpsroi.sat(maps[None]).contiguous()
+    bounds = [t[None].contiguous() for t in
+              tpsroi.roi_bounds(rois, 1 / 16, k, h, w)]
+    before = tpsroi.psroi_sat_means_cuda.launches
+    got = tpsroi.psroi_sat_means(table, *bounds)
+    torch.cuda.synchronize()
+    assert tpsroi.psroi_sat_means_cuda.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (1, n, k, k, d)
+    torch.testing.assert_close(got, tpsroi.psroi_sat_means_plain(table,
+                                                                 *bounds),
+                               rtol=0, atol=0)
+    m = maps.clone().requires_grad_()
+    pooled = tpsroi.psroi_pool(m, rois, 1 / 16, k, "pallas")
+    assert tpsroi.psroi_sat_means_cuda.launches == before + 2
+    go = torch.randn(pooled.shape, device=cuda).to(dtype)
+    pooled.backward(go)
+    x = maps.clone().requires_grad_()
+    want = tpsroi.psroi_pool(x, rois, 1 / 16, k, "xla")
+    want.backward(go)
+    assert pooled.dtype == dtype
+    torch.testing.assert_close(pooled, want, rtol=0, atol=0)
+    # the scatter-add may add in another order on the card: 1e-5 of the
+    # largest in f32, one bf16 ulp of it in bf16
+    rel = 1e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(m.grad.float(), x.grad.float(), rtol=0,
+                               atol=rel * x.grad.float().abs().max().item())
+
+
+def test_psroi_sat_kernel_at_one_frame(cuda):
+    """Kernel 5 (``_psroi_mm_kernel``'s port, ``dtt_psroi_sat`` at B=1):
+    its sums equal the plain version's bits, ``psroi_pool(impl=
+    "pallas_mm")`` launches it once, and its means and map gradient match
+    the ``"xla"`` form (the SAT's f32 error; the same scatter-add, 1e-5 of
+    the largest)."""
+    h, w, k, d, n = 10, 14, 7, 31, 40
+    maps, rois = _frame_pool_case(np.random.RandomState(5), h, w, k, d, n,
+                                  torch.float32, cuda)
+    table = tpsroi.sat(maps[None]).contiguous()
+    bounds = [t[None].contiguous() for t in
+              tpsroi.roi_bounds(rois, 1 / 16, k, h, w)]
+    before = tpsroi.psroi_mm_sums_cuda.launches
+    torch.testing.assert_close(tpsroi.psroi_mm_sums(table, *bounds),
+                               tpsroi.psroi_mm_sums_plain(table, *bounds),
+                               rtol=0, atol=0)
+    m = maps.clone().requires_grad_()
+    pooled = tpsroi.psroi_pool(m, rois, 1 / 16, k, "pallas_mm")
+    torch.cuda.synchronize()
+    assert tpsroi.psroi_mm_sums_cuda.launches == before + 2
+    go = torch.randn(pooled.shape, device=cuda)
+    pooled.backward(go)
+    x = maps.clone().requires_grad_()
+    want = tpsroi.psroi_pool(x, rois, 1 / 16, k, "xla")
+    want.backward(go)
+    torch.testing.assert_close(pooled, want, rtol=1e-5,
+                               atol=8 * torch.finfo(torch.float32).eps
+                               * table.abs().max().item())
+    torch.testing.assert_close(m.grad, x.grad, rtol=0,
+                               atol=1e-5 * x.grad.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d,s", [((2, 12, 20, 64), 8, 2),
+                                       ((2, 7, 11, 160), 2, 1),
+                                       ((3, 9, 37, 300), 8, 2)])
+def test_correlation_split_kernel_matches_plain(cuda, dtype, shape, d, s):
+    """Kernel 7 (``dtt_correlation_split``): 128-channel blocks summed in
+    block order, a partial last block, against the plain version (f32:
+    1e-5; bf16 outputs within one bf16 ulp of |x| < 1)."""
+    g = torch.Generator().manual_seed(2)
+    f1 = torch.randn(shape, generator=g).to(cuda, dtype) / 4
+    f2 = torch.randn(shape, generator=g).to(cuda, dtype) / 4
+    before = tcorr.correlation_split_cuda.launches
+    got = tcorr.correlation(f1, f2, d, s, "pallas")
+    torch.cuda.synchronize()
+    assert tcorr.correlation_split_cuda.launches == before + 1
+    want = tcorr.correlation_plain(f1, f2, d, s)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=CORR_TOL[dtype])
+
+
+def test_correlation_pallas_autograd_launches_split_and_bwd(cuda):
+    """``correlation(impl="pallas")`` runs the split forward and shares the
+    backward kernel with ``"pallas_mm"``: both give the same gradients."""
+    f1, f2 = (torch.randn(1, 6, 10, 160, device=cuda) for _ in range(2))
+    grads = []
+    for impl in ("pallas", "pallas_mm"):
+        a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+        before = (tcorr.correlation_split_cuda.launches,
+                  tcorr.correlation_bwd_cuda.launches)
+        tcorr.correlation(a, b, 2, 1, impl).square().sum().backward()
+        torch.cuda.synchronize()
+        after = (tcorr.correlation_split_cuda.launches,
+                 tcorr.correlation_bwd_cuda.launches)
+        assert after == (before[0] + (impl == "pallas"), before[1] + 1)
+        grads.append((a.grad, b.grad))
+    for x, y in zip(*grads):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [3, 7])
+def test_roi_bounds_match_the_cpu(cuda, k):
+    """Bin bounds on the card equal the CPU's (and so the reference's) for
+    many RoIs: every operation rounds alike, the division by k included."""
+    rng = np.random.RandomState(6)
+    xy = rng.uniform(-40, 1100, (5000, 2))
+    rois = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(0, 600, (5000, 2))], axis=-1).astype(np.float32))
+    got = tpsroi.roi_bounds(rois.to(cuda), 1 / 16, k, 38, 68)
+    want = tpsroi.roi_bounds(rois, 1 / 16, k, 38, 68)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.cpu(), w_, rtol=0, atol=0)
