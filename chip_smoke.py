@@ -1257,7 +1257,8 @@ def phase_frame_path(cfg: Config, tree: dict, card: str) -> dict:
     dt = time.perf_counter() - t0
     c, mm = m.num_classes - 1, ecfg.max_per_class
     for boxes, scores, valid in ([x.cpu().numpy() for x in o] for o in outs):
-        if boxes.shape != (c, mm, 4) or scores.shape != valid.shape != (c, mm):
+        if boxes.shape != (c, mm, 4) or scores.shape != (c, mm) or \
+                valid.shape != (c, mm):
             raise AssertionError(f"frame outputs {boxes.shape} "
                                  f"{scores.shape} {valid.shape}")
         if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):

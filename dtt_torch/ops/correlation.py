@@ -8,10 +8,9 @@ NHWC, batched over frame pairs.
 
 * `correlation_plain` (also `correlation_xla`) — shifted multiply-reduce
   in PyTorch (the reference the kernels are held against; the CPU path).
-* `correlation_mm`, `correlation_mm_diag` — dtt's banded-matmul forms in
-  plain PyTorch: per vertical displacement the band of row products, the
-  horizontal displacements read off by a 0/1 selector contraction or by
-  strided slices.
+  dtt's banded-matmul forms ``mm`` and ``mm_diag`` exist to choose between
+  the TPU's matrix and vector units; they compute the same function, so
+  here both names select this form.
 * `correlation_cuda` — the hand-written kernel ``dtt_correlation`` in
   ``csrc/correlation.cu``, which replaces the TPU kernel
   ``_corr_mm_kernel`` (dtt/ops/correlation.py). See the source for its
@@ -68,56 +67,6 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
 
 
 correlation_xla = correlation_plain
-
-
-def _band(a: torch.Tensor, f2p: torch.Tensor, dy: int, d: int) -> torch.Tensor:
-    """(B, H, W, C) f1 and padded f2 (f32) -> (B, H, W, W+2d) row products
-    f1[y] @ f2p[y + dy]^T, dtt's band for one vertical displacement."""
-    h = a.shape[1]
-    return torch.einsum("bywc,byvc->bywv", a, f2p[:, d + dy:d + dy + h])
-
-
-def correlation_mm(f1: torch.Tensor, f2: torch.Tensor,
-                   max_displacement: int = 8, stride: int = 2
-                   ) -> torch.Tensor:
-    """(B, H, W, C) x2 -> (B, H, W, nd^2): ``dtt``'s ``correlation_mm``,
-    the band of each vertical displacement in f32 and its horizontal
-    displacements read off by a 0/1 diagonal selector contraction."""
-    _, h, w, c = f1.shape
-    d = max_displacement
-    offs = offsets(d, stride)
-    v = w + 2 * d
-    a = f1.float()
-    f2p = F.pad(f2.float(), (0, 0, d, d, d, d))
-    dev = f1.device
-    # sel[x, vv, i] = 1 iff vv == x + offs[i] + d
-    sel = (torch.arange(v, device=dev)[None, :, None]
-           == torch.arange(w, device=dev)[:, None, None]
-           + torch.tensor(offs, device=dev)[None, None, :] + d).float()
-    out = torch.cat([torch.einsum("bywv,wvj->bywj", _band(a, f2p, dy, d), sel)
-                     for dy in offs], dim=-1)               # dy-major
-    return (out / c).to(f1.dtype)
-
-
-def correlation_mm_diag(f1: torch.Tensor, f2: torch.Tensor,
-                        max_displacement: int = 8, stride: int = 2
-                        ) -> torch.Tensor:
-    """(B, H, W, C) x2 -> (B, H, W, nd^2): ``dtt``'s
-    ``correlation_mm_diag``, the same bands with each diagonal read off as
-    a strided slice of the flattened band (stride W+2d+1)."""
-    b, h, w, c = f1.shape
-    d = max_displacement
-    offs = offsets(d, stride)
-    v = w + 2 * d
-    a = f1.float()
-    f2p = F.pad(f2.float(), (0, 0, d, d, d, d))
-    outs = []
-    for dy in offs:
-        flat = _band(a, f2p, dy, d).reshape(b, h, w * v)
-        for dx in offs:
-            k = dx + d
-            outs.append(flat[..., k:k + (w - 1) * (v + 1) + 1:v + 1])
-    return (torch.stack(outs, dim=-1) / c).to(f1.dtype)
 
 
 def correlation_bwd_plain(f1: torch.Tensor, f2: torch.Tensor,
@@ -334,8 +283,8 @@ def correlation_pallas(f1: torch.Tensor, f2: torch.Tensor,
                               correlation_split_cuda)
 
 
-_FORMS = {"xla": correlation_xla, "mm": correlation_mm,
-          "mm_diag": correlation_mm_diag, "pallas_mm": correlation_pallas_mm,
+_FORMS = {"xla": correlation_xla, "mm": correlation_plain,
+          "mm_diag": correlation_plain, "pallas_mm": correlation_pallas_mm,
           "pallas": correlation_pallas}
 
 

@@ -261,18 +261,20 @@ def test_psroi_sat_kernel_at_one_frame(cuda):
 def test_correlation_split_kernel_matches_plain(cuda, dtype, shape, d, s):
     """Kernel 7 (``dtt_correlation_split``): 128-channel blocks summed in
     block order, a partial last block, against the plain version (f32:
-    1e-5; bf16 outputs within one bf16 ulp of |x| < 1)."""
+    1e-5; bf16: one bf16 ulp of each output, 2^-7 |x|, which a dropped
+    block of channels would exceed many times)."""
     g = torch.Generator().manual_seed(2)
-    f1 = torch.randn(shape, generator=g).to(cuda, dtype) / 4
-    f2 = torch.randn(shape, generator=g).to(cuda, dtype) / 4
+    f1 = torch.randn(shape, generator=g).to(cuda, dtype)
+    f2 = torch.randn(shape, generator=g).to(cuda, dtype)
     before = tcorr.correlation_split_cuda.launches
     got = tcorr.correlation(f1, f2, d, s, "pallas")
     torch.cuda.synchronize()
     assert tcorr.correlation_split_cuda.launches == before + 1
     want = tcorr.correlation_plain(f1, f2, d, s)
     assert got.dtype == dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                               atol=CORR_TOL[dtype])
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=CORR_TOL[torch.float32])
 
 
 def test_correlation_pallas_autograd_launches_split_and_bwd(cuda):
