@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (seconds to
 build; no PyTorch headers). Libraries go to ``dtt_torch/_build/``, named by
-a hash of the source and the flags, so a changed source rebuilds and an
-unchanged one is reused. Nothing is built at import: the first call of a
+a hash of the source, every ``csrc/*.cuh`` header and the flags, so a
+changed source or header rebuilds and an unchanged one is reused. Nothing is built at import: the first call of a
 kernel wrapper builds what it needs; ``build()`` builds several at once.
 """
 
@@ -34,7 +34,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    """The library of `name`, named by a hash of its source, every header
+    in ``csrc/`` and the flags."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

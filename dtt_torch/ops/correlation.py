@@ -13,8 +13,9 @@ NHWC, batched over frame pairs.
   here both names select this form.
 * `correlation_cuda` — the hand-written kernel ``dtt_correlation`` in
   ``csrc/correlation.cu``, which replaces the TPU kernel
-  ``_corr_mm_kernel`` (dtt/ops/correlation.py). See the source for its
-  design.
+  ``_corr_mm_kernel`` (dtt/ops/correlation.py): bfloat16 maps on the
+  tensor cores (``max_displacement`` <= 8), float32 maps on the CUDA cores.
+  See the source for its design.
 * `correlation_split_cuda` — the kernel ``dtt_correlation_split`` in the
   same source, channel blocks summed by concurrent blocks; replaces the TPU
   kernel ``_corr_kernel``.
@@ -40,6 +41,7 @@ from dtt_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ND = 9  # kMaxNd in csrc/correlation.cu
+_TC_MAX_D = 8  # kMaxD: the bf16 tensor-core bodies' band of 16 + 2d <= 32
 
 
 def offsets(max_displacement: int, stride: int) -> list:
@@ -116,6 +118,14 @@ def _check_maps(name: str, f1: torch.Tensor, f2: torch.Tensor,
         raise ValueError(f"{name}: maps too large for int32 sizes")
 
 
+def _check_band(name: str, f1: torch.Tensor, max_displacement: int) -> None:
+    """The bf16 tensor-core bodies take max_displacement <= 8."""
+    if f1.dtype == torch.bfloat16 and max_displacement > _TC_MAX_D:
+        raise ValueError(f"{name}: the bfloat16 tensor-core kernel takes "
+                         f"max_displacement <= {_TC_MAX_D}, got "
+                         f"{max_displacement}")
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("correlation").dtt_correlation
@@ -133,6 +143,7 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
     ``correlation_cuda.launches``.
     """
     _check_maps("correlation_cuda", f1, f2, max_displacement, stride)
+    _check_band("correlation_cuda", f1, max_displacement)
     b, h, w, c = f1.shape
     out = torch.empty((b, h, w, num_corr_channels(max_displacement, stride)),
                       dtype=f1.dtype, device=f1.device)
@@ -215,6 +226,7 @@ def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     ``correlation_bwd_cuda.launches``.
     """
     _check_maps("correlation_bwd_cuda", f1, f2, max_displacement, stride)
+    _check_band("correlation_bwd_cuda", f1, max_displacement)
     b, h, w, c = f1.shape
     nd2 = num_corr_channels(max_displacement, stride)
     if g.shape != (b, h, w, nd2) or g.dtype != f1.dtype or \

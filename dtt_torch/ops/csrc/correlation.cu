@@ -14,18 +14,76 @@
 //
 // Bound: at the main-path shapes (38x68 maps, C = 512/1024, 81 outputs) the
 // op needs ~13 bf16 MAC per input byte, so the card's memory rate bounds
-// it. This first version runs on the CUDA cores: one block per (pair, output
-// row, 32-column tile); f1's row tile and the nd rows of f2 it meets (with a
-// dmax-column halo) are staged through shared memory in 16-channel chunks,
-// converted to f32 once. Each thread owns one (x, dy) pair and keeps its nd
-// horizontal displacements in registers, so every staged f2 value is reused
-// by nd outputs and no partial sum leaves the block.
+// it; what a kernel has to avoid is re-reading the maps through the caches
+// (every f2 row meets nd output rows and every f2 column nd output columns)
+// faster than the staging can hide.
+//
+// The dispatch is by dtype, inside dtt_correlation; neither body falls back
+// to the other:
+//
+// * bfloat16 maps run on the tensor cores (correlation_tc_kernel), the TPU
+//   kernel's band redone for mma.sync.m16n8k16 (bf16 in, f32 sums, exact
+//   products). One block per (pair, output row, 64-column group), one warp
+//   per vertical displacement dy, each warp over 4 tiles of 16 x-positions.
+//   Per 16-channel step, f1's 64-pixel row tile and the nd rows y + dy of f2
+//   over the group's columns plus a 2*dmax halo (80 columns) are copied
+//   into shared memory by 16-byte cp.async into a 3-stage ring, so two
+//   steps' copies are in flight while one computes; zeros outside the map
+//   and past C come from the copies' zero fill (src-size 0). Each warp
+//   loads f1's A fragment once per tile and step with ldmatrix and
+//   multiplies it by up to 4 n8 tiles of its f2 row, the band of 16 x 32
+//   columns that holds the tile's nd horizontal displacements; the
+//   epilogue keeps the diagonals n - r = ix * stride, divides by C (IEEE,
+//   as the plain version's / C), rounds once to bf16 and writes the
+//   group's dy-major channels through shared memory, so the stores
+//   coalesce. Why these sizes: 16-channel steps with 48-byte pixel rows
+//   (ldmatrix reads 8 rows without bank conflicts) make a stage 37.6 KB,
+//   so 3 stages fit twice in an SM's 228 KB; 64 columns keep the halo's
+//   extra f2 reads at 25%. The accumulators (4 tiles x 4 n8 tiles x 4 f32)
+//   stay at 64 registers a thread because dy is split across warps. The
+//   band takes dmax <= 8 (kMaxD); a 16-byte copy needs C % 8 == 0 and
+//   16-byte aligned maps, else the same ring is filled by 2-byte loads.
+// * float32 maps keep the CUDA-core body (correlation_kernel below), whose
+//   f32 multiply-adds hold the 1e-5 references; TF32 tensor cores would
+//   not: one block per (pair, output row, 32-column tile), f1's row tile
+//   and the nd rows of f2 it meets staged in 16-channel chunks, each thread
+//   one (x, dy) with its nd horizontal displacements in registers.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
+
+// --- PTX wrappers for the tensor-core bodies (sm_80+ instructions) ---
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a * b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 constexpr int kMaxNd = 9;    // displacements per axis: 2*dmax/stride + 1 (rounded down)
 constexpr int kTileX = 32;   // output columns per block (one warp wide)
@@ -137,6 +195,351 @@ int launch_corr(const void* f1, const void* f2, void* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
+// --- the bf16 tensor-core forward (see the note at the top) ---
+
+constexpr int kMaxD = 8;        // the band of 16 + 2*dmax <= 32 columns
+constexpr int kGroupX = 64;     // output columns per block: 4 tiles of 16
+constexpr int kTilesX = kGroupX / 16;
+constexpr int kCols = kGroupX + 2 * kMaxD;  // staged f2 columns (halo incl.)
+constexpr int kStepC = 32;      // channels per stage: 64-byte pixel rows
+constexpr int kStages = 3;
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device, once per device (`done`, one array per kernel): the attribute
+// call costs host time that a small launch would otherwise wait on.
+template <typename K>
+int allow_smem(K* kernel, size_t bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && done[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices) done[dev] = true;
+  return 0;
+}
+
+// The card's SM count (device attribute, read once per device).
+int sm_count() {
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < kMaxDevices && count[dev]) return count[dev];
+  int n = 1;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < kMaxDevices) count[dev] = n;
+  return n;
+}
+
+__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// Byte offset of 16-byte chunk `ch` (0..3) of 64-byte row `row` of a ring
+// that starts 1024-byte aligned, in the TMA's 64-byte swizzle (chunk bits
+// 4-5 XOR address bits 7-8): ldmatrix then reads 8 rows without conflicts.
+__device__ __forceinline__ uint32_t swz(int row, int ch) {
+  return (uint32_t)row * 64 + ((ch ^ ((row >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar));
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// TMA: the box of `map` at (c, x, y, b) into shared memory at `dst`,
+// completing on `bar`; coordinates outside the map read as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c, int x, int y, int b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(x),
+         "r"(y), "r"(b), "r"(bar) : "memory");
+}
+
+// One stage's products for the first NT tiles of a warp: 32 channels (two
+// k16 steps) of f1's rows at 64-byte row `row1` (A, 16 x-positions a
+// tile) against the band of 32 f2 columns at `row2` (B). B fragment pair P
+// holds f2 columns 16P ... 16P + 15 (n8 tiles 2P, 2P + 1); tile t's band
+// is pairs t and t + 1, so each pair is loaded once a step. All 4 n8 tiles
+// are multiplied whatever dmax: columns past 15 + 2 dmax hold finite map
+// values or zeros, and the epilogue reads no diagonal there.
+template <int NT>
+__device__ __forceinline__ void band_step(float (&acc)[kTilesX][4][4],
+                                          const uint8_t* ring, int row1,
+                                          int row2, int lane) {
+  const int m = lane >> 3;
+#pragma unroll
+  for (int ks = 0; ks < kStepC / 16; ++ks) {
+    uint32_t pairs[NT + 1][4];
+#pragma unroll
+    for (int p = 0; p <= NT; ++p)
+      ldmatrix_x4(pairs[p], ring + swz(row2 + 16 * p + 8 * (m >> 1)
+                                       + (lane & 7), 2 * ks + (m & 1)));
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      uint32_t a[4];
+      ldmatrix_x4(a, ring + swz(row1 + 16 * t + (lane & 15),
+                                2 * ks + (lane >> 4)));
+      mma_bf16(acc[t][0], a, pairs[t][0], pairs[t][1]);
+      mma_bf16(acc[t][1], a, pairs[t][2], pairs[t][3]);
+      mma_bf16(acc[t][2], a, pairs[t + 1][0], pairs[t + 1][1]);
+      mma_bf16(acc[t][3], a, pairs[t + 1][2], pairs[t + 1][3]);
+    }
+  }
+}
+
+// Block: R output rows y_r = yb + r * stride (one residue class mod stride,
+// so consecutive rows share nd - 1 of their f2 rows) x 64 columns of one
+// pair; warp (r, iy). A stage holds 32 channels of f1's R row tiles
+// ([R][64 px]) and of the R + nd - 1 f2 rows yb - dmax + t * stride
+// ([t][80 px]), 64-byte swizzled pixel rows. With kTma one thread fills
+// the stages by TMA (zeros outside the map and past C from the TMA's
+// bounds), 2 ahead of the stage the warps compute on; without (C % 8 != 0
+// or unaligned maps) all threads fill one stage with 2-byte loads before
+// each step.
+template <int R, bool kTma>
+__global__ void __launch_bounds__(32 * kMaxNd * R, 1)
+correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
+                      const __grid_constant__ CUtensorMap map2,
+                      const uint16_t* __restrict__ f1,
+                      const uint16_t* __restrict__ f2,
+                      __nv_bfloat16* __restrict__ out, int H, int W, int C,
+                      int dmax, int stride, int nd) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring_addr = smem_addr(ring);
+  const int nrows2 = R + nd - 1;
+  const int stage_rows = R * kGroupX + nrows2 * kCols;  // 64-byte rows
+  const uint32_t stage_bytes = stage_rows * 64;
+  const uint32_t bars = ring_addr + kStages * stage_bytes;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r = warp / nd, iy = warp - r * nd;
+  const int xg0 = blockIdx.x * kGroupX;
+  const int yb = blockIdx.y % stride + stride * R * (blockIdx.y / stride);
+  const int b = blockIdx.z;
+  const int nchunks = (C + kStepC - 1) / kStepC;
+
+  auto issue = [&](int chunk) {   // kTma, one thread
+    const int buf = chunk % kStages;
+    const uint32_t s = ring_addr + buf * stage_bytes;
+    const uint32_t bar = bars + 8 * buf;
+    mbar_expect(bar, stage_bytes);
+    for (int rr = 0; rr < R; ++rr)
+      tma_load(s + rr * kGroupX * 64, &map1, chunk * kStepC, xg0,
+               yb + rr * stride, b, bar);
+    for (int t = 0; t < nrows2; ++t)
+      tma_load(s + (R * kGroupX + t * kCols) * 64, &map2, chunk * kStepC,
+               xg0 - dmax, yb - dmax + t * stride, b, bar);
+  };
+  auto fill = [&](int chunk) {    // !kTma, all threads, into stage 0
+    const int64_t frame = (int64_t)b * H * W;
+    for (int i = tid; i < stage_rows * 4; i += nthreads) {
+      const int p = i >> 2, part = i & 3;
+      int yy, x;
+      const uint16_t* src;
+      if (p < R * kGroupX) {
+        const int rr = p / kGroupX;
+        yy = yb + rr * stride; x = xg0 + p - rr * kGroupX; src = f1;
+      } else {
+        const int t = (p - R * kGroupX) / kCols;
+        yy = yb - dmax + t * stride;
+        x = xg0 - dmax + (p - R * kGroupX - t * kCols);
+        src = f2;
+      }
+      const int c = chunk * kStepC + part * 8;
+      const bool in = yy >= 0 && yy < H && x >= 0 && x < W;
+      __align__(16) uint16_t v[8];
+      const int64_t off = in ? (frame + (int64_t)yy * W + x) * C + c : 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = in && c + e < C ? src[off + e] : 0;
+      *reinterpret_cast<uint4*>(ring + swz(p, part)) =
+          *reinterpret_cast<const uint4*>(v);
+    }
+  };
+
+  if (kTma) {
+    if (tid == 0) {
+      for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+#ifndef EXP_NOCOPY
+    if (tid == 0)
+      for (int st = 0; st < kStages - 1 && st < nchunks; ++st) issue(st);
+#endif
+  }
+
+  const int yo = yb + r * stride;                       // output row
+  const int yy2 = yb - dmax + (r + iy) * stride;        // its f2 row for dy
+  const bool live = yo < H && yy2 >= 0 && yy2 < H;      // else the plane is 0
+  const int ntiles = min(kTilesX, (W - xg0 + 15) / 16);
+  const int row1 = r * kGroupX, row2 = R * kGroupX + (r + iy) * kCols;
+  float acc[kTilesX][4][4];
+#pragma unroll
+  for (int t = 0; t < kTilesX; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+
+  for (int i = 0; i < nchunks; ++i) {
+    __syncthreads();                 // the stage computed last is free
+    int buf = 0;
+    if (kTma) {
+#ifndef EXP_NOCOPY
+      if (tid == 0 && i + kStages - 1 < nchunks) issue(i + kStages - 1);
+      buf = i % kStages;
+      mbar_wait(bars + 8 * buf, (i / kStages) & 1);
+#endif
+#ifdef EXP_NOMMA
+      continue;
+#endif
+    } else {
+      fill(i);
+      __syncthreads();
+    }
+    if (!live) continue;
+    const int base = buf * stage_rows;
+    switch (ntiles) {     // a branch-free body per tile count
+      case 4: band_step<4>(acc, ring, base + row1, base + row2, lane); break;
+      case 3: band_step<3>(acc, ring, base + row1, base + row2, lane); break;
+      case 2: band_step<2>(acc, ring, base + row1, base + row2, lane); break;
+      default: band_step<1>(acc, ring, base + row1, base + row2, lane);
+    }
+  }
+  __syncthreads();
+
+  // keep the diagonals: accumulator (q, n) of tile t holds f1[x0 + 16t + q]
+  // . f2[x0 - dmax + 16t + n], i.e. dx index ix = (n - q) / stride
+  const int nd2 = nd * nd;
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(ring);
+  const float fc = (float)C;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int t = 0; t < kTilesX; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = g + 8 * (e >> 1);
+        const int k = 8 * j + 2 * t4 + (e & 1) - q;
+        if (k >= 0 && k % stride == 0 && k / stride < nd)
+          so[(row1 + 16 * t + q) * nd2 + iy * nd + k / stride] =
+              __float2bfloat16(acc[t][j][e] / fc);
+      }
+  __syncthreads();
+  const int nx = min(kGroupX, W - xg0);
+  for (int rr = 0; rr < R; ++rr) {
+    const int y = yb + rr * stride;
+    if (y >= H) break;
+    __nv_bfloat16* dst = out + (((int64_t)b * H + y) * W + xg0) * nd2;
+    const __nv_bfloat16* src = so + rr * kGroupX * nd2;
+    for (int i = tid; i < nx * nd2; i += nthreads) dst[i] = src[i];
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// A TMA map of the (B, H, W, C) bf16 maps at `ptr`, boxes of `box_c`
+// channels x `box_w` pixels of one row, swizzled, zeros out of bounds.
+// Returns a cudaError_t.
+int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C,
+               int box_c, int box_w, CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &res);
+    if (err != cudaSuccess) return (int)err;
+    if (res != cudaDriverEntryPointSuccess || !fn)
+      return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int R, bool kTma>
+int launch_tc_rows(const CUtensorMap& map1, const CUtensorMap& map2,
+                   const void* f1, const void* f2, void* out, int B, int H,
+                   int W, int C, int dmax, int stride, int nd,
+                   cudaStream_t stream) {
+  auto smem = [&](int n) {
+    return (size_t)kStages * 64 * (R * kGroupX + (R + n - 1) * kCols)
+           + 8 * kStages + 1024;
+  };
+  static bool done[kMaxDevices] = {};
+  int err = allow_smem(correlation_tc_kernel<R, kTma>, smem(kMaxNd), done);
+  if (err) return err;
+  const int per_class = ((H + stride - 1) / stride + R - 1) / R;
+  dim3 grid((W + kGroupX - 1) / kGroupX, stride * per_class, B);
+  correlation_tc_kernel<R, kTma><<<grid, 32 * nd * R, smem(nd), stream>>>(
+      map1, map2, static_cast<const uint16_t*>(f1),
+      static_cast<const uint16_t*>(f2), static_cast<__nv_bfloat16*>(out), H,
+      W, C, dmax, stride, nd);
+  return (int)cudaGetLastError();
+}
+
+// Two rows a block where that grid still fills the SMs twice over; one
+// row otherwise, so a small grid spreads over more SMs.
+int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
+              int C, int dmax, int stride, cudaStream_t stream) {
+  const int nd = (2 * dmax) / stride + 1;
+  if (dmax > kMaxD || nd > kMaxNd) return (int)cudaErrorInvalidValue;
+  const bool tma = C % 8 == 0 && ((uintptr_t)f1 | (uintptr_t)f2) % 16 == 0;
+  CUtensorMap map1 = {}, map2 = {};
+  if (tma) {
+    int err = encode_map(&map1, f1, B, H, W, C, kStepC, kGroupX,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
+    if (!err) err = encode_map(&map2, f2, B, H, W, C, kStepC, kCols,
+                               CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err) return err;
+  }
+  const bool two = (long)B * H * ((W + kGroupX - 1) / kGroupX)
+                   >= 4L * sm_count();
+  const auto args = [&](auto fn) {
+    return fn(map1, map2, f1, f2, out, B, H, W, C, dmax, stride, nd, stream);
+  };
+  if (two)
+    return tma ? args(launch_tc_rows<2, true>) : args(launch_tc_rows<2, false>);
+  return tma ? args(launch_tc_rows<1, true>) : args(launch_tc_rows<1, false>);
+}
+
 template <typename T>
 int launch(const void* f1, const void* f2, void* out, int B, int H, int W,
            int C, int dmax, int stride, cudaStream_t stream) {
@@ -204,14 +607,33 @@ int launch_split(const void* f1, const void* f2, void* part, void* out,
 //                                 * f1[b, y - dy_j, x - dx_j, c]
 //
 // (terms outside the map are 0), summed in f32 and written in the input
-// dtype. Both are gathers, so no atomics: one launch, one thread per input
-// element computing both gradients.
+// dtype. Both are gathers, so no atomics and each element is written once.
 //
 // Bound: f1, f2 and g are read and df1, df2 written once; at the main-path
 // shapes that is ~40 operations (2 x 81 MACs) per byte moved, far below
-// the card's bf16 rate per byte, so the memory rate bounds it. Threads run channel-fastest: a warp shares one pixel, so its g
-// loads are broadcasts and its f1/f2 loads of the displaced pixel
-// coalesce; the 81-fold reuse of each f1/f2 value is left to the caches.
+// the card's bf16 rate per byte, so the memory rate bounds it, and again
+// the design's work is to reuse each staged value instead of gathering it
+// 81 times. The dispatch is by dtype, as for the forward:
+//
+// * bfloat16 (correlation_bwd_tc_kernel): the forward's band used the other
+//   way, on mma.sync.m16n8k16. For one row y, a 16-column tile at x0 and
+//   each dy, df1[y, x0 + r, c] += sum_q B[r, q] f2[y + dy, x0 - dmax + q, c]
+//   with the band B[r, r + ix * stride] = g[y, x0 + r, (iy, ix)] (16 x 32,
+//   zero off its nd diagonals), and df2[y, x0 + r, c] += sum_q B'[r, q]
+//   f1[y - dy, x0 - dmax + q, c] with B'[r, r + 2 dmax - ix * stride] =
+//   g[y - dy, x0 - dmax + q, (iy, ix)]. One launch: blockIdx.z picks df1 or
+//   df2; one block per (pair, row, 64-column group, 64-channel tile), one
+//   warp per 16-column tile. The block stages the g values its bands need
+//   once (plain loads), then walks the in-map dy rows of f2 (or f1) with a
+//   3-stage ring of 16-byte cp.async copies (80 columns x 64 channels, 144-
+//   byte pixel rows so ldmatrix.trans is free of bank conflicts), building
+//   each warp's A fragments from the staged g and loading the row's B
+//   fragments with ldmatrix.trans. g is bf16 (the wrapper's autograd casts
+//   it), so every product is exact and the f32 sum is rounded once, as in
+//   the gather form; the result is deterministic.
+// * float32: the gather body below, one thread per input element computing
+//   both gradients, channel-fastest so a warp's g loads are broadcasts and
+//   its f1/f2 loads coalesce.
 template <typename T>
 __global__ void correlation_bwd_kernel(const T* __restrict__ f1,
                                        const T* __restrict__ f2,
@@ -251,6 +673,262 @@ __global__ void correlation_bwd_kernel(const T* __restrict__ f1,
   store(df2 + i, a2 / fc);
 }
 
+constexpr int kBwdC = 128;      // channels per stage: 2 warp halves x 64
+constexpr int kFragBytes = kTilesX * kMaxNd * 2 * 32 * 16;  // A fragments
+
+// Byte offset of 16-byte chunk `ch` (0..7) of 128-byte row `row` in the
+// TMA's 128-byte swizzle (chunk bits 4-6 XOR address bits 7-9), from a
+// 1024-byte aligned base: ldmatrix reads 8 rows without conflicts.
+__device__ __forceinline__ uint32_t swz128(int row, int ch) {
+  return (uint32_t)row * 128 + ((ch ^ (row & 7)) << 4);
+}
+
+// Block: one row y x 64 columns of df1 or df2, all channels; warp (x-tile
+// t, channel half h). The band fragments (A) of every dy are built once
+// from the staged g and kept in shared memory; then the block walks
+// (128-channel tile, in-map dy row) stages of the displaced map, one
+// thread filling them by TMA (two boxes of 64 channels x 80 columns,
+// 128-byte swizzled rows) 2 ahead of the warps, or, without kTma, all
+// threads filling one stage with 2-byte loads before each step.
+template <bool kTma>
+__global__ void __launch_bounds__(64 * kTilesX, 2)
+correlation_bwd_tc_kernel(const __grid_constant__ CUtensorMap map1,
+                          const __grid_constant__ CUtensorMap map2,
+                          const uint16_t* __restrict__ f1,
+                          const uint16_t* __restrict__ f2,
+                          const uint16_t* __restrict__ g,
+                          __nv_bfloat16* __restrict__ df1,
+                          __nv_bfloat16* __restrict__ df2, int B, int H,
+                          int W, int C, int dmax, int stride, int nd) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring_addr = smem_addr(ring);
+  constexpr uint32_t kHalfBytes = kCols * 128;
+  constexpr uint32_t kStageBytes = 2 * kHalfBytes;
+  uint4* frag = reinterpret_cast<uint4*>(ring + kStages * kStageBytes);
+  const uint32_t bars = ring_addr + kStages * kStageBytes + kFragBytes;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = warp % kTilesX, h = warp / kTilesX;
+  const bool second = blockIdx.z >= B;         // df2 (else df1)
+  const int b = second ? blockIdx.z - B : blockIdx.z;
+  const int xg0 = blockIdx.x * kGroupX, y = blockIdx.y;
+  const int64_t frame = (int64_t)b * H * W;
+  const int nd2 = nd * nd;
+  const int gq = lane >> 2, t4 = lane & 3;
+  __nv_bfloat16* out = second ? df2 : df1;
+  // the in-map rows y + dy (df1) or y - dy (df2) are consecutive iy
+  int iy0 = nd, iy1 = -1;
+  for (int iy = 0; iy < nd; ++iy) {
+    const int dy = -dmax + iy * stride;
+    const int yy = second ? y - dy : y + dy;
+    if (yy >= 0 && yy < H) { iy0 = min(iy0, iy); iy1 = iy; }
+  }
+  const int nrows = iy1 - iy0 + 1;
+  const int nx = min(kGroupX, W - xg0);
+  if (nrows <= 0) {                  // no term: the gradient is 0
+    for (int i = tid; i < nx * C; i += nthreads)
+      out[(frame + (int64_t)y * W + xg0) * C + i] = __float2bfloat16(0.f);
+    return;
+  }
+
+  // 1. the g values of the bands, staged in the ring: df1 g[y, x0 + p, :]
+  // (64 x nd2); df2, per dy, g[y - dy, x0 - dmax + col, (iy, :)]
+  // (nd x 80 x nd); 8 loads in flight a thread
+  uint16_t* gs = reinterpret_cast<uint16_t*>(ring);
+  const int ng = second ? nd * kCols * nd : kGroupX * nd2;
+  for (int i0 = tid; i0 < ng; i0 += 8 * nthreads) {
+    uint16_t v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * nthreads;
+      int yy = y, x = xg0 + i / nd2, ch = i % nd2;
+      if (second) {
+        const int iy = i / (nd * kCols);
+        yy = y + dmax - iy * stride;
+        x = xg0 - dmax + (i / nd) % kCols;
+        ch = iy * nd + i % nd;
+      }
+      v[u] = i < ng && yy >= 0 && yy < H && x >= 0 && x < W
+          ? g[(frame + (int64_t)yy * W + x) * nd2 + ch] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i0 + u * nthreads < ng) gs[i0 + u * nthreads] = v[u];
+  }
+  __syncthreads();
+
+  // 2. the A fragments: for tile t, dy index iy and band step ks, the band
+  // B[q, n] (df1: n = q + ix * stride, g[y, x0 + q, (iy, ix)]; df2: n =
+  // q + 2 dmax - ix * stride, g[y - dy, x0 - dmax + n, (iy, ix)]) at rows
+  // q of the tile and columns n in [16 ks, 16 ks + 16)
+  const int nks = (15 + 2 * dmax) / 16 + 1;    // k16 steps of the band
+  for (int iy = iy0 + h; iy <= iy1; iy += 2)
+    for (int ks = 0; ks < nks; ++ks) {
+      uint32_t a[4];
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        const int q = gq + 8 * (reg & 1);
+        uint16_t v[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int n = 16 * ks + 8 * (reg >> 1) + 2 * t4 + hh;
+          const int k = second ? q + 2 * dmax - n : n - q;
+          v[hh] = 0;
+          if (k >= 0 && k % stride == 0 && k / stride < nd)
+            v[hh] = second ? gs[(iy * kCols + 16 * t + n) * nd + k / stride]
+                           : gs[(16 * t + q) * nd2 + iy * nd + k / stride];
+        }
+        a[reg] = pack2(v[0], v[1]);
+      }
+      frag[((t * kMaxNd + iy) * 2 + ks) * 32 + lane] =
+          make_uint4(a[0], a[1], a[2], a[3]);
+    }
+
+  // 3. (channel tile, dy row) stages of the displaced map: f2 for df1, f1
+  // for df2
+  const CUtensorMap* map = second ? &map1 : &map2;
+  const uint16_t* src = second ? f1 : f2;
+  const int nstages = (C + kBwdC - 1) / kBwdC * nrows;
+  auto stage_row = [&](int st) {
+    const int dy = -dmax + (iy0 + st % nrows) * stride;
+    return second ? y - dy : y + dy;
+  };
+  auto issue = [&](int st) {   // kTma, one thread
+    const int buf = st % kStages;
+    const uint32_t bar = bars + 8 * buf;
+    mbar_expect(bar, kStageBytes);
+    for (int hh = 0; hh < 2; ++hh)
+      tma_load(ring_addr + buf * kStageBytes + hh * kHalfBytes, map,
+               (st / nrows) * kBwdC + 64 * hh, xg0 - dmax, stage_row(st), b,
+               bar);
+  };
+  auto fill = [&](int st) {    // !kTma, all threads, into stage 0
+    const int yy = stage_row(st);
+    for (int i = tid; i < kCols * (kBwdC / 8); i += nthreads) {
+      const int p = i % kCols, piece = i / kCols;
+      const int x = xg0 - dmax + p, c = (st / nrows) * kBwdC + piece * 8;
+      const bool in = x >= 0 && x < W;
+      __align__(16) uint16_t v[8];
+      const int64_t off = in ? (frame + (int64_t)yy * W + x) * C + c : 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = in && c + e < C ? src[off + e] : 0;
+      *reinterpret_cast<uint4*>(ring + (piece >> 3) * kHalfBytes
+                                + swz128(p, piece & 7)) =
+          *reinterpret_cast<const uint4*>(v);
+    }
+  };
+
+  __syncthreads();                   // fragments built; gs is free
+  if (kTma) {
+    if (tid == 0) {
+      for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int st = 0; st < kStages - 1 && st < nstages; ++st) issue(st);
+  }
+
+  float acc[8][4];
+  const bool tile_in = 16 * t < nx;
+  const int m = lane >> 3;
+  const float fc = (float)C;
+  for (int st = 0; st < nstages; ++st) {
+    __syncthreads();                 // the stage computed last is free
+    int buf = 0;
+    if (kTma) {
+      if (tid == 0 && st + kStages - 1 < nstages) issue(st + kStages - 1);
+      buf = st % kStages;
+      mbar_wait(bars + 8 * buf, (st / kStages) & 1);
+    } else {
+      fill(st);
+      __syncthreads();
+    }
+    const int i = st % nrows;
+    if (i == 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    }
+    if (tile_in) {
+      const uint8_t* s = ring + buf * kStageBytes + h * kHalfBytes;
+      for (int ks = 0; ks < nks; ++ks) {
+        const uint4 f = frag[((t * kMaxNd + iy0 + i) * 2 + ks) * 32 + lane];
+        const uint32_t a[4] = {f.x, f.y, f.z, f.w};
+        // B = staged pixels 16t + 16ks + (0..15) x the half's 64 channels
+        const int row = 16 * t + 16 * ks + 8 * (m & 1) + (lane & 7);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bb[4];
+          ldmatrix_x4_trans(bb, s + swz128(row, 2 * np + (m >> 1)));
+          mma_bf16(acc[2 * np], a, bb[0], bb[1]);
+          mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+    if (i == nrows - 1 && tile_in) {
+      const int c0 = (st / nrows) * kBwdC + 64 * h;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int x = xg0 + 16 * t + gq + 8 * (e >> 1);
+          const int c = c0 + 8 * n + 2 * t4;
+          if (x >= W) continue;
+          __nv_bfloat16* o = out + (frame + (int64_t)y * W + x) * C + c;
+          if ((C & 1) == 0 && c < C) {
+            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(
+                acc[n][e] / fc, acc[n][e + 1] / fc);
+          } else {
+            if (c < C) o[0] = __float2bfloat16(acc[n][e] / fc);
+            if (c + 1 < C) o[1] = __float2bfloat16(acc[n][e + 1] / fc);
+          }
+        }
+    }
+  }
+}
+
+template <bool kTma>
+int launch_bwd_tc_form(const CUtensorMap& map1, const CUtensorMap& map2,
+                       const void* f1, const void* f2, const void* g,
+                       void* df1, void* df2, int B, int H, int W, int C,
+                       int dmax, int stride, int nd, cudaStream_t stream) {
+  const size_t smem = (size_t)kStages * 2 * kCols * 128 + kFragBytes
+                      + 8 * kStages + 1024;
+  static bool done[kMaxDevices] = {};
+  int err = allow_smem(correlation_bwd_tc_kernel<kTma>, smem, done);
+  if (err) return err;
+  dim3 grid((W + kGroupX - 1) / kGroupX, H, 2 * B);
+  correlation_bwd_tc_kernel<kTma><<<grid, 64 * kTilesX, smem, stream>>>(
+      map1, map2, static_cast<const uint16_t*>(f1),
+      static_cast<const uint16_t*>(f2), static_cast<const uint16_t*>(g),
+      static_cast<__nv_bfloat16*>(df1), static_cast<__nv_bfloat16*>(df2), B,
+      H, W, C, dmax, stride, nd);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_tc(const void* f1, const void* f2, const void* g, void* df1,
+                  void* df2, int B, int H, int W, int C, int dmax, int stride,
+                  cudaStream_t stream) {
+  const int nd = (2 * dmax) / stride + 1;
+  if (dmax > kMaxD || nd > kMaxNd) return (int)cudaErrorInvalidValue;
+  const bool tma = C % 8 == 0 && ((uintptr_t)f1 | (uintptr_t)f2) % 16 == 0;
+  CUtensorMap map1 = {}, map2 = {};
+  if (tma) {
+    int err = encode_map(&map1, f1, B, H, W, C, 64, kCols,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!err) err = encode_map(&map2, f2, B, H, W, C, 64, kCols,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err) return err;
+    return launch_bwd_tc_form<true>(map1, map2, f1, f2, g, df1, df2, B, H, W,
+                                    C, dmax, stride, nd, stream);
+  }
+  return launch_bwd_tc_form<false>(map1, map2, f1, f2, g, df1, df2, B, H, W,
+                                   C, dmax, stride, nd, stream);
+}
+
 template <typename T>
 int launch_bwd(const void* f1, const void* f2, const void* g, void* df1,
                void* df2, int B, int H, int W, int C, int dmax, int stride,
@@ -280,8 +958,9 @@ extern "C" int dtt_correlation(const void* f1, const void* f2, void* out,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(f1, f2, out, B, H, W, C, dmax, stride, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(f1, f2, out, B, H, W, C, dmax, stride, s);
+  if (stride < 1 || dmax < 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)    // the tensor-core body; float32 keeps the CUDA cores
+    return launch_tc(f1, f2, out, B, H, W, C, dmax, stride, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -316,8 +995,8 @@ extern "C" int dtt_correlation_bwd(const void* f1, const void* f2,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_bwd<float>(f1, f2, g, df1, df2, B, H, W, C, dmax, stride, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(f1, f2, g, df1, df2, B, H, W, C, dmax,
-                                     stride, s);
+  if (stride < 1 || dmax < 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)    // the tensor-core body; float32 keeps the gather
+    return launch_bwd_tc(f1, f2, g, df1, df2, B, H, W, C, dmax, stride, s);
   return (int)cudaErrorInvalidValue;
 }
