@@ -5,7 +5,7 @@
 // Replaces the TPU kernel _corr_mm_kernel (dtt/ops/correlation.py), which
 // computed each vertical displacement as a banded row matmul on the MXU and
 // read the horizontal displacements off as diagonals (84 columns computed to
-// keep 9). On this card the 81 dot products are computed directly:
+// keep 9):
 //
 //   out[b, y, x, iy*nd + ix] = (1/C) * sum_c f1[b, y, x, c] * f2[b, y + dy, x + dx, c]
 //   dy = -dmax + iy*stride, dx = -dmax + ix*stride, zero outside f2,
@@ -14,35 +14,37 @@
 //
 // Bound: at the main-path shapes (38x68 maps, C = 512/1024, 81 outputs) the
 // op needs ~13 bf16 MAC per input byte, so the card's memory rate bounds
-// it; what a kernel has to avoid is re-reading the maps through the caches
-// (every f2 row meets nd output rows and every f2 column nd output columns)
-// faster than the staging can hide.
+// it. What a kernel has to keep small is the traffic from L2 into the SMs:
+// every f2 row meets nd output rows and every f2 column nd output columns.
 //
 // The dispatch is by dtype, inside dtt_correlation; neither body falls back
 // to the other:
 //
-// * bfloat16 maps run on the tensor cores (correlation_tc_kernel), the TPU
-//   kernel's band redone for mma.sync.m16n8k16 (bf16 in, f32 sums, exact
-//   products). One block per (pair, output row, 64-column group), one warp
-//   per vertical displacement dy, each warp over 4 tiles of 16 x-positions.
-//   Per 16-channel step, f1's 64-pixel row tile and the nd rows y + dy of f2
-//   over the group's columns plus a 2*dmax halo (80 columns) are copied
-//   into shared memory by 16-byte cp.async into a 3-stage ring, so two
-//   steps' copies are in flight while one computes; zeros outside the map
-//   and past C come from the copies' zero fill (src-size 0). Each warp
-//   loads f1's A fragment once per tile and step with ldmatrix and
-//   multiplies it by up to 4 n8 tiles of its f2 row, the band of 16 x 32
-//   columns that holds the tile's nd horizontal displacements; the
-//   epilogue keeps the diagonals n - r = ix * stride, divides by C (IEEE,
-//   as the plain version's / C), rounds once to bf16 and writes the
-//   group's dy-major channels through shared memory, so the stores
-//   coalesce. Why these sizes: 16-channel steps with 48-byte pixel rows
-//   (ldmatrix reads 8 rows without bank conflicts) make a stage 37.6 KB,
-//   so 3 stages fit twice in an SM's 228 KB; 64 columns keep the halo's
-//   extra f2 reads at 25%. The accumulators (4 tiles x 4 n8 tiles x 4 f32)
-//   stay at 64 registers a thread because dy is split across warps. The
-//   band takes dmax <= 8 (kMaxD); a 16-byte copy needs C % 8 == 0 and
-//   16-byte aligned maps, else the same ring is filled by 2-byte loads.
+// * bfloat16 maps run on the tensor cores (correlation_tc_kernel): the TPU
+//   kernel's band on mma.sync.m16n8k16 (bf16 in, exact products, f32 sums).
+//   A block owns R = 2 output rows of one residue class mod stride (they
+//   share nd - 1 of their f2 rows, so a block stages nd + 1 f2 rows for two
+//   output rows instead of 2 nd) and 64 columns of one pair; one warp per
+//   (row, dy), each over 4 tiles of 16 x-positions. Per 32-channel step one
+//   thread loads f1's two 64-pixel row tiles and the f2 rows over the
+//   group's columns plus the 2 dmax halo (80 columns) by TMA into a 3-stage
+//   ring (two steps in flight while one computes); the TMA's bounds give
+//   the zeros outside the map and past C, and its 64-byte swizzle lets
+//   ldmatrix read 8 pixel rows without bank conflicts. For each 16-channel
+//   k step a warp loads the 5 B fragment pairs of its f2 row once and, per
+//   tile, f1's A fragment, and multiplies the band of 16 x 32 f2 columns
+//   that holds the tile's nd horizontal displacements (4 n8 tiles). The
+//   epilogue keeps the diagonals n - q = ix * stride, divides by C (IEEE,
+//   as the plain version's / C), rounds once to bf16 and writes the rows'
+//   dy-major channels through shared memory, so the stores coalesce.
+//   Sizes: a stage is 59 KB, so 3 stages fill one SM; 64 columns keep the
+//   halo's extra reads at 25%, and a ragged last group (W = 68: 4 columns)
+//   loads only its own columns through tail-sized TMA boxes. Grids under
+//   two waves at R = 2 (one pair: 38 rows) take R = 1 to spread over more
+//   SMs. The accumulators (4 tiles x 4 n8 tiles x 4 f32) stay at 64
+//   registers a thread because dy is split across warps. The band takes
+//   dmax <= 8 (kMaxD). TMA needs C % 8 == 0 and 16-byte aligned maps; other
+//   maps fill the same swizzled stage with 2-byte loads, one step at a time.
 // * float32 maps keep the CUDA-core body (correlation_kernel below), whose
 //   f32 multiply-adds hold the 1e-5 references; TF32 tensor cores would
 //   not: one block per (pair, output row, 32-column tile), f1's row tile
@@ -202,7 +204,8 @@ constexpr int kGroupX = 64;     // output columns per block: 4 tiles of 16
 constexpr int kTilesX = kGroupX / 16;
 constexpr int kCols = kGroupX + 2 * kMaxD;  // staged f2 columns (halo incl.)
 constexpr int kStepC = 32;      // channels per stage: 64-byte pixel rows
-constexpr int kStages = 3;
+constexpr int kRowB = kStepC * 2;   // bytes per staged pixel row
+constexpr int kStages = 3;      // TMA ring: 2 stages in flight, 1 computed
 constexpr int kMaxDevices = 64;
 
 // Lets `kernel` take `bytes` of dynamic shared memory on the current
@@ -278,8 +281,8 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 // tile) against the band of 32 f2 columns at `row2` (B). B fragment pair P
 // holds f2 columns 16P ... 16P + 15 (n8 tiles 2P, 2P + 1); tile t's band
 // is pairs t and t + 1, so each pair is loaded once a step. All 4 n8 tiles
-// are multiplied whatever dmax: columns past 15 + 2 dmax hold finite map
-// values or zeros, and the epilogue reads no diagonal there.
+// are multiplied whatever dmax: an f2 column past 15 + 2 dmax (or past a
+// tail box) only reaches accumulator columns that hold no kept diagonal.
 template <int NT>
 __device__ __forceinline__ void band_step(float (&acc)[kTilesX][4][4],
                                           const uint8_t* ring, int row1,
@@ -318,6 +321,8 @@ template <int R, bool kTma>
 __global__ void __launch_bounds__(32 * kMaxNd * R, 1)
 correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
                       const __grid_constant__ CUtensorMap map2,
+                      const __grid_constant__ CUtensorMap tail1,
+                      const __grid_constant__ CUtensorMap tail2,
                       const uint16_t* __restrict__ f1,
                       const uint16_t* __restrict__ f2,
                       __nv_bfloat16* __restrict__ out, int H, int W, int C,
@@ -327,7 +332,7 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
   const uint32_t ring_addr = smem_addr(ring);
   const int nrows2 = R + nd - 1;
   const int stage_rows = R * kGroupX + nrows2 * kCols;  // 64-byte rows
-  const uint32_t stage_bytes = stage_rows * 64;
+  const uint32_t stage_bytes = stage_rows * kRowB;
   const uint32_t bars = ring_addr + kStages * stage_bytes;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -337,22 +342,30 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
   const int b = blockIdx.z;
   const int nchunks = (C + kStepC - 1) / kStepC;
 
+  // the last column group of a ragged W loads only its W - x0 columns
+  // (+ the halo) through the tail maps; the rows past them are never read
+  // into a kept diagonal
+  const bool tail = xg0 + kGroupX > W;
+  const CUtensorMap* m1 = tail ? &tail1 : &map1;
+  const CUtensorMap* m2 = tail ? &tail2 : &map2;
+  const uint32_t box_bytes = tail
+      ? (R * (W - xg0) + nrows2 * (W - xg0 + 2 * dmax)) * kRowB : stage_bytes;
   auto issue = [&](int chunk) {   // kTma, one thread
     const int buf = chunk % kStages;
     const uint32_t s = ring_addr + buf * stage_bytes;
     const uint32_t bar = bars + 8 * buf;
-    mbar_expect(bar, stage_bytes);
+    mbar_expect(bar, box_bytes);
     for (int rr = 0; rr < R; ++rr)
-      tma_load(s + rr * kGroupX * 64, &map1, chunk * kStepC, xg0,
+      tma_load(s + rr * kGroupX * kRowB, m1, chunk * kStepC, xg0,
                yb + rr * stride, b, bar);
     for (int t = 0; t < nrows2; ++t)
-      tma_load(s + (R * kGroupX + t * kCols) * 64, &map2, chunk * kStepC,
+      tma_load(s + (R * kGroupX + t * kCols) * kRowB, m2, chunk * kStepC,
                xg0 - dmax, yb - dmax + t * stride, b, bar);
   };
   auto fill = [&](int chunk) {    // !kTma, all threads, into stage 0
     const int64_t frame = (int64_t)b * H * W;
-    for (int i = tid; i < stage_rows * 4; i += nthreads) {
-      const int p = i >> 2, part = i & 3;
+    for (int i = tid; i < stage_rows * (kStepC / 8); i += nthreads) {
+      const int p = i / (kStepC / 8), part = i % (kStepC / 8);
       int yy, x;
       const uint16_t* src;
       if (p < R * kGroupX) {
@@ -381,10 +394,8 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-#ifndef EXP_NOCOPY
     if (tid == 0)
       for (int st = 0; st < kStages - 1 && st < nchunks; ++st) issue(st);
-#endif
   }
 
   const int yo = yb + r * stride;                       // output row
@@ -404,14 +415,9 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
     __syncthreads();                 // the stage computed last is free
     int buf = 0;
     if (kTma) {
-#ifndef EXP_NOCOPY
       if (tid == 0 && i + kStages - 1 < nchunks) issue(i + kStages - 1);
       buf = i % kStages;
       mbar_wait(bars + 8 * buf, (i / kStages) & 1);
-#endif
-#ifdef EXP_NOMMA
-      continue;
-#endif
     } else {
       fill(i);
       __syncthreads();
@@ -428,11 +434,14 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
   __syncthreads();
 
   // keep the diagonals: accumulator (q, n) of tile t holds f1[x0 + 16t + q]
-  // . f2[x0 - dmax + 16t + n], i.e. dx index ix = (n - q) / stride
+  // . f2[x0 - dmax + 16t + n], i.e. dx index ix = (n - q) / stride; the
+  // division of k = n - q < 32 by stride <= 16 is (k * inv) >> 16, exact
+  // in that range
   const int nd2 = nd * nd;
   __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(ring);
   const float fc = (float)C;
   const int g = lane >> 2, t4 = lane & 3;
+  const int inv = (65535 + stride) / stride;
 #pragma unroll
   for (int t = 0; t < kTilesX; ++t)
 #pragma unroll
@@ -441,18 +450,27 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
       for (int e = 0; e < 4; ++e) {
         const int q = g + 8 * (e >> 1);
         const int k = 8 * j + 2 * t4 + (e & 1) - q;
-        if (k >= 0 && k % stride == 0 && k / stride < nd)
-          so[(row1 + 16 * t + q) * nd2 + iy * nd + k / stride] =
+        const int ix = (k * inv) >> 16;
+        if (k >= 0 && ix * stride == k && ix < nd)
+          so[(row1 + 16 * t + q) * nd2 + iy * nd + ix] =
               __float2bfloat16(acc[t][j][e] / fc);
       }
   __syncthreads();
-  const int nx = min(kGroupX, W - xg0);
+  // the rows' dy-major channels are contiguous in `out`: copy them out in
+  // 4-byte words where they are aligned
+  const int n = min(kGroupX, W - xg0) * nd2;
   for (int rr = 0; rr < R; ++rr) {
     const int y = yb + rr * stride;
     if (y >= H) break;
     __nv_bfloat16* dst = out + (((int64_t)b * H + y) * W + xg0) * nd2;
     const __nv_bfloat16* src = so + rr * kGroupX * nd2;
-    for (int i = tid; i < nx * nd2; i += nthreads) dst[i] = src[i];
+    if ((reinterpret_cast<uintptr_t>(dst) & 3) == 0 && (n & 1) == 0) {
+      for (int i = tid; i < n / 2; i += nthreads)
+        reinterpret_cast<uint32_t*>(dst)[i] =
+            reinterpret_cast<const uint32_t*>(src)[i];
+    } else {
+      for (int i = tid; i < n; i += nthreads) dst[i] = src[i];
+    }
   }
 }
 
@@ -495,12 +513,11 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C,
 }
 
 template <int R, bool kTma>
-int launch_tc_rows(const CUtensorMap& map1, const CUtensorMap& map2,
-                   const void* f1, const void* f2, void* out, int B, int H,
+int launch_tc_rows(const CUtensorMap (&maps)[4], const void* f1, const void* f2, void* out, int B, int H,
                    int W, int C, int dmax, int stride, int nd,
                    cudaStream_t stream) {
   auto smem = [&](int n) {
-    return (size_t)kStages * 64 * (R * kGroupX + (R + n - 1) * kCols)
+    return (size_t)kStages * kRowB * (R * kGroupX + (R + n - 1) * kCols)
            + 8 * kStages + 1024;
   };
   static bool done[kMaxDevices] = {};
@@ -509,7 +526,7 @@ int launch_tc_rows(const CUtensorMap& map1, const CUtensorMap& map2,
   const int per_class = ((H + stride - 1) / stride + R - 1) / R;
   dim3 grid((W + kGroupX - 1) / kGroupX, stride * per_class, B);
   correlation_tc_kernel<R, kTma><<<grid, 32 * nd * R, smem(nd), stream>>>(
-      map1, map2, static_cast<const uint16_t*>(f1),
+      maps[0], maps[1], maps[2], maps[3], static_cast<const uint16_t*>(f1),
       static_cast<const uint16_t*>(f2), static_cast<__nv_bfloat16*>(out), H,
       W, C, dmax, stride, nd);
   return (int)cudaGetLastError();
@@ -522,18 +539,22 @@ int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
   const int nd = (2 * dmax) / stride + 1;
   if (dmax > kMaxD || nd > kMaxNd) return (int)cudaErrorInvalidValue;
   const bool tma = C % 8 == 0 && ((uintptr_t)f1 | (uintptr_t)f2) % 16 == 0;
-  CUtensorMap map1 = {}, map2 = {};
+  // f1 and f2 boxes for full column groups and for the ragged last one
+  CUtensorMap maps[4] = {};
   if (tma) {
-    int err = encode_map(&map1, f1, B, H, W, C, kStepC, kGroupX,
-                         CU_TENSOR_MAP_SWIZZLE_64B);
-    if (!err) err = encode_map(&map2, f2, B, H, W, C, kStepC, kCols,
-                               CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err) return err;
+    const int tail = W % kGroupX ? W % kGroupX : kGroupX;
+    const void* src[4] = {f1, f2, f1, f2};
+    const int box_w[4] = {kGroupX, kCols, tail, tail + 2 * dmax};
+    for (int i = 0; i < 4; ++i) {
+      const int err = encode_map(&maps[i], src[i], B, H, W, C, kStepC,
+                                 box_w[i], CU_TENSOR_MAP_SWIZZLE_64B);
+      if (err) return err;
+    }
   }
   const bool two = (long)B * H * ((W + kGroupX - 1) / kGroupX)
                    >= 4L * sm_count();
   const auto args = [&](auto fn) {
-    return fn(map1, map2, f1, f2, out, B, H, W, C, dmax, stride, nd, stream);
+    return fn(maps, f1, f2, out, B, H, W, C, dmax, stride, nd, stream);
   };
   if (two)
     return tma ? args(launch_tc_rows<2, true>) : args(launch_tc_rows<2, false>);
@@ -617,20 +638,24 @@ int launch_split(const void* f1, const void* f2, void* part, void* out,
 //
 // * bfloat16 (correlation_bwd_tc_kernel): the forward's band used the other
 //   way, on mma.sync.m16n8k16. For one row y, a 16-column tile at x0 and
-//   each dy, df1[y, x0 + r, c] += sum_q B[r, q] f2[y + dy, x0 - dmax + q, c]
-//   with the band B[r, r + ix * stride] = g[y, x0 + r, (iy, ix)] (16 x 32,
-//   zero off its nd diagonals), and df2[y, x0 + r, c] += sum_q B'[r, q]
-//   f1[y - dy, x0 - dmax + q, c] with B'[r, r + 2 dmax - ix * stride] =
-//   g[y - dy, x0 - dmax + q, (iy, ix)]. One launch: blockIdx.z picks df1 or
-//   df2; one block per (pair, row, 64-column group, 64-channel tile), one
-//   warp per 16-column tile. The block stages the g values its bands need
-//   once (plain loads), then walks the in-map dy rows of f2 (or f1) with a
-//   3-stage ring of 16-byte cp.async copies (80 columns x 64 channels, 144-
-//   byte pixel rows so ldmatrix.trans is free of bank conflicts), building
-//   each warp's A fragments from the staged g and loading the row's B
-//   fragments with ldmatrix.trans. g is bf16 (the wrapper's autograd casts
-//   it), so every product is exact and the f32 sum is rounded once, as in
-//   the gather form; the result is deterministic.
+//   each dy, df1[y, x0 + q, c] += sum_n B[q, n] f2[y + dy, x0 - dmax + n, c]
+//   with the band B[q, q + ix * stride] = g[y, x0 + q, (iy, ix)] (16 x 32,
+//   zero off its nd diagonals), and df2[y, x0 + q, c] += sum_n B'[q, n]
+//   f1[y - dy, x0 - dmax + n, c] with B'[q, q + 2 dmax - ix * stride] =
+//   g[y - dy, x0 - dmax + n, (iy, ix)]. One launch: blockIdx.z picks df1 or
+//   df2; a block owns one row and 64 columns and walks the channels in
+//   tiles of 128, one warp per (16-column tile, 64-channel half). It builds
+//   the A fragments of every dy once, from g staged in shared memory, and
+//   keeps them there, so the gathers of g and the band's index arithmetic
+//   are paid once per block and not once per channel tile; then one thread
+//   loads the (channel tile, in-map dy row) stages of f2 (or f1), 80
+//   columns x 128 channels, by TMA into a 3-stage ring (128-byte swizzled
+//   pixel rows: ldmatrix.trans reads the B fragments without bank
+//   conflicts). A ragged last column group loads tail-sized boxes into a
+//   ring zeroed once. g is bf16 (the
+//   wrapper's autograd casts it), so every product is exact and the f32
+//   sum is rounded once, as in the gather form; each element is written by
+//   one block, so the result is deterministic.
 // * float32: the gather body below, one thread per input element computing
 //   both gradients, channel-fastest so a warp's g loads are broadcasts and
 //   its f1/f2 loads coalesce.
@@ -694,6 +719,8 @@ template <bool kTma>
 __global__ void __launch_bounds__(64 * kTilesX, 2)
 correlation_bwd_tc_kernel(const __grid_constant__ CUtensorMap map1,
                           const __grid_constant__ CUtensorMap map2,
+                          const __grid_constant__ CUtensorMap tail1,
+                          const __grid_constant__ CUtensorMap tail2,
                           const uint16_t* __restrict__ f1,
                           const uint16_t* __restrict__ f2,
                           const uint16_t* __restrict__ g,
@@ -787,7 +814,13 @@ correlation_bwd_tc_kernel(const __grid_constant__ CUtensorMap map1,
 
   // 3. (channel tile, dy row) stages of the displaced map: f2 for df1, f1
   // for df2
-  const CUtensorMap* map = second ? &map1 : &map2;
+  // the last column group of a ragged W loads only its W - x0 columns (+
+  // the halo) through the tail maps, into a ring zeroed once: the band's
+  // zeros meet those rows, and 0 times stale shared memory could be NaN
+  const bool tail = xg0 + kGroupX > W;
+  const CUtensorMap* map = second ? (tail ? &tail1 : &map1)
+                                  : (tail ? &tail2 : &map2);
+  const uint32_t box_bytes = tail ? 2 * (nx + 2 * dmax) * 128 : kStageBytes;
   const uint16_t* src = second ? f1 : f2;
   const int nstages = (C + kBwdC - 1) / kBwdC * nrows;
   auto stage_row = [&](int st) {
@@ -797,7 +830,7 @@ correlation_bwd_tc_kernel(const __grid_constant__ CUtensorMap map1,
   auto issue = [&](int st) {   // kTma, one thread
     const int buf = st % kStages;
     const uint32_t bar = bars + 8 * buf;
-    mbar_expect(bar, kStageBytes);
+    mbar_expect(bar, box_bytes);
     for (int hh = 0; hh < 2; ++hh)
       tma_load(ring_addr + buf * kStageBytes + hh * kHalfBytes, map,
                (st / nrows) * kBwdC + 64 * hh, xg0 - dmax, stage_row(st), b,
@@ -821,6 +854,12 @@ correlation_bwd_tc_kernel(const __grid_constant__ CUtensorMap map1,
 
   __syncthreads();                   // fragments built; gs is free
   if (kTma) {
+    if (tail) {
+      for (int i = tid; i < kStages * kStageBytes / 16; i += nthreads)
+        reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
+      // order these writes before the TMA's (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
     if (tid == 0) {
       for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -891,8 +930,7 @@ correlation_bwd_tc_kernel(const __grid_constant__ CUtensorMap map1,
 }
 
 template <bool kTma>
-int launch_bwd_tc_form(const CUtensorMap& map1, const CUtensorMap& map2,
-                       const void* f1, const void* f2, const void* g,
+int launch_bwd_tc_form(const CUtensorMap (&maps)[4], const void* f1, const void* f2, const void* g,
                        void* df1, void* df2, int B, int H, int W, int C,
                        int dmax, int stride, int nd, cudaStream_t stream) {
   const size_t smem = (size_t)kStages * 2 * kCols * 128 + kFragBytes
@@ -902,7 +940,7 @@ int launch_bwd_tc_form(const CUtensorMap& map1, const CUtensorMap& map2,
   if (err) return err;
   dim3 grid((W + kGroupX - 1) / kGroupX, H, 2 * B);
   correlation_bwd_tc_kernel<kTma><<<grid, 64 * kTilesX, smem, stream>>>(
-      map1, map2, static_cast<const uint16_t*>(f1),
+      maps[0], maps[1], maps[2], maps[3], static_cast<const uint16_t*>(f1),
       static_cast<const uint16_t*>(f2), static_cast<const uint16_t*>(g),
       static_cast<__nv_bfloat16*>(df1), static_cast<__nv_bfloat16*>(df2), B,
       H, W, C, dmax, stride, nd);
@@ -915,18 +953,23 @@ int launch_bwd_tc(const void* f1, const void* f2, const void* g, void* df1,
   const int nd = (2 * dmax) / stride + 1;
   if (dmax > kMaxD || nd > kMaxNd) return (int)cudaErrorInvalidValue;
   const bool tma = C % 8 == 0 && ((uintptr_t)f1 | (uintptr_t)f2) % 16 == 0;
-  CUtensorMap map1 = {}, map2 = {};
+  // f1 and f2 boxes (64 channels) for full column groups and the ragged
+  // last one
+  CUtensorMap maps[4] = {};
   if (tma) {
-    int err = encode_map(&map1, f1, B, H, W, C, 64, kCols,
-                         CU_TENSOR_MAP_SWIZZLE_128B);
-    if (!err) err = encode_map(&map2, f2, B, H, W, C, 64, kCols,
-                               CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err) return err;
-    return launch_bwd_tc_form<true>(map1, map2, f1, f2, g, df1, df2, B, H, W,
-                                    C, dmax, stride, nd, stream);
+    const int tail = W % kGroupX ? W % kGroupX : kGroupX;
+    const void* src[4] = {f1, f2, f1, f2};
+    const int box_w[4] = {kCols, kCols, tail + 2 * dmax, tail + 2 * dmax};
+    for (int i = 0; i < 4; ++i) {
+      const int err = encode_map(&maps[i], src[i], B, H, W, C, 64, box_w[i],
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
+      if (err) return err;
+    }
+    return launch_bwd_tc_form<true>(maps, f1, f2, g, df1, df2, B, H, W, C,
+                                    dmax, stride, nd, stream);
   }
-  return launch_bwd_tc_form<false>(map1, map2, f1, f2, g, df1, df2, B, H, W,
-                                   C, dmax, stride, nd, stream);
+  return launch_bwd_tc_form<false>(maps, f1, f2, g, df1, df2, B, H, W, C,
+                                   dmax, stride, nd, stream);
 }
 
 template <typename T>
