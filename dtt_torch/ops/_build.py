@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (seconds to
 build; no PyTorch headers). Libraries go to ``dtt_torch/_build/``, named by
 a hash of the source, every ``csrc/*.cuh`` header and the flags, so a
-changed source or header rebuilds and an unchanged one is reused. Nothing is built at import: the first call of a
-kernel wrapper builds what it needs; ``build()`` builds several at once.
+changed source or header rebuilds and an unchanged one is reused. Nothing
+is built at import: the first call of a kernel wrapper builds what it
+needs; ``build()`` builds several at once.
 """
 
 from __future__ import annotations

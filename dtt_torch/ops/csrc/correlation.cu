@@ -39,12 +39,13 @@
 //   dy-major channels through shared memory, so the stores coalesce.
 //   Sizes: a stage is 59 KB, so 3 stages fill one SM; 64 columns keep the
 //   halo's extra reads at 25%, and a ragged last group (W = 68: 4 columns)
-//   loads only its own columns through tail-sized TMA boxes. Grids under
-//   two waves at R = 2 (one pair: 38 rows) take R = 1 to spread over more
-//   SMs. The accumulators (4 tiles x 4 n8 tiles x 4 f32) stay at 64
-//   registers a thread because dy is split across warps. The band takes
-//   dmax <= 8 (kMaxD). TMA needs C % 8 == 0 and 16-byte aligned maps; other
-//   maps fill the same swizzled stage with 2-byte loads, one step at a time.
+//   loads only its own columns through tail-sized TMA boxes. A grid with
+//   fewer one-row blocks than SMs (one pair: 76) takes R = 1 to spread
+//   over more of them. The accumulators (4 tiles x 4 n8 tiles x 4 f32)
+//   stay at 64 registers a thread because dy is split across warps. The
+//   band takes dmax <= 8 (kMaxD). TMA needs C % 8 == 0 and 16-byte aligned
+//   maps; other maps fill the same swizzled stage with 2-byte loads, one
+//   step at a time.
 // * float32 maps keep the CUDA-core body (correlation_kernel below), whose
 //   f32 multiply-adds hold the 1e-5 references; TF32 tensor cores would
 //   not: one block per (pair, output row, 32-column tile), f1's row tile
@@ -206,34 +207,18 @@ constexpr int kCols = kGroupX + 2 * kMaxD;  // staged f2 columns (halo incl.)
 constexpr int kStepC = 32;      // channels per stage: 64-byte pixel rows
 constexpr int kRowB = kStepC * 2;   // bytes per staged pixel row
 constexpr int kStages = 3;      // TMA ring: 2 stages in flight, 1 computed
-constexpr int kMaxDevices = 64;
-
-// Lets `kernel` take `bytes` of dynamic shared memory on the current
-// device, once per device (`done`, one array per kernel): the attribute
-// call costs host time that a small launch would otherwise wait on.
+// Lets `kernel` take `bytes` (> 48 KB) of dynamic shared memory.
 template <typename K>
-int allow_smem(K* kernel, size_t bytes, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices && done[dev]) return 0;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices) done[dev] = true;
-  return 0;
+int allow_smem(K* kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The card's SM count (device attribute, read once per device).
+// The current device's SM count.
 int sm_count() {
-  static int count[kMaxDevices] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
-  if (dev < kMaxDevices && count[dev]) return count[dev];
-  int n = 1;
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  if (dev < kMaxDevices) count[dev] = n;
+  int dev = 0, n = 1;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   return n;
 }
 
@@ -520,8 +505,7 @@ int launch_tc_rows(const CUtensorMap (&maps)[4], const void* f1, const void* f2,
     return (size_t)kStages * kRowB * (R * kGroupX + (R + n - 1) * kCols)
            + 8 * kStages + 1024;
   };
-  static bool done[kMaxDevices] = {};
-  int err = allow_smem(correlation_tc_kernel<R, kTma>, smem(kMaxNd), done);
+  int err = allow_smem(correlation_tc_kernel<R, kTma>, smem(kMaxNd));
   if (err) return err;
   const int per_class = ((H + stride - 1) / stride + R - 1) / R;
   dim3 grid((W + kGroupX - 1) / kGroupX, stride * per_class, B);
@@ -532,8 +516,9 @@ int launch_tc_rows(const CUtensorMap (&maps)[4], const void* f1, const void* f2,
   return (int)cudaGetLastError();
 }
 
-// Two rows a block where that grid still fills the SMs twice over; one
-// row otherwise, so a small grid spreads over more SMs.
+// Two rows a block where the one-row grid has a block for every SM (two
+// pairs or more at 38 x 68); one row below that, so a one-pair grid (76
+// blocks) spreads over more SMs.
 int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
               int C, int dmax, int stride, cudaStream_t stream) {
   const int nd = (2 * dmax) / stride + 1;
@@ -552,7 +537,7 @@ int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
     }
   }
   const bool two = (long)B * H * ((W + kGroupX - 1) / kGroupX)
-                   >= 4L * sm_count();
+                   >= sm_count();
   const auto args = [&](auto fn) {
     return fn(maps, f1, f2, out, B, H, W, C, dmax, stride, nd, stream);
   };
@@ -935,8 +920,7 @@ int launch_bwd_tc_form(const CUtensorMap (&maps)[4], const void* f1, const void*
                        int dmax, int stride, int nd, cudaStream_t stream) {
   const size_t smem = (size_t)kStages * 2 * kCols * 128 + kFragBytes
                       + 8 * kStages + 1024;
-  static bool done[kMaxDevices] = {};
-  int err = allow_smem(correlation_bwd_tc_kernel<kTma>, smem, done);
+  int err = allow_smem(correlation_bwd_tc_kernel<kTma>, smem);
   if (err) return err;
   dim3 grid((W + kGroupX - 1) / kGroupX, H, 2 * B);
   correlation_bwd_tc_kernel<kTma><<<grid, 64 * kTilesX, smem, stream>>>(

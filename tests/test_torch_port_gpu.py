@@ -99,6 +99,24 @@ def test_correlation_bwd_kernel_matches_plain(cuda, dtype, shape, d, s):
         torch.testing.assert_close(x.float(), w.float(), **CORR_TOL[dtype])
 
 
+def test_correlation_bf16_band_limit_raises(cuda):
+    """The bf16 tensor-core bodies take max_displacement <= 8: beyond it
+    both wrappers raise, naming the limit, and launch nothing; float32
+    maps still run."""
+    f = torch.zeros(1, 4, 20, 16, device=cuda, dtype=torch.bfloat16)
+    g = torch.zeros(1, 4, 20, 81, device=cuda, dtype=torch.bfloat16)
+    before = (tcorr.correlation_cuda.launches,
+              tcorr.correlation_bwd_cuda.launches)
+    with pytest.raises(ValueError, match="max_displacement <= 8"):
+        tcorr.correlation_cuda(f, f, 12, 3)
+    with pytest.raises(ValueError, match="max_displacement <= 8"):
+        tcorr.correlation_bwd_cuda(f, f, g, 12, 3)
+    assert (tcorr.correlation_cuda.launches,
+            tcorr.correlation_bwd_cuda.launches) == before
+    tcorr.correlation_cuda(f.float(), f.float(), 12, 3)
+    assert tcorr.correlation_cuda.launches == before[0] + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_correlation_autograd_launches_both_kernels(cuda, dtype):
     """Forward and backward each launch their kernel once (in bf16 the

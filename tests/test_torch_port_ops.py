@@ -389,6 +389,21 @@ def test_kernel_build_targets_hopper():
         assert _build.library_path(name).parent == _build.BUILD_DIR
 
 
+def test_kernel_library_name_hashes_headers(tmp_path, monkeypatch):
+    """A library is named by its source and every csrc header: adding or
+    changing a header renames it, so a stale build is never loaded."""
+    from dtt_torch.ops import _build
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text("// source\n")
+    names = [_build.library_path("k")]
+    (tmp_path / "band.cuh").write_text("// header\n")
+    names.append(_build.library_path("k"))
+    (tmp_path / "band.cuh").write_text("// header, changed\n")
+    names.append(_build.library_path("k"))
+    assert len(set(names)) == 3
+    assert names[-1] == _build.library_path("k")
+
+
 # ------------------------------------------------------------------ hygiene
 
 def test_import_leaves_out_jax_and_dtt():
