@@ -40,8 +40,9 @@
 //   Sizes: a stage is 59 KB, so 3 stages fill one SM; 64 columns keep the
 //   halo's extra reads at 25%, and a ragged last group (W = 68: 4 columns)
 //   loads only its own columns through tail-sized TMA boxes. A grid with
-//   fewer one-row blocks than SMs (one pair: 76) takes R = 1 to spread
-//   over more of them. The accumulators (4 tiles x 4 n8 tiles x 4 f32)
+//   fewer one-row blocks than SMs (one pair: 76) takes R = 1 and splits
+//   its dy over three blocks (228 blocks, each staging nd / 3 f2 rows) to
+//   spread over more of them. The accumulators (4 tiles x 4 n8 tiles x 4 f32)
 //   stay at 64 registers a thread because dy is split across warps. The
 //   band takes dmax <= 8 (kMaxD). TMA needs C % 8 == 0 and 16-byte aligned
 //   maps; other maps fill the same swizzled stage with 2-byte loads, one
@@ -295,9 +296,9 @@ __device__ __forceinline__ void band_step(float (&acc)[kTilesX][4][4],
 
 // Block: R output rows y_r = yb + r * stride (one residue class mod stride,
 // so consecutive rows share nd - 1 of their f2 rows) x 64 columns of one
-// pair; warp (r, iy). A stage holds 32 channels of f1's R row tiles
-// ([R][64 px]) and of the R + nd - 1 f2 rows yb - dmax + t * stride
-// ([t][80 px]), 64-byte swizzled pixel rows. With kTma one thread fills
+// pair x nw of its nd dy; warp (r, dy). A stage holds 32 channels of f1's R
+// row tiles ([R][64 px]) and of the R + nw - 1 f2 rows yb - dmax + (iy0 +
+// t) * stride ([t][80 px]), 64-byte swizzled pixel rows. With kTma one thread fills
 // the stages by TMA (zeros outside the map and past C from the TMA's
 // bounds), 2 ahead of the stage the warps compute on; without (C % 8 != 0
 // or unaligned maps) all threads fill one stage with 2-byte loads before
@@ -311,18 +312,22 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
                       const uint16_t* __restrict__ f1,
                       const uint16_t* __restrict__ f2,
                       __nv_bfloat16* __restrict__ out, int H, int W, int C,
-                      int dmax, int stride, int nd) {
+                      int dmax, int stride, int nd, int nw) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t ring_addr = smem_addr(ring);
-  const int nrows2 = R + nd - 1;
+  const int nrows2 = R + nw - 1;
   const int stage_rows = R * kGroupX + nrows2 * kCols;  // 64-byte rows
   const uint32_t stage_bytes = stage_rows * kRowB;
   const uint32_t bars = ring_addr + kStages * stage_bytes;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int r = warp / nd, iy = warp - r * nd;
-  const int xg0 = blockIdx.x * kGroupX;
+  // blockIdx.x = (column group, dy part): the block's dy are iy0 ... iy0 +
+  // nw - 1 (all nd unless a small grid splits them over blocks)
+  const int nsplit = (nd + nw - 1) / nw;
+  const int iy0 = (blockIdx.x % nsplit) * nw;
+  const int r = warp / nw, iyl = warp - r * nw, iy = iy0 + iyl;
+  const int xg0 = (blockIdx.x / nsplit) * kGroupX;
   const int yb = blockIdx.y % stride + stride * R * (blockIdx.y / stride);
   const int b = blockIdx.z;
   const int nchunks = (C + kStepC - 1) / kStepC;
@@ -345,7 +350,7 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
                yb + rr * stride, b, bar);
     for (int t = 0; t < nrows2; ++t)
       tma_load(s + (R * kGroupX + t * kCols) * kRowB, m2, chunk * kStepC,
-               xg0 - dmax, yb - dmax + t * stride, b, bar);
+               xg0 - dmax, yb - dmax + (iy0 + t) * stride, b, bar);
   };
   auto fill = [&](int chunk) {    // !kTma, all threads, into stage 0
     const int64_t frame = (int64_t)b * H * W;
@@ -358,7 +363,7 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
         yy = yb + rr * stride; x = xg0 + p - rr * kGroupX; src = f1;
       } else {
         const int t = (p - R * kGroupX) / kCols;
-        yy = yb - dmax + t * stride;
+        yy = yb - dmax + (iy0 + t) * stride;
         x = xg0 - dmax + (p - R * kGroupX - t * kCols);
         src = f2;
       }
@@ -385,9 +390,9 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
 
   const int yo = yb + r * stride;                       // output row
   const int yy2 = yb - dmax + (r + iy) * stride;        // its f2 row for dy
-  const bool live = yo < H && yy2 >= 0 && yy2 < H;      // else the plane is 0
+  const bool live = iy < nd && yo < H && yy2 >= 0 && yy2 < H;  // else 0
   const int ntiles = min(kTilesX, (W - xg0 + 15) / 16);
-  const int row1 = r * kGroupX, row2 = R * kGroupX + (r + iy) * kCols;
+  const int row1 = r * kGroupX, row2 = R * kGroupX + (r + iyl) * kCols;
   float acc[kTilesX][4][4];
 #pragma unroll
   for (int t = 0; t < kTilesX; ++t)
@@ -422,7 +427,7 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
   // . f2[x0 - dmax + 16t + n], i.e. dx index ix = (n - q) / stride; the
   // division of k = n - q < 32 by stride <= 16 is (k * inv) >> 16, exact
   // in that range
-  const int nd2 = nd * nd;
+  const int nd2 = nd * nd, pitch = nw * nd;   // so: [R][64 px][nw * nd]
   __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(ring);
   const float fc = (float)C;
   const int g = lane >> 2, t4 = lane & 3;
@@ -436,25 +441,28 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
         const int q = g + 8 * (e >> 1);
         const int k = 8 * j + 2 * t4 + (e & 1) - q;
         const int ix = (k * inv) >> 16;
-        if (k >= 0 && ix * stride == k && ix < nd)
-          so[(row1 + 16 * t + q) * nd2 + iy * nd + ix] =
+        if (k >= 0 && ix * stride == k && ix < nd && iy < nd)
+          so[(row1 + 16 * t + q) * pitch + iyl * nd + ix] =
               __float2bfloat16(acc[t][j][e] / fc);
       }
   __syncthreads();
-  // the rows' dy-major channels are contiguous in `out`: copy them out in
-  // 4-byte words where they are aligned
-  const int n = min(kGroupX, W - xg0) * nd2;
+  const int nx = min(kGroupX, W - xg0);
+  const int seg = (min(nw, nd - iy0)) * nd;     // this block's channels
   for (int rr = 0; rr < R; ++rr) {
     const int y = yb + rr * stride;
     if (y >= H) break;
-    __nv_bfloat16* dst = out + (((int64_t)b * H + y) * W + xg0) * nd2;
-    const __nv_bfloat16* src = so + rr * kGroupX * nd2;
-    if ((reinterpret_cast<uintptr_t>(dst) & 3) == 0 && (n & 1) == 0) {
-      for (int i = tid; i < n / 2; i += nthreads)
+    __nv_bfloat16* dst = out + (((int64_t)b * H + y) * W + xg0) * nd2
+                         + iy0 * nd;
+    const __nv_bfloat16* src = so + rr * kGroupX * pitch;
+    if (seg == nd2 && (reinterpret_cast<uintptr_t>(dst) & 3) == 0
+        && (nx * nd2 & 1) == 0) {
+      // all the rows' dy-major channels, contiguous in `out`: 4-byte words
+      for (int i = tid; i < nx * nd2 / 2; i += nthreads)
         reinterpret_cast<uint32_t*>(dst)[i] =
             reinterpret_cast<const uint32_t*>(src)[i];
     } else {
-      for (int i = tid; i < n; i += nthreads) dst[i] = src[i];
+      for (int i = tid; i < nx * seg; i += nthreads)
+        dst[(i / seg) * nd2 + i % seg] = src[(i / seg) * pitch + i % seg];
     }
   }
 }
@@ -498,8 +506,9 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C,
 }
 
 template <int R, bool kTma>
-int launch_tc_rows(const CUtensorMap (&maps)[4], const void* f1, const void* f2, void* out, int B, int H,
-                   int W, int C, int dmax, int stride, int nd,
+int launch_tc_rows(const CUtensorMap (&maps)[4], const void* f1,
+                   const void* f2, void* out, int B, int H, int W, int C,
+                   int dmax, int stride, int nd, int nw,
                    cudaStream_t stream) {
   auto smem = [&](int n) {
     return (size_t)kStages * kRowB * (R * kGroupX + (R + n - 1) * kCols)
@@ -508,17 +517,18 @@ int launch_tc_rows(const CUtensorMap (&maps)[4], const void* f1, const void* f2,
   int err = allow_smem(correlation_tc_kernel<R, kTma>, smem(kMaxNd));
   if (err) return err;
   const int per_class = ((H + stride - 1) / stride + R - 1) / R;
-  dim3 grid((W + kGroupX - 1) / kGroupX, stride * per_class, B);
-  correlation_tc_kernel<R, kTma><<<grid, 32 * nd * R, smem(nd), stream>>>(
+  dim3 grid((W + kGroupX - 1) / kGroupX * ((nd + nw - 1) / nw),
+            stride * per_class, B);
+  correlation_tc_kernel<R, kTma><<<grid, 32 * nw * R, smem(nw), stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const uint16_t*>(f1),
       static_cast<const uint16_t*>(f2), static_cast<__nv_bfloat16*>(out), H,
-      W, C, dmax, stride, nd);
+      W, C, dmax, stride, nd, nw);
   return (int)cudaGetLastError();
 }
 
 // Two rows a block where the one-row grid has a block for every SM (two
-// pairs or more at 38 x 68); one row below that, so a one-pair grid (76
-// blocks) spreads over more SMs.
+// pairs or more at 38 x 68); below that one row, with the dy split over
+// three blocks, so a one-pair grid has 228 blocks instead of 38.
 int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
               int C, int dmax, int stride, cudaStream_t stream) {
   const int nd = (2 * dmax) / stride + 1;
@@ -538,8 +548,9 @@ int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
   }
   const bool two = (long)B * H * ((W + kGroupX - 1) / kGroupX)
                    >= sm_count();
+  const int nw = two ? nd : (nd + 2) / 3;
   const auto args = [&](auto fn) {
-    return fn(maps, f1, f2, out, B, H, W, C, dmax, stride, nd, stream);
+    return fn(maps, f1, f2, out, B, H, W, C, dmax, stride, nd, nw, stream);
   };
   if (two)
     return tma ? args(launch_tc_rows<2, true>) : args(launch_tc_rows<2, false>);
