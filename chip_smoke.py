@@ -20,7 +20,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    calls through the kernel, the plain version and, where one exists, one
    PyTorch call computing the same function, beside the least time the
    card could take; the channel-split correlation also beside the unsplit
-   one at a video chunk's 16 pairs;
+   one at a video chunk's 16 pairs; then correlation windows past the
+   tensor-core band (d=16/s=4, d=10/s=2) in bf16 and f32 under every
+   kernel form, forward and backward, against the plain versions;
 4. small references: the tiny test config in float32 through the kernels
    on the card against the plain versions on the CPU, for the video path,
    for one train step (same weights, same injected draws; losses, every
@@ -32,7 +34,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    31 classes), random flax-layout weights from a numpy seed carried over
    by ``from_jax_params``, and ``evaluate_snippet_video`` over a uint8
    snippet of several chunks, with its launch counts and the stage split
-   of a video chunk and of a pair batch;
+   of a video chunk (its pool stage split again into cast, bounds, kernel,
+   division and mean) and of a pair batch;
 6. the training path: ``Config()`` at full width, the same weights,
    ``create_train_state``/``make_train_step`` on synthetic uint8 pairs:
    one warm-up step and several timed ones, its launch counts (read from
@@ -131,6 +134,8 @@ FRAME_STEPS = 8              # timed full-width single frames (after 1 warm-up)
 # division, so 0 is expected; 1e-6 of the largest |mean| guards the same
 # faults as PSROI_MM_REL_TOL
 PSROI_MEAN_REL_TOL = 1e-6
+# correlation windows past the tensor-core band that dtt takes
+WIDE_WINDOWS = ((16, 4), (10, 2))
 KERNELS = {"correlation": corr_ops.correlation_cuda,
            "correlation_split": corr_ops.correlation_split_cuda,
            "correlation_bwd": corr_ops.correlation_bwd_cuda,
@@ -399,22 +404,52 @@ def phase_psroi(cfg: Config, path: str, seed: int) -> dict:
     library_ms = time_ms(library, iters=3, warmup=1)
     adds = sum(psroi_ops.bin_areas(*bd).sum().item() * d
                for (_, _, d), (_, bd) in zip(cases, inputs))
-    nbytes = sum(mp.numel() * 2 + 4 * bd[0].numel() * 4
-                 + bd[0].numel() * k * d * 4
-                 for (_, _, d), (mp, bd) in zip(cases, inputs))
+    # bytes this run's bins need: the 32-byte sectors of the maps that some
+    # bin reads, each once, the bounds read and the sums written; beside it
+    # the whole maps' bytes, the bound of a kernel that reads every pixel
+    rest = sum(4 * bd[0].numel() * 4 + bd[0].numel() * k * d * 4
+               for (_, _, d), (_, bd) in zip(cases, inputs))
+    touched = sum(pool_sector_bytes(bd, mp.shape, k, mp.element_size())
+                  for mp, bd in inputs)
+    nbytes = touched + rest
+    whole = sum(mp.numel() * mp.element_size() for mp, _ in inputs) + rest
     bound_ms, bound_by = bound(nbytes, adds)
+    whole_ms, _ = bound(whole, adds)
     log(f"psroi_direct [{path}]: maps {[tuple(mp.shape) for mp, _ in inputs]}"
         f" bf16, (frames, RoIs, D) {cases}, k={k}: max_abs_err {err:.3g} "
         f"(tol {PSROI_TOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library einsum {library_ms:.4f} ms (bf16, max abs diff "
         f"{lib_err:.3g}), bound_us {bound_ms * 1e3:.1f} ({bound_by}, "
-        f"{nbytes / 1e6:.1f} MB, {adds / 1e9:.3f} G adds)")
+        f"{nbytes / 1e6:.1f} MB: {touched / 1e6:.1f} MB of 32-byte sectors "
+        f"the bins read, {adds / 1e9:.3f} G adds), {bound_ms / ms:.1%} of "
+        f"the bound; whole maps read once: bound_us {whole_ms * 1e3:.1f} "
+        f"({whole / 1e6:.1f} MB)")
     return {"name": "psroi_direct", "path": path, "route": "cuda",
             "source": "dtt_torch/ops/csrc/psroi.cu",
             "replaces": "dtt/ops/psroi.py:382",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def pool_sector_bytes(bd: list, shape: tuple, k: int, esize: int) -> int:
+    """Distinct bytes of the (B, H, W, k*k*D) maps that the bins of bounds
+    `bd` read, in whole 32-byte sectors: for every (frame, pixel, bin) that
+    some RoI's bin covers, the bin's run of D channels, rounded out to its
+    sectors, each sector counted once."""
+    b, h, w, c = shape
+    d = c // (k * k)
+    r, cind = psroi_ops.interval_indicators(*bd, h, w)
+    cover = torch.einsum("bnpy,bnqx->byxpq", r, cind) > 0
+    idx = cover.reshape(b, h, w, k * k).nonzero()
+    pix = (idx[:, 0] * h + idx[:, 1]) * w + idx[:, 2]
+    start = (pix * c + idx[:, 3] * d) * esize
+    first, last = start // 32, (start + d * esize - 1) // 32
+    hit = torch.zeros(-(-b * h * w * c * esize // 32), dtype=torch.bool,
+                      device=start.device)
+    for i in range(int((last - first).max().item()) + 1 if len(idx) else 0):
+        hit[(first + i)[first + i <= last]] = True
+    return int(hit.sum().item()) * 32
 
 
 def phase_psroi_bwd(cfg: Config, seed: int) -> dict:
@@ -470,7 +505,8 @@ def phase_psroi_bwd(cfg: Config, seed: int) -> dict:
         f"of the largest per call), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, library einsum {library_ms:.4f} ms (bf16, max abs diff "
         f"{lib_err:.3g}), bound_us {bound_ms * 1e3:.1f} ({bound_by}, "
-        f"{nbytes / 1e6:.1f} MB, {adds / 1e9:.3f} G adds)")
+        f"{nbytes / 1e6:.1f} MB, {adds / 1e9:.3f} G adds), "
+        f"{bound_ms / ms:.1%} of the bound")
     return {"name": "psroi_direct_bwd", "path": "train", "route": "cuda",
             "source": "dtt_torch/ops/csrc/psroi.cu",
             "replaces": "dtt/ops/psroi.py:479",
@@ -669,6 +705,53 @@ def phase_correlation_forms(cfg: Config, pairs: int, seed: int) -> list:
              "replaces": replaces[name], "max_abs_err": errs[name],
              "ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": None} for name in kernels]
+
+
+def phase_wide_windows(seed: int) -> None:
+    """Windows that dtt takes past the tensor-core band, d=16/s=4 and
+    d=10/s=2, in bf16 and f32 on two pairs of 38x68 maps (256 channels):
+    ``correlation(impl=auto|pallas_mm|pallas)`` forward and backward, each
+    against the plain versions (bf16: 2^-7 |want| + 1e-5 element by
+    element, f32: 1e-5), with the body that ran and the kernels launched."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for dtype in (torch.bfloat16, torch.float32):
+        f1, f2 = (torch.randn(2, 38, 68, 256, device="cuda", generator=g)
+                  .to(dtype) for _ in range(2))
+        for d, s in WIDE_WINDOWS:
+            nd2 = corr_ops.num_corr_channels(d, s)
+            go = torch.randn(2, 38, 68, nd2, device="cuda",
+                             generator=g).to(dtype)
+            want = (corr_ops.correlation_plain(f1, f2, d, s),
+                    *corr_ops.correlation_bwd_plain(f1, f2, go, d, s))
+            body = corr_ops.correlation_body(dtype, d, s)
+            for impl in ("auto", "pallas_mm", "pallas"):
+                a, b = (x.clone().requires_grad_() for x in (f1, f2))
+                before = read_launches()
+                out = corr_ops.correlation(a, b, d, s, impl)
+                out.backward(go)
+                torch.cuda.synchronize()
+                launched = {n: c - before[n] for n, c in
+                            read_launches().items() if c > before[n]}
+                fwd = "correlation_split" if impl == "pallas" else "correlation"
+                if launched != {fwd: 1, "correlation_bwd": 1}:
+                    raise AssertionError(f"wide window d={d} s={s} {impl} "
+                                         f"{dtype}: launched {launched}")
+                errs = []
+                for name, x, y in zip(("out", "df1", "df2"),
+                                      (out, a.grad, b.grad), want):
+                    what = (f"wide window d={d} s={s} {impl} {dtype} "
+                            f"{name}")
+                    if dtype == torch.bfloat16:
+                        errs.append(corr_check(x, y, what))
+                    else:
+                        e = (x - y).abs().max().item()
+                        if not e <= 1e-5:
+                            raise AssertionError(f"{what}: max abs err {e}")
+                        errs.append(e)
+                log(f"wide window d={d} s={s} {str(dtype)[6:]} impl={impl}: "
+                    f"body {body if impl != 'pallas' else 'cuda_cores'} "
+                    f"forward, {body} backward; launched {launched}; max abs"
+                    f" err out/df1/df2 {[f'{e:.3g}' for e in errs]}")
 
 
 def tiny_config() -> Config:
@@ -887,6 +970,39 @@ def phase_stages(cfg: Config, model, frames: np.ndarray, path: str) -> None:
                 ecfg.nms_thresh, ecfg.max_per_class,
                 track_deltas=pooled[..., dc + db:]))
     log_stages(what, times)
+    if path == "video":
+        phase_pool_split(mcfg, fused, props.rois, pooled)
+
+
+def phase_pool_split(mcfg, fused: torch.Tensor, rois: torch.Tensor,
+                     pooled: torch.Tensor) -> None:
+    """The video "pool" stage split into its steps as ``pool_vote_fused``
+    runs them for the direct pool: the cast of the fused maps to the
+    compute dtype, ``roi_bounds`` with the bin areas, the bin-sum kernel,
+    the division by the area (and cast), and the mean over the bins; the
+    result must equal the stage's."""
+    k, dtype = mcfg.roi.ps_grid, getattr(torch, mcfg.dtype)
+    _, h, w, _ = fused.shape
+    scale = 1.0 / mcfg.anchors.feat_stride
+    stage, times = stage_timer()
+
+    def bounds():
+        bd = [t.contiguous() for t in psroi_ops.roi_bounds(rois, scale, k, h,
+                                                            w)]
+        return bd, psroi_ops.bin_areas(*bd)[..., None]
+
+    with torch.inference_mode():
+        for _ in range(2):                  # report the second pass
+            maps = stage("cast", lambda: fused.to(dtype).contiguous())
+            bd, area = stage("roi_bounds+areas", bounds)
+            sums = stage("kernel", lambda: psroi_ops.psroi_sums(maps, *bd))
+            means = stage("division", lambda: torch.where(
+                area > 0, sums / area.clamp(min=1.0),
+                torch.zeros((), device=sums.device)).to(dtype))
+            votes = stage("mean", lambda: means.float().mean(dim=(2, 3)))
+    if not torch.equal(votes, pooled):
+        raise AssertionError("the split pool stage differs from the stage")
+    log_stages("the video pool stage, split", times)
 
 
 def phase_main_path(cfg: Config, card: str, tree: dict) -> dict:
@@ -1385,6 +1501,7 @@ def main() -> int:
                *phase_frame_pools(cfg, seed=9),
                *phase_correlation_forms(cfg, 1, seed=10)]
     phase_correlation_forms(cfg, FRAMES_PER_CHUNK - 1, seed=1)
+    phase_wide_windows(seed=12)
     phase_reference()
     phase_train_reference()
     phase_pair_reference()

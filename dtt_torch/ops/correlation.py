@@ -13,9 +13,12 @@ NHWC, batched over frame pairs.
   here both names select this form.
 * `correlation_cuda` — the hand-written kernel ``dtt_correlation`` in
   ``csrc/correlation.cu``, which replaces the TPU kernel
-  ``_corr_mm_kernel`` (dtt/ops/correlation.py): bfloat16 maps on the
-  tensor cores (``max_displacement`` <= 8), float32 maps on the CUDA cores.
-  See the source for its design.
+  ``_corr_mm_kernel`` (dtt/ops/correlation.py), on the body that
+  `correlation_body` names: bfloat16 maps whose window fits the band
+  (``max_displacement`` <= 8, at most 9 displacements per axis) on the
+  tensor cores, float32 maps and wider bf16 windows on the CUDA cores.
+  See the source for its design; `window_limit` names what the CUDA-core
+  forward refuses.
 * `correlation_split_cuda` — the kernel ``dtt_correlation_split`` in the
   same source, channel blocks summed by concurrent blocks; replaces the TPU
   kernel ``_corr_kernel``.
@@ -40,8 +43,11 @@ import torch.nn.functional as F
 from dtt_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ND = 9  # kMaxNd in csrc/correlation.cu
-_TC_MAX_D = 8  # kMaxD: the bf16 tensor-core bodies' band of 16 + 2d <= 32
+# the limits of csrc/correlation.cu's bodies, per axis of the window
+_TC_MAX_D = 8      # kMaxD: the tensor-core band of 16 + 2d <= 32 columns
+_TC_MAX_ND = 9     # kMaxNd: one warp per dy in the tensor-core bodies
+_CORE_MAX_ND = 32  # kMaxNdCore: the CUDA-core forward's 32 x nd threads
+_MAX_SMEM = 232448  # kMaxSmem: a block's shared memory on sm_90 (227 KB)
 
 
 def offsets(max_displacement: int, stride: int) -> list:
@@ -50,6 +56,40 @@ def offsets(max_displacement: int, stride: int) -> list:
 
 def num_corr_channels(max_displacement: int, stride: int) -> int:
     return len(offsets(max_displacement, stride)) ** 2
+
+
+def correlation_body(dtype: torch.dtype, max_displacement: int,
+                     stride: int) -> str:
+    """The CUDA body that runs a window, forward and backward alike:
+    ``"tensor_cores"`` (the ``mma.sync`` band) for bfloat16 maps with
+    max_displacement <= 8 and at most 9 displacements per axis,
+    ``"cuda_cores"`` (f32 multiply-adds; the gather backward) for float32
+    maps and every wider bf16 window. The split forward always runs on the
+    CUDA cores."""
+    nd = len(offsets(max_displacement, stride))
+    if (dtype == torch.bfloat16 and max_displacement <= _TC_MAX_D
+            and nd <= _TC_MAX_ND):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def window_limit(max_displacement: int, stride: int) -> str | None:
+    """Why the CUDA-core forward (``correlation_cuda`` off the tensor
+    cores, and ``correlation_split_cuda``) refuses a window, or None. Its
+    limits are the card's: a block of 32 x nd threads (at most 1,024, so
+    nd <= 32) and nd * 16 * ((32 + 2d) | 1) float32 of staged f2 rows in a
+    block's 227 KB of shared memory. The backward takes any window."""
+    nd = len(offsets(max_displacement, stride))
+    if nd > _CORE_MAX_ND:
+        return (f"{nd} displacements per axis: the CUDA-core forward runs "
+                f"32 x nd threads a block, at most 1,024 on the card, so at "
+                f"most {_CORE_MAX_ND}")
+    smem = 4 * (16 * 33 + nd * 16 * ((32 + 2 * max_displacement) | 1))
+    if smem > _MAX_SMEM:
+        return (f"the CUDA-core forward stages {smem:,} bytes of f2 rows, "
+                f"more than a block's {_MAX_SMEM:,} bytes (227 KB) of "
+                f"shared memory")
+    return None
 
 
 def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
@@ -109,27 +149,26 @@ def _check_maps(name: str, f1: torch.Tensor, f2: torch.Tensor,
                         f"{f1.dtype} and {f2.dtype}")
     if not (f1.is_contiguous() and f2.is_contiguous()):
         raise ValueError(f"{name}: maps must be contiguous NHWC")
-    if stride < 1 or max_displacement < 0 or (
-            len(offsets(max_displacement, stride)) > _MAX_ND):
-        raise ValueError(f"{name}: needs stride >= 1 and at most {_MAX_ND} "
-                         f"displacements per axis, got d={max_displacement},"
-                         f" s={stride}")
+    if stride < 1 or max_displacement < 0:
+        raise ValueError(f"{name}: needs stride >= 1 and max_displacement >= "
+                         f"0, got d={max_displacement}, s={stride}")
     if f1.numel() >= 2 ** 31:
         raise ValueError(f"{name}: maps too large for int32 sizes")
 
 
-def _check_band(name: str, f1: torch.Tensor, max_displacement: int) -> None:
-    """The bf16 tensor-core bodies take max_displacement <= 8."""
-    if f1.dtype == torch.bfloat16 and max_displacement > _TC_MAX_D:
-        raise ValueError(f"{name}: the bfloat16 tensor-core kernel takes "
-                         f"max_displacement <= {_TC_MAX_D}, got "
-                         f"{max_displacement}")
+def _check_window(name: str, max_displacement: int, stride: int) -> None:
+    """Raise, naming the limit, where the CUDA-core forward refuses the
+    window."""
+    limit = window_limit(max_displacement, stride)
+    if limit:
+        raise ValueError(f"{name}: window d={max_displacement}, s={stride}: "
+                         f"{limit}")
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("correlation").dtt_correlation
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -137,20 +176,27 @@ def _entry():
 def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
                      max_displacement: int = 8, stride: int = 2
                      ) -> torch.Tensor:
-    """(B, H, W, C) x2 -> (B, H, W, nd^2) by the CUDA kernel.
+    """(B, H, W, C) x2 -> (B, H, W, nd^2) by the CUDA kernel, on the body
+    ``correlation_body(f1.dtype, max_displacement, stride)`` names: the
+    tensor cores for bf16 windows in the band (d <= 8, nd <= 9), the CUDA
+    cores otherwise, where it raises, naming the limit, on a window that
+    ``window_limit`` refuses.
 
     Launches on the current stream; counts its launches in
     ``correlation_cuda.launches``.
     """
     _check_maps("correlation_cuda", f1, f2, max_displacement, stride)
-    _check_band("correlation_cuda", f1, max_displacement)
+    tc = correlation_body(f1.dtype, max_displacement,
+                          stride) == "tensor_cores"
+    if not tc:
+        _check_window("correlation_cuda", max_displacement, stride)
     b, h, w, c = f1.shape
     out = torch.empty((b, h, w, num_corr_channels(max_displacement, stride)),
                       dtype=f1.dtype, device=f1.device)
     if out.numel() == 0:
         return out
     err = _entry()(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c,
-                   max_displacement, stride, _DTYPE_CODES[f1.dtype],
+                   max_displacement, stride, _DTYPE_CODES[f1.dtype], int(tc),
                    f1.device.index,
                    torch.cuda.current_stream(f1.device).cuda_stream)
     if err:
@@ -178,12 +224,15 @@ def correlation_split_cuda(f1: torch.Tensor, f2: torch.Tensor,
                            ) -> torch.Tensor:
     """(B, H, W, C) x2 -> (B, H, W, nd^2) by the channel-split CUDA kernel:
     one block per 128-channel block writes its f32 partial planes to a
-    workspace, a second kernel sums them in block order.
+    workspace, a second kernel sums them in block order. The CUDA-core body
+    in both dtypes; raises, naming the limit, on a window that
+    ``window_limit`` refuses.
 
     Launches on the current stream; counts its launches in
     ``correlation_split_cuda.launches``.
     """
     _check_maps("correlation_split_cuda", f1, f2, max_displacement, stride)
+    _check_window("correlation_split_cuda", max_displacement, stride)
     b, h, w, c = f1.shape
     nblk = -(-c // _SPLIT_C)
     if c < 1 or b * nblk >= 2 ** 16:
@@ -212,7 +261,7 @@ correlation_split_cuda.launches = 0
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = _build.load("correlation").dtt_correlation_bwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -220,13 +269,17 @@ def _bwd_entry():
 def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
                          max_displacement: int = 8, stride: int = 2):
     """Gradients (df1, df2) of the correlation for the output gradient g
-    (B, H, W, nd^2) of the maps' dtype, by the CUDA kernel.
+    (B, H, W, nd^2) of the maps' dtype, by the CUDA kernel, on the body
+    ``correlation_body(f1.dtype, max_displacement, stride)`` names: the
+    tensor-core band for bf16 windows in it, the gather (any window)
+    otherwise.
 
     Launches on the current stream; counts its launches in
     ``correlation_bwd_cuda.launches``.
     """
     _check_maps("correlation_bwd_cuda", f1, f2, max_displacement, stride)
-    _check_band("correlation_bwd_cuda", f1, max_displacement)
+    tc = correlation_body(f1.dtype, max_displacement,
+                          stride) == "tensor_cores"
     b, h, w, c = f1.shape
     nd2 = num_corr_channels(max_displacement, stride)
     if g.shape != (b, h, w, nd2) or g.dtype != f1.dtype or \
@@ -241,7 +294,7 @@ def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     err = _bwd_entry()(f1.data_ptr(), f2.data_ptr(), g.data_ptr(),
                        df1.data_ptr(), df2.data_ptr(), b, h, w, c,
                        max_displacement, stride, _DTYPE_CODES[f1.dtype],
-                       f1.device.index,
+                       int(tc), f1.device.index,
                        torch.cuda.current_stream(f1.device).cuda_stream)
     if err:
         raise RuntimeError(f"correlation backward kernel launch failed: "

@@ -17,7 +17,10 @@
 // it. What a kernel has to keep small is the traffic from L2 into the SMs:
 // every f2 row meets nd output rows and every f2 column nd output columns.
 //
-// The dispatch is by dtype, inside dtt_correlation; neither body falls back
+// The caller names the body (dtt_correlation's `tensor_cores`; the rule is
+// correlation_body in dtt_torch/ops/correlation.py: the tensor cores for
+// bfloat16 maps whose window fits the band, dmax <= 8 and nd <= 9, the CUDA
+// cores otherwise). A body refuses what it cannot take; neither falls back
 // to the other:
 //
 // * bfloat16 maps run on the tensor cores (correlation_tc_kernel): the TPU
@@ -51,7 +54,11 @@
 //   f32 multiply-adds hold the 1e-5 references; TF32 tensor cores would
 //   not: one block per (pair, output row, 32-column tile), f1's row tile
 //   and the nd rows of f2 it meets staged in 16-channel chunks, each thread
-//   one (x, dy) with its nd horizontal displacements in registers.
+//   one (x, dy) with its nd horizontal displacements in registers. bf16
+//   windows past the band (FlowNet-C's d=20/s=2, d=16/s=4) run it too. Its
+//   limits are the card's: 32 x nd threads a block (nd <= 32, kMaxNdCore)
+//   and nd * 16 * ((32 + 2 dmax) | 1) f32 of staged f2 rows in a block's
+//   227 KB of shared memory (98 KB at d=20/s=2, past 48 KB by opt-in).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -89,7 +96,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-constexpr int kMaxNd = 9;    // displacements per axis: 2*dmax/stride + 1 (rounded down)
+// displacements per axis, nd = 2*dmax/stride + 1 (rounded down): the
+// tensor-core bodies take nd <= kMaxNd (one warp per dy), the CUDA-core
+// forward nd <= kMaxNdCore (a block of 32 x nd threads, at most 1024)
+constexpr int kMaxNd = 9;
+constexpr int kMaxNdCore = 32;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 constexpr int kTileX = 32;   // output columns per block (one warp wide)
 constexpr int kChunkC = 16;  // channels staged per step
 constexpr int kPitch1 = kTileX + 1;  // odd pitches: conflict-free transposed stores
@@ -99,17 +111,26 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// Lets `kernel` take `bytes` (> 48 KB) of dynamic shared memory.
+template <typename K>
+int allow_smem(K* kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // The body is shared with the channel-split forward (dtt_correlation_split,
 // below): with kSplit each block sums only the channels [cb*block_c,
 // (cb+1)*block_c) of its pair, blockIdx.z = cb*B + b, and writes its raw f32
 // sums to the (nblk, B, H, W, nd*nd) workspace; without it blockIdx.z = b,
 // block_c = C, and the block writes the channel mean in the input dtype.
-template <typename T, bool kSplit>
-__global__ void correlation_kernel(const T* __restrict__ f1,
-                                   const T* __restrict__ f2,
-                                   void* __restrict__ out_,
-                                   int B, int H, int W, int C, int dmax,
-                                   int stride, int nd, int block_c) {
+// kMaxJ bounds nd: correlation_kernel keeps the main path's 9 sums
+// (kMaxNd), correlation_kernel_wide takes the wide windows (kMaxNdCore; at
+// most 64 registers a thread, for 1024 threads).
+template <typename T, bool kSplit, int kMaxJ>
+__device__ __forceinline__ void correlation_core(
+    const T* __restrict__ f1, const T* __restrict__ f2,
+    void* __restrict__ out_, int B, int H, int W, int C, int dmax, int stride,
+    int nd, int block_c) {
   extern __shared__ float smem[];
   const int halo_w = kTileX + 2 * dmax;
   const int pitch2 = halo_w | 1;
@@ -127,9 +148,9 @@ __global__ void correlation_kernel(const T* __restrict__ f1,
   const int c_hi = kSplit ? min(C, c_lo + block_c) : C;
   const int64_t frame = (int64_t)b * H * W * C;
 
-  float acc[kMaxNd];
+  float acc[kMaxJ];
 #pragma unroll
-  for (int j = 0; j < kMaxNd; ++j) acc[j] = 0.f;
+  for (int j = 0; j < kMaxJ; ++j) acc[j] = 0.f;
 
   for (int c0 = c_lo; c0 < c_hi; c0 += kChunkC) {
     const int cc = min(kChunkC, c_hi - c0);
@@ -159,7 +180,7 @@ __global__ void correlation_kernel(const T* __restrict__ f1,
       const float a = s1[c * kPitch1 + tx];
       const float* row = s2 + (ty * kChunkC + c) * pitch2 + tx;
 #pragma unroll
-      for (int j = 0; j < kMaxNd; ++j)
+      for (int j = 0; j < kMaxJ; ++j)
         if (j < nd) acc[j] += a * row[j * stride];
     }
     __syncthreads();
@@ -171,18 +192,57 @@ __global__ void correlation_kernel(const T* __restrict__ f1,
     if (kSplit) {
       float* part = static_cast<float*>(out_) + o;
 #pragma unroll
-      for (int j = 0; j < kMaxNd; ++j)
+      for (int j = 0; j < kMaxJ; ++j)
         if (j < nd) part[j] = acc[j];
     } else {
       T* dst = static_cast<T*>(out_) + o;
       const float fc = (float)C;
 #pragma unroll
-      for (int j = 0; j < kMaxNd; ++j)
+      for (int j = 0; j < kMaxJ; ++j)
         if (j < nd) store(dst + j, acc[j] / fc);
     }
   }
 }
 
+template <typename T, bool kSplit>
+__global__ void correlation_kernel(const T* __restrict__ f1,
+                                   const T* __restrict__ f2,
+                                   void* __restrict__ out_, int B, int H,
+                                   int W, int C, int dmax, int stride, int nd,
+                                   int block_c) {
+  correlation_core<T, kSplit, kMaxNd>(f1, f2, out_, B, H, W, C, dmax, stride,
+                                      nd, block_c);
+}
+
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kTileX * kMaxNdCore)
+correlation_kernel_wide(const T* __restrict__ f1, const T* __restrict__ f2,
+                        void* __restrict__ out_, int B, int H, int W, int C,
+                        int dmax, int stride, int nd, int block_c) {
+  correlation_core<T, kSplit, kMaxNdCore>(f1, f2, out_, B, H, W, C, dmax,
+                                          stride, nd, block_c);
+}
+
+template <typename T>
+int launch_corr_body(void (*kernel)(const T*, const T*, void*, int, int, int,
+                                    int, int, int, int, int),
+                     const void* f1, const void* f2, void* out, int B, int H,
+                     int W, int C, int dmax, int stride, int nd, int block_c,
+                     int nblk, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const int err = allow_smem(kernel, smem);
+    if (err) return err;
+  }
+  dim3 grid((W + kTileX - 1) / kTileX, H, B * nblk);
+  dim3 block(kTileX, nd);
+  kernel<<<grid, block, smem, stream>>>(
+      static_cast<const T*>(f1), static_cast<const T*>(f2), out, B, H, W, C,
+      dmax, stride, nd, block_c);
+  return (int)cudaGetLastError();
+}
+
+// The CUDA-core forward (both forms); refuses nd > kMaxNdCore and staging
+// past a block's shared memory (correlation.py window_limit names both).
 template <typename T, bool kSplit>
 int launch_corr(const void* f1, const void* f2, void* out, int B, int H,
                 int W, int C, int dmax, int stride, int block_c, int nblk,
@@ -191,12 +251,11 @@ int launch_corr(const void* f1, const void* f2, void* out, int B, int H,
   const int halo_w = kTileX + 2 * dmax;
   const size_t smem = sizeof(float) *
       (kChunkC * kPitch1 + (size_t)nd * kChunkC * (halo_w | 1));
-  dim3 grid((W + kTileX - 1) / kTileX, H, B * nblk);
-  dim3 block(kTileX, nd);
-  correlation_kernel<T, kSplit><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(f1), static_cast<const T*>(f2), out, B, H, W, C,
-      dmax, stride, nd, block_c);
-  return (int)cudaGetLastError();
+  if (nd > kMaxNdCore || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch_corr_body<T>(nd <= kMaxNd ? correlation_kernel<T, kSplit>
+                                          : correlation_kernel_wide<T, kSplit>,
+                             f1, f2, out, B, H, W, C, dmax, stride, nd,
+                             block_c, nblk, smem, stream);
 }
 
 // --- the bf16 tensor-core forward (see the note at the top) ---
@@ -208,12 +267,6 @@ constexpr int kCols = kGroupX + 2 * kMaxD;  // staged f2 columns (halo incl.)
 constexpr int kStepC = 32;      // channels per stage: 64-byte pixel rows
 constexpr int kRowB = kStepC * 2;   // bytes per staged pixel row
 constexpr int kStages = 3;      // TMA ring: 2 stages in flight, 1 computed
-// Lets `kernel` take `bytes` (> 48 KB) of dynamic shared memory.
-template <typename K>
-int allow_smem(K* kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
 
 // The current device's SM count.
 int sm_count() {
@@ -560,8 +613,6 @@ int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
 template <typename T>
 int launch(const void* f1, const void* f2, void* out, int B, int H, int W,
            int C, int dmax, int stride, cudaStream_t stream) {
-  if (stride < 1 || dmax < 0) return (int)cudaErrorInvalidValue;
-  if ((2 * dmax) / stride + 1 > kMaxNd) return (int)cudaErrorInvalidValue;
   return launch_corr<T, false>(f1, f2, out, B, H, W, C, dmax, stride, C, 1,
                                stream);
 }
@@ -601,7 +652,6 @@ int launch_split(const void* f1, const void* f2, void* part, void* out,
   if (stride < 1 || dmax < 0 || C < 1 || block_c < 1)
     return (int)cudaErrorInvalidValue;
   const int nd = (2 * dmax) / stride + 1;
-  if (nd > kMaxNd) return (int)cudaErrorInvalidValue;
   const int nblk = (C + block_c - 1) / block_c;
   int err = launch_corr<T, true>(f1, f2, part, B, H, W, C, dmax, stride,
                                  block_c, nblk, stream);
@@ -630,9 +680,9 @@ int launch_split(const void* f1, const void* f2, void* part, void* out,
 // shapes that is ~40 operations (2 x 81 MACs) per byte moved, far below
 // the card's bf16 rate per byte, so the memory rate bounds it, and again
 // the design's work is to reuse each staged value instead of gathering it
-// 81 times. The dispatch is by dtype, as for the forward:
+// 81 times. The caller names the body by the forward's rule:
 //
-// * bfloat16 (correlation_bwd_tc_kernel): the forward's band used the other
+// * bfloat16 in the band (correlation_bwd_tc_kernel): the forward's band used the other
 //   way, on mma.sync.m16n8k16. For one row y, a 16-column tile at x0 and
 //   each dy, df1[y, x0 + q, c] += sum_n B[q, n] f2[y + dy, x0 - dmax + n, c]
 //   with the band B[q, q + ix * stride] = g[y, x0 + q, (iy, ix)] (16 x 32,
@@ -652,9 +702,10 @@ int launch_split(const void* f1, const void* f2, void* part, void* out,
 //   wrapper's autograd casts it), so every product is exact and the f32
 //   sum is rounded once, as in the gather form; each element is written by
 //   one block, so the result is deterministic.
-// * float32: the gather body below, one thread per input element computing
-//   both gradients, channel-fastest so a warp's g loads are broadcasts and
-//   its f1/f2 loads coalesce.
+// * float32, and bfloat16 windows past the band: the gather body below,
+//   one thread per input element computing both gradients, channel-fastest
+//   so a warp's g loads are broadcasts and its f1/f2 loads coalesce; it
+//   takes any window.
 template <typename T>
 __global__ void correlation_bwd_kernel(const T* __restrict__ f1,
                                        const T* __restrict__ f2,
@@ -987,18 +1038,23 @@ int launch_bwd(const void* f1, const void* f2, const void* g, void* df1,
 }  // namespace
 
 // f1, f2: (B, H, W, C) contiguous; out: (B, H, W, nd*nd) of the same dtype.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. tensor_cores: 1 runs the bf16 band
+// (dmax <= 8, nd <= 9), 0 the CUDA-core body (nd <= 32). Returns a
+// cudaError_t (0 = launched).
 extern "C" int dtt_correlation(const void* f1, const void* f2, void* out,
                                int B, int H, int W, int C, int dmax,
-                               int stride, int dtype, int device,
-                               void* stream) {
+                               int stride, int dtype, int tensor_cores,
+                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(f1, f2, out, B, H, W, C, dmax, stride, s);
   if (stride < 1 || dmax < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)    // the tensor-core body; float32 keeps the CUDA cores
-    return launch_tc(f1, f2, out, B, H, W, C, dmax, stride, s);
+  if (tensor_cores)
+    return dtype == 1 ? launch_tc(f1, f2, out, B, H, W, C, dmax, stride, s)
+                      : (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch<float>(f1, f2, out, B, H, W, C, dmax, stride, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(f1, f2, out, B, H, W, C, dmax, stride, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1023,18 +1079,26 @@ extern "C" int dtt_correlation_split(const void* f1, const void* f2,
 }
 
 // f1, f2, df1, df2: (B, H, W, C) contiguous; g: (B, H, W, nd*nd); all of
-// one dtype (0 = float32, 1 = bfloat16). Returns a cudaError_t (0 = launched).
+// one dtype (0 = float32, 1 = bfloat16). tensor_cores: 1 runs the bf16 band
+// (dmax <= 8, nd <= 9), 0 the gather (any window). Returns a cudaError_t
+// (0 = launched).
 extern "C" int dtt_correlation_bwd(const void* f1, const void* f2,
                                    const void* g, void* df1, void* df2, int B,
                                    int H, int W, int C, int dmax, int stride,
-                                   int dtype, int device, void* stream) {
+                                   int dtype, int tensor_cores, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stride < 1 || dmax < 0) return (int)cudaErrorInvalidValue;
+  if (tensor_cores)
+    return dtype == 1
+        ? launch_bwd_tc(f1, f2, g, df1, df2, B, H, W, C, dmax, stride, s)
+        : (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_bwd<float>(f1, f2, g, df1, df2, B, H, W, C, dmax, stride, s);
-  if (stride < 1 || dmax < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)    // the tensor-core body; float32 keeps the gather
-    return launch_bwd_tc(f1, f2, g, df1, df2, B, H, W, C, dmax, stride, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(f1, f2, g, df1, df2, B, H, W, C, dmax,
+                                     stride, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,12 +9,18 @@ empty bins 0. Channels are dtt's bin-major ``c = (ph*k + pw)*D + d``.
 
 * `psroi_sums_plain` / `psroi_sums_cuda` / `psroi_sums` — the bin sums:
   interval-indicator contractions in f32 (the reference the kernel is held
-  against; the CPU path), the hand-written kernel ``csrc/psroi.cu``
-  (replaces the TPU kernel ``_psroi_direct_kernel``), and the dispatcher
-  that takes the plain version for CPU tensors and the kernel otherwise.
+  against; the CPU path), the hand-written kernel ``dtt_psroi_direct`` in
+  ``csrc/psroi.cu`` (replaces the TPU kernel ``_psroi_direct_kernel``: one
+  thread per channel vector of a bin, loads as wide as D allows, 8 pixels
+  in flight), and
+  the dispatcher that takes the plain version for CPU tensors and the
+  kernel otherwise.
 * `psroi_bwd_plain` / `psroi_bwd_cuda` / `psroi_bwd` — the same three for
-  the map gradient from ghat = g/area (the kernel replaces
-  ``_psroi_direct_bwd_kernel``).
+  the map gradient from ghat = g/area (the kernel ``dtt_psroi_direct_bwd``
+  replaces ``_psroi_direct_bwd_kernel``: a block per (frame, output row,
+  column tile, bin row) lists the RoIs whose bin row holds the output row,
+  adds each one's ghat over only the columns its bins cover and writes the
+  row with 16-byte stores; deterministic).
 * `psroi_pool_batched_direct` — the pool as an autograd function: the bin
   means in the maps' dtype, the gradient in the maps' dtype, none for the
   RoIs (the bin bounds are piecewise constant in them).
@@ -67,6 +73,7 @@ import torch.nn.functional as F
 from dtt_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SMEM = 232448  # a block's shared memory on sm_90 (227 KB), kMaxSmem
 
 
 def roi_bounds(rois: torch.Tensor, spatial_scale: float, group_size: int,
@@ -162,8 +169,9 @@ def psroi_sums_cuda(maps: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
                          f"k^2={k * k}")
     if not (maps.is_contiguous() and all(t.is_contiguous() for t in bounds)):
         raise ValueError("psroi_sums_cuda: inputs must be contiguous")
-    if h * w * c >= 2 ** 31 or b * n * c >= 2 ** 62:
-        raise ValueError("psroi_sums_cuda: maps too large for int32 sizes")
+    if h * w * c >= 2 ** 31 or b * n * c >= 2 ** 31:
+        raise ValueError("psroi_sums_cuda: maps or sums too large for int32 "
+                         "sizes")
     d = c // (k * k)
     sums = torch.empty((b, n, k, k, d), dtype=torch.float32,
                        device=maps.device)
@@ -214,13 +222,24 @@ def _bwd_entry():
     return fn
 
 
-_MAX_BWD_ROIS = 4000  # kMaxBwdRois in csrc/psroi.cu
+def _bwd_smem_bytes(k: int, d: int) -> int:
+    """Shared memory of one ``dtt_psroi_direct_bwd`` block at its widest
+    tile (csrc/psroi.cu ``bwd_smem``): a tile of max(1, 8192 // (k*D))
+    pixels x the k*D channels of one bin row in f32, the warps' counts and
+    a 256-RoI list (index and k bin columns)."""
+    kd = k * d
+    tile = max(1, 8192 // kd) * kd * 4
+    return (tile + 15) // 16 * 16 + 4 * (8 + 256 * (1 + k))
 
 
 def psroi_bwd_cuda(ghat: torch.Tensor, hs, he, ws, we, height: int,
                    width: int, dtype: torch.dtype) -> torch.Tensor:
     """(B, N, k, k, D) f32 ghat, (B, N, k) int32 bounds -> (B, H, W, k*k*D)
-    map gradient in `dtype` by the CUDA kernel.
+    map gradient in `dtype` by the CUDA kernel: each element summed by one
+    thread in RoI order (no atomics), so the result is the same bits from
+    run to run. Any number of RoIs; one pixel's k*D channels of a bin row
+    in f32 must fit a block's shared memory beside the RoI list
+    (``_bwd_smem_bytes``).
 
     Launches on the current stream; counts its launches in
     ``psroi_bwd_cuda.launches``.
@@ -244,11 +263,15 @@ def psroi_bwd_cuda(ghat: torch.Tensor, hs, he, ws, we, height: int,
                         "of one shape")
     if not (ghat.is_contiguous() and all(t.is_contiguous() for t in bounds)):
         raise ValueError("psroi_bwd_cuda: inputs must be contiguous")
-    if n > _MAX_BWD_ROIS:
-        raise ValueError(f"psroi_bwd_cuda: at most {_MAX_BWD_ROIS} RoIs per "
-                         f"frame, got {n}")
-    if height * width * k * k * d >= 2 ** 31:
-        raise ValueError("psroi_bwd_cuda: maps too large for int32 sizes")
+    smem = _bwd_smem_bytes(k, d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"psroi_bwd_cuda: one pixel's k*D = {k * d} channels"
+                         f" of a bin row in float32 beside a 256-RoI list of "
+                         f"{k} bin columns need {smem:,} bytes of shared "
+                         f"memory, more than a block's {_MAX_SMEM:,}")
+    if height * width * k * k * d >= 2 ** 31 or max(b * k, height) >= 2 ** 16:
+        raise ValueError("psroi_bwd_cuda: maps too large for int32 sizes or "
+                         "the grid (frames x k and rows < 65536)")
     out = torch.empty((b, height, width, k * k * d), dtype=dtype,
                       device=ghat.device)
     if out.numel() == 0:

@@ -33,12 +33,23 @@ CORR_TOL = {torch.float32: dict(rtol=0.0, atol=1e-5),
             torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
 # the main path's 38x68 maps at d=8/s=2, and the edges of the tiling: C not
 # a multiple of the 32-channel step (40) or of 8 (36, 16-byte copies
-# misaligned), W under one 16-column tile, H = 1 (under 2d + 1 rows)
+# misaligned), W under one 16-column tile, H = 1 (under 2d + 1 rows). The
+# bf16 forward takes two rows a block where B * H * ceil(W / 64) one-row
+# blocks fill the card's SMs: on a 132-SM H100 the first ten cases (at most
+# 76 one-row blocks) run one row a block with the dy split over three
+# blocks, the last three two rows a block
 CORR_SHAPES = [((2, 12, 20, 64), 2, 1), ((2, 12, 20, 64), 8, 2),
                ((3, 9, 37, 40), 8, 2), ((1, 38, 68, 512), 8, 2),
                ((2, 5, 18, 40), 2, 1), ((2, 7, 21, 36), 8, 2),
                ((2, 6, 19, 36), 2, 1), ((2, 6, 11, 64), 8, 2),
-               ((2, 1, 20, 48), 8, 2), ((3, 1, 9, 24), 2, 1)]
+               ((2, 1, 20, 48), 8, 2), ((3, 1, 9, 24), 2, 1),
+               # 304 one-row blocks: two rows, 2-byte staging (C % 8 != 0)
+               ((4, 38, 68, 36), 8, 2),
+               # 304: two rows by TMA, C not a multiple of the 32-channel step
+               ((4, 38, 68, 40), 8, 2),
+               # 272: two rows at stride 1, 17 rows (the last block has one),
+               # 2-byte staging, a 6-column last group
+               ((8, 17, 70, 36), 2, 1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -56,20 +67,46 @@ def test_correlation_kernel_matches_plain(cuda, dtype, shape, d, s):
     torch.testing.assert_close(got.float(), want.float(), **CORR_TOL[dtype])
 
 
+# (frames, H, W, k, D, RoIs) of the direct pool: the main path's calls (a
+# video chunk's fused maps at 300 proposals; a train step's cls, bbox and
+# track maps at 300 proposals + 30 gt slots) and the edges: D = 1, odd D,
+# k = 3, one RoI, RoIs past one warp (32) and past one 256-RoI list chunk of
+# the backward
+POOL_VIDEO = [(16, 38, 68, 7, 43, 300)]
+POOL_TRAIN = [(2, 38, 68, 7, 31, 330), (2, 38, 68, 7, 8, 330),
+              (1, 38, 68, 7, 4, 330)]
+POOL_EDGES = [(2, 10, 14, 7, 1, 16), (2, 9, 13, 3, 5, 70),
+              (3, 9, 13, 3, 43, 1), (1, 10, 14, 7, 9, 40),
+              (2, 12, 17, 3, 8, 600)]
+
+
+def _pool_case(shape, dtype, cuda, seed):
+    """Maps and RoIs of `shape`: RoIs up to 600 px, the first ones covering
+    the whole map, on .5 coordinates, degenerate (one-pixel and empty bins),
+    past the map and before it. Returns maps, RoIs and their bin bounds."""
+    b, h, w, k, d, n = shape
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(-40, w * 16, (b, n, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(0, 600, (b, n, 2))], axis=-1)
+    special = [[0, 0, w * 16 - 1, h * 16 - 1], [40.5, 23.5, 72.5, 88.5],
+               [41.5, 24.5, 41.5, 24.5],
+               [w * 16 + 50, h * 16 + 20, w * 16 + 300, h * 16 + 200],
+               [-60, -40, -10, -5]]
+    rois[:, :min(n, len(special))] = special[:n]
+    rois = torch.from_numpy(rois.astype(np.float32)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    maps = torch.randn(b, h, w, k * k * d, device=cuda, generator=g).to(dtype)
+    bounds = [t.contiguous() for t in tpsroi.roi_bounds(rois, 1 / 16, k, h, w)]
+    return maps, rois, bounds
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_psroi_kernel_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("shape", POOL_VIDEO + POOL_TRAIN + POOL_EDGES)
+def test_psroi_kernel_matches_plain(cuda, dtype, shape):
     """f32 sums of the same values in another order (1e-4 on sums of up to
-    ~100 values of O(1))."""
-    rng = np.random.RandomState(1)
-    b, h, w, k, d, n = 2, 10, 14, 7, 43, 16
-    maps = torch.from_numpy(rng.randn(b, h, w, k * k * d).astype(np.float32))
-    xy = rng.uniform(-20, 240, (b, n, 2))
-    rois = np.concatenate([xy, xy + rng.uniform(0, 160, (b, n, 2))], axis=-1)
-    rois[:, 0] = [0, 0, w * 16 - 1, h * 16 - 1]
-    rois[:, 1] = [40.5, 23.5, 72.5, 88.5]
-    maps = maps.to(cuda, dtype)
-    bounds = tpsroi.roi_bounds(torch.from_numpy(rois.astype(np.float32)).to(cuda),
-                               1 / 16, k, h, w)
+    ~100 values of O(1)); empty bins 0."""
+    b, h, w, k, d, n = shape
+    maps, _, bounds = _pool_case(shape, dtype, cuda, 1)
     before = tpsroi.psroi_sums_cuda.launches
     got = tpsroi.psroi_sums(maps, *bounds)
     torch.cuda.synchronize()
@@ -100,30 +137,74 @@ def test_correlation_bwd_kernel_matches_plain(cuda, dtype, shape, d, s):
 
 
 def test_correlation_bf16_band_limit_raises(cuda):
-    """The bf16 tensor-core bodies take max_displacement <= 8: beyond it
-    both wrappers raise, naming the limit, and launch nothing; float32
-    maps still run."""
-    f = torch.zeros(1, 4, 20, 16, device=cuda, dtype=torch.bfloat16)
-    g = torch.zeros(1, 4, 20, 81, device=cuda, dtype=torch.bfloat16)
+    """Past the tensor-core band (max_displacement > 8) bf16 maps run on the
+    CUDA-core bodies, forward and backward, within one bf16 ulp of the
+    plain versions; what still raises is a window past the CUDA-core
+    forward's card limits (more than 32 displacements per axis), in both
+    forward forms, naming the limit and launching nothing."""
+    assert tcorr.correlation_body(torch.bfloat16, 12, 3) == "cuda_cores"
+    g = torch.Generator().manual_seed(4)
+    f1, f2 = (torch.randn(1, 9, 20, 16, generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    go = torch.randn(1, 9, 20, 81, generator=g).to(cuda, torch.bfloat16)
+    got = tcorr.correlation_cuda(f1, f2, 12, 3)
+    grads = tcorr.correlation_bwd_cuda(f1, f2, go, 12, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), tcorr.correlation_plain(f1, f2, 12, 3).float(),
+        **CORR_TOL[torch.bfloat16])
+    for x, w in zip(grads, tcorr.correlation_bwd_plain(f1, f2, go, 12, 3)):
+        torch.testing.assert_close(x.float(), w.float(),
+                                   **CORR_TOL[torch.bfloat16])
     before = (tcorr.correlation_cuda.launches,
-              tcorr.correlation_bwd_cuda.launches)
-    with pytest.raises(ValueError, match="max_displacement <= 8"):
-        tcorr.correlation_cuda(f, f, 12, 3)
-    with pytest.raises(ValueError, match="max_displacement <= 8"):
-        tcorr.correlation_bwd_cuda(f, f, g, 12, 3)
+              tcorr.correlation_split_cuda.launches)
+    with pytest.raises(ValueError, match="at most 32"):
+        tcorr.correlation_cuda(f1, f2, 33, 1)
+    with pytest.raises(ValueError, match="at most 32"):
+        tcorr.correlation_split_cuda(f1, f2, 33, 1)
     assert (tcorr.correlation_cuda.launches,
-            tcorr.correlation_bwd_cuda.launches) == before
-    tcorr.correlation_cuda(f.float(), f.float(), 12, 3)
-    assert tcorr.correlation_cuda.launches == before[0] + 1
+            tcorr.correlation_split_cuda.launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_correlation_autograd_launches_both_kernels(cuda, dtype):
+@pytest.mark.parametrize("impl", ["auto", "pallas_mm", "pallas"])
+@pytest.mark.parametrize("d,s", [(16, 4), (10, 2), (20, 2)])
+def test_correlation_wide_windows_match_plain(cuda, dtype, impl, d, s):
+    """Windows that dtt takes past the tensor-core band (d=16/s=4, d=10/s=2
+    and FlowNet-C's d=20/s=2, whose staging needs more than 48 KB of shared
+    memory) under every kernel form, forward and backward: the CUDA-core
+    bodies, each launched once, against the plain versions."""
+    g = torch.Generator().manual_seed(5)
+    f1, f2 = (torch.randn(2, 12, 40, 48, generator=g).to(cuda, dtype)
+              for _ in range(2))
+    go = torch.randn(2, 12, 40, tcorr.num_corr_channels(d, s),
+                     generator=g).to(cuda, dtype)
+    fwd = (tcorr.correlation_split_cuda if impl == "pallas"
+           else tcorr.correlation_cuda)
+    before = (fwd.launches, tcorr.correlation_bwd_cuda.launches)
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    out = tcorr.correlation(a, b, d, s, impl)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert (fwd.launches, tcorr.correlation_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        out.float(), tcorr.correlation_plain(f1, f2, d, s).float(),
+        **CORR_TOL[dtype])
+    for x, w in zip((a.grad, b.grad),
+                    tcorr.correlation_bwd_plain(f1, f2, go, d, s)):
+        torch.testing.assert_close(x.float(), w.float(), **CORR_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 6, 10, 32), (8, 17, 70, 36)])
+def test_correlation_autograd_launches_both_kernels(cuda, dtype, shape):
     """Forward and backward each launch their kernel once (in bf16 the
-    tensor-core bodies), and the gradients are the backward kernel's for
-    the output gradient autograd hands it."""
+    tensor-core bodies; at (8, 17, 70, 36) the forward's two-row blocks),
+    and the gradients are the backward kernel's for the output gradient
+    autograd hands it."""
     g = torch.Generator().manual_seed(3)
-    f1, f2 = (torch.randn(1, 6, 10, 32, generator=g).to(cuda, dtype)
+    f1, f2 = (torch.randn(shape, generator=g).to(cuda, dtype)
               .requires_grad_() for _ in range(2))
     before = (tcorr.correlation_cuda.launches,
               tcorr.correlation_bwd_cuda.launches)
@@ -141,36 +222,52 @@ def test_correlation_autograd_launches_both_kernels(cuda, dtype):
         torch.testing.assert_close(x.float(), w.float(), **CORR_TOL[dtype])
 
 
+def _pool_ghat(shape, bounds, cuda, seed, dtype=torch.float32):
+    """A random output gradient in `dtype` and ghat, its f32 values over
+    the bins' areas (0 for empty bins), as the pool's autograd hands the
+    backward kernel."""
+    b, _, _, k, d, n = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    area = tpsroi.bin_areas(*bounds)[..., None]
+    go = torch.randn(b, n, k, k, d, device=cuda, generator=g).to(dtype)
+    return go, torch.where(area > 0, go.float() / area.clamp(min=1.0), 0.0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w,k,d,n", [(2, 10, 14, 7, 8, 16),
-                                         (3, 9, 13, 3, 31, 70)])
-def test_psroi_bwd_kernel_matches_plain(cuda, dtype, b, h, w, k, d, n):
+@pytest.mark.parametrize("shape", POOL_TRAIN + POOL_EDGES)
+def test_psroi_bwd_kernel_matches_plain(cuda, dtype, shape):
     """The map gradient through the pool's autograd: f32 sums of ghat in
-    RoI order vs the plain contraction (1e-5 in f32; bf16 outputs within
-    one bf16 ulp)."""
-    rng = np.random.RandomState(2)
-    xy = rng.uniform(-20, w * 16, (b, n, 2))
-    rois = np.concatenate([xy, xy + rng.uniform(0, 160, (b, n, 2))], axis=-1)
-    rois[:, 0] = [0, 0, w * 16 - 1, h * 16 - 1]
-    rois[:, 1] = [40.5, 23.5, 72.5, 88.5]
-    rois[:, 2] = [41.5, 24.5, 41.5, 24.5]
-    rois = torch.from_numpy(rois.astype(np.float32)).to(cuda)
-    maps = torch.from_numpy(rng.randn(b, h, w, k * k * d).astype(
-        np.float32)).to(cuda, dtype).requires_grad_()
-    go = torch.from_numpy(rng.randn(b, n, k, k, d).astype(np.float32)).to(
-        cuda, dtype)
+    RoI order vs the plain contraction, 1e-5 in f32; bf16 outputs within
+    one bf16 ulp of the largest (both round an f32 sum once)."""
+    b, h, w, k, d, n = shape
+    maps, rois, bounds = _pool_case(shape, dtype, cuda, 2)
+    maps.requires_grad_()
+    go, ghat = _pool_ghat(shape, bounds, cuda, 3, dtype)
     before = tpsroi.psroi_bwd_cuda.launches
     tpsroi.psroi_pool_batched_direct(maps, rois, 1 / 16, k).backward(go)
     torch.cuda.synchronize()
     assert tpsroi.psroi_bwd_cuda.launches == before + 1
-    bounds = tpsroi.roi_bounds(rois, 1 / 16, k, h, w)
-    area = tpsroi.bin_areas(*bounds)[..., None]
-    ghat = torch.where(area > 0, go.float() / area.clamp(min=1.0), 0.0)
-    want = tpsroi.psroi_bwd_plain(ghat, *bounds, h, w, dtype)
+    want = tpsroi.psroi_bwd_plain(ghat, *bounds, h, w, dtype).float()
     assert maps.grad.dtype == dtype and maps.grad.shape == maps.shape
-    tol = (dict(rtol=0, atol=1e-5) if dtype == torch.float32
-           else dict(rtol=8e-3, atol=1e-6))
-    torch.testing.assert_close(maps.grad.float(), want.float(), **tol)
+    top = want.abs().max().item()
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(
+        max(top, 1e-30))) - 7)
+    torch.testing.assert_close(maps.grad.float(), want, rtol=0, atol=atol)
+
+
+def test_psroi_bwd_kernel_is_deterministic(cuda):
+    """Each map-gradient element is summed by one thread in RoI order with
+    no atomics: two runs on the same inputs give the same bits, in both
+    dtypes, at a train step's largest call."""
+    shape = (2, 38, 68, 7, 31, 330)
+    _, _, bounds = _pool_case(shape, torch.float32, cuda, 4)
+    _, ghat = _pool_ghat(shape, bounds, cuda, 5)
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        runs = [tpsroi.psroi_bwd_cuda(ghat, *bounds, 38, 68, dtype)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0].view(bits), runs[1].view(bits))
 
 
 @pytest.mark.parametrize("b,h,w,k,d,n", [(2, 10, 14, 7, 9, 24),

@@ -9,6 +9,7 @@ Pallas kernels run in interpret mode, as dtt's own tests run them.
 import dataclasses
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -177,6 +178,76 @@ def test_correlation_matches_xla_and_pallas_mm(d, s):
     np.testing.assert_allclose(got, want_mm, rtol=0, atol=1e-5)
 
 
+# windows past the tensor-core band, which the port's CUDA-core bodies take:
+# more displacements than the band's 9 (d=10/s=2: 11) or a wider band
+# (d=16/s=4: 9 displacements, 32 + 16 columns)
+WIDE_WINDOWS = [(16, 4), (10, 2)]
+
+
+@pytest.mark.parametrize("d,s", WIDE_WINDOWS)
+def test_correlation_wide_windows_match_xla_and_pallas_mm(d, s):
+    """float32 at windows past the band: the port's plain forward against
+    dtt's ``correlation_xla`` and its Pallas ``correlation_pallas_mm``
+    (interpret mode), 1e-5 absolute on channel means of O(1) values."""
+    rng = np.random.RandomState(20 + d)
+    f1, f2 = (rng.randn(1, 20, 40, 16).astype(np.float32) for _ in range(2))
+    got = tcorr.correlation(_t(f1), _t(f2), d, s).numpy()
+    want_xla = np.asarray(correlation_xla(jnp.asarray(f1[0]),
+                                          jnp.asarray(f2[0]), d, s))[None]
+    want_mm = np.asarray(correlation_pallas_mm(jnp.asarray(f1[0]),
+                                               jnp.asarray(f2[0]), d, s))[None]
+    assert got.shape == (1, 20, 40, tcorr.num_corr_channels(d, s))
+    np.testing.assert_allclose(got, want_xla, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, want_mm, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,s", WIDE_WINDOWS)
+def test_correlation_wide_window_grads_match_pallas_mm_vjp(d, s):
+    """float32 at windows past the band: the port's plain backward against
+    jax.vjp of dtt's ``correlation_pallas_mm`` (its einsum AD), sums of up
+    to 121 products of O(1) values in another order (1e-5)."""
+    rng = np.random.RandomState(30 + d)
+    f1, f2 = (rng.randn(1, 20, 40, 16).astype(np.float32) for _ in range(2))
+    g = rng.randn(1, 20, 40, tcorr.num_corr_channels(d, s)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: correlation_pallas_mm(a, b, d, s),
+                     jnp.asarray(f1[0]), jnp.asarray(f2[0]))
+    want = vjp(jnp.asarray(g[0]))
+    got = tcorr.correlation_bwd_plain(_t(f1), _t(f2), _t(g), d, s)
+    for x, w_ in zip(got, want):
+        np.testing.assert_allclose(x[0].numpy(), np.asarray(w_), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,d,s,body", [
+    (torch.bfloat16, 8, 2, "tensor_cores"),    # the main path's window
+    (torch.bfloat16, 2, 1, "tensor_cores"),
+    (torch.bfloat16, 8, 1, "cuda_cores"),      # 17 displacements: past 9
+    (torch.bfloat16, 16, 4, "cuda_cores"),     # d past the band's 8
+    (torch.bfloat16, 10, 2, "cuda_cores"),
+    (torch.float32, 8, 2, "cuda_cores"),       # f32 keeps its 1e-5 sums
+    (torch.float32, 2, 1, "cuda_cores")])
+def test_correlation_body_routes_by_dtype_and_window(dtype, d, s, body):
+    """One rule picks the CUDA body of the forward and the backward: the
+    tensor-core band for bf16 windows of d <= 8 and at most 9
+    displacements per axis, the CUDA cores for the rest."""
+    assert tcorr.correlation_body(dtype, d, s) == body
+
+
+@pytest.mark.parametrize("d,s,match", [
+    (20, 2, None), (16, 4, None), (10, 2, None), (31, 2, None),
+    (33, 1, "67 displacements per axis.*at most 32"),
+    (62, 4, "323,648 bytes.*227 KB")])
+def test_correlation_window_limit_names_the_card(d, s, match):
+    """The CUDA-core forward refuses only what the card cannot hold: more
+    than 32 displacements per axis (a block of 32 x nd threads) or staged
+    f2 rows past a block's 227 KB of shared memory, and says which."""
+    limit = tcorr.window_limit(d, s)
+    if match is None:
+        assert limit is None
+    else:
+        assert re.search(match, limit), limit
+
+
 def test_correlation_bf16_matches_pallas_mm():
     """bfloat16 in and out, f32 sums in both: the results differ by the
     final rounding to bf16, one bf16 ulp of values below 1 (4e-3)."""
@@ -192,6 +263,10 @@ def test_correlation_bf16_matches_pallas_mm():
 
 
 # ------------------------------------------------------------------ PSRoI
+
+# the main path's D (fused maps 43; cls 31, bbox 8, track 4) at k = 7 and 3
+POOL_KD = [(k, d) for k in (7, 3) for d in (43, 31, 8, 4)]
+
 
 def _psroi_case(rng, b=2, h=10, w=14, k=7, d=43, n=16):
     maps = rng.randn(b, h, w, k * k * d).astype(np.float32)
@@ -220,20 +295,21 @@ def test_roi_bounds_match():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
 
 
-def test_psroi_direct_matches_pallas_f32():
+@pytest.mark.parametrize("k,d", POOL_KD)
+def test_psroi_direct_matches_pallas_f32(k, d):
     """float32: same sums of the same values, another order (1e-5)."""
-    maps, rois = _psroi_case(np.random.RandomState(1))
-    got = tpsroi.psroi_pool_batched_direct(_t(maps), _t(rois), 1 / 16, 7)
+    maps, rois = _psroi_case(np.random.RandomState(1), k=k, d=d)
+    got = tpsroi.psroi_pool_batched_direct(_t(maps), _t(rois), 1 / 16, k)
     want = psroi_pool_batched_direct(jnp.asarray(maps),
-                                            jnp.asarray(rois), 1 / 16, 7)
-    assert got.shape == (2, 16, 7, 7, 43)
+                                            jnp.asarray(rois), 1 / 16, k)
+    assert got.shape == (2, 16, k, k, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
     assert (got[:, 3] == 0).all()                     # bins past the map
     # Caffe channel order c = (d*k + ph)*k + pw vs bin-major here
     h, w = maps.shape[1:3]
-    maps_caffe = maps[0].reshape(h, w, 49, 43).transpose(3, 2, 0, 1)
-    caffe = psroi_pool_caffe(maps_caffe.reshape(-1, h, w), rois[0], 1 / 16, 7)
+    maps_caffe = maps[0].reshape(h, w, k * k, d).transpose(3, 2, 0, 1)
+    caffe = psroi_pool_caffe(maps_caffe.reshape(-1, h, w), rois[0], 1 / 16, k)
     caffe = caffe.transpose(0, 2, 3, 1)
     np.testing.assert_allclose(got[0].numpy(), caffe, rtol=0, atol=1e-5)
 
@@ -301,31 +377,32 @@ def test_correlation_grad_matches_pallas_mm_vjp_bf16(d, s):
                                    atol=2e-2 * np.abs(w_).max())
 
 
-def _pool_grads(maps, rois, g):
+def _pool_grads(maps, rois, g, k=7):
     """dtt's training pool VJP (Pallas backward, interpret mode) and the
     port's, through autograd, for the same cotangent."""
     jdtype = jnp.bfloat16 if maps.dtype == torch.bfloat16 else jnp.float32
     jmaps = jnp.asarray(maps.float().numpy(), jdtype)
     _, vjp = jax.vjp(lambda f: psroi_pool_batched_direct_ad(
-        f, jnp.asarray(rois), 1 / 16, 7), jmaps)
+        f, jnp.asarray(rois), 1 / 16, k), jmaps)
     (want,) = vjp(jnp.asarray(g.float().numpy(), jmaps.dtype))
     m = maps.clone().requires_grad_()
-    tpsroi.psroi_pool_batched_direct(m, _t(rois), 1 / 16, 7).backward(g)
+    tpsroi.psroi_pool_batched_direct(m, _t(rois), 1 / 16, k).backward(g)
     return m.grad, want
 
 
-def test_psroi_direct_grad_matches_pallas_f32():
+@pytest.mark.parametrize("k,d", POOL_KD)
+def test_psroi_direct_grad_matches_pallas_f32(k, d):
     """float32: each map gradient is a sum of ghat over the bins holding
     the pixel, in another order (1e-5). Half-integer, degenerate, off-map
     and whole-map RoIs."""
     rng = np.random.RandomState(5)
-    maps, rois = _psroi_case(rng, d=8)
-    g = _cotangent(rng, (2, 16, 7, 7, 8))
-    got, want = _pool_grads(_t(maps), rois, g)
+    maps, rois = _psroi_case(rng, k=k, d=d)
+    g = _cotangent(rng, (2, 16, k, k, d))
+    got, want = _pool_grads(_t(maps), rois, g, k)
     assert got.dtype == torch.float32 and got.shape == maps.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
-    hs, he, ws, we = tpsroi.roi_bounds(_t(rois), 1 / 16, 7, 10, 14)
+    hs, he, ws, we = tpsroi.roi_bounds(_t(rois), 1 / 16, k, 10, 14)
     area = tpsroi.bin_areas(hs, he, ws, we)[..., None]
     ghat = torch.where(area > 0, g / area.clamp(min=1.0), 0.0)
     plain = tpsroi.psroi_bwd_plain(ghat, hs, he, ws, we, 10, 14,
