@@ -16,7 +16,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    SAT pools at one frame and both correlation forwards at one pair on the
    single-frame path), at the shapes that path gives it: every call of one
    video chunk, one train step, one pair batch or one frame against its
-   plain PyTorch version (stated tolerance), and CUDA-event times of those
+   plain PyTorch version (stated tolerance; the SAT pools bit for bit, in
+   every mode, and at one frame as one grouped launch of the three tables
+   and as three single launches), and CUDA-event times of those
    calls through the kernel, the plain version and, where one exists, one
    PyTorch call computing the same function, beside the least time the
    card could take; the channel-split correlation also beside the unsplit
@@ -35,7 +37,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    by ``from_jax_params``, and ``evaluate_snippet_video`` over a uint8
    snippet of several chunks, with its launch counts and the stage split
    of a video chunk (its pool stage split again into cast, bounds, kernel,
-   division and mean) and of a pair batch;
+   division and mean) and of a pair batch (its SAT pool stage split into
+   bounds, SAT build, kernel and mean);
 6. the training path: ``Config()`` at full width, the same weights,
    ``create_train_state``/``make_train_step`` on synthetic uint8 pairs:
    one warm-up step and several timed ones, its launch counts (read from
@@ -50,9 +53,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    interpolation + NMS and ``eval_detections``;
 8. the single-frame path: ``make_single_frame_step`` at full width on the
    same weights, one warm-up and several timed uint8 frames with a stage
-   split, then on the last frame ``rfcn_head`` under every ``impl`` and
-   ``correlation`` under both kernel forms at one pair's three scales,
-   each checked, its launches counted and timed.
+   split, then on the last frame ``rfcn_head`` under every ``impl`` (one
+   SAT kernel launch a call for both maps under ``pallas_mm`` and
+   ``pallas``) and ``correlation`` under both kernel forms at one pair's
+   three scales, each checked, its launches counted and timed.
 
 It prints a JSON line of the kernels' numbers before the last line, one
 entry per kernel and path, each with the launches of that path's run, and
@@ -111,11 +115,6 @@ SNIPPET_FRAMES = 40          # 3 chunks: 16 + 16 + 8 pairs
 CORR_RTOL, CORR_ATOL = 2.0 ** -7, 1e-5
 PSROI_TOL = 1e-3             # f32 sums of the same bf16 values, other order
 PAIR_BATCH = 4               # pairs per batch of the tau-strided pair step
-# SAT bin sums, kernel vs plain on one table: the same two f32 differences
-# in the same order, so 0 is expected; 1e-6 of the largest |sum| would
-# still flag a wrong corner or a reordered difference, which move a sum
-# by the SAT's own magnitude
-PSROI_MM_REL_TOL = 1e-6
 BWD_REL_TOL = 8e-3           # bf16 gradients: one bf16 ulp of the largest
 TRAIN_STEPS = 6              # timed full-width train steps (after 1 warm-up)
 TRAIN_REF_LOSS_TOL = 1e-4    # tiny f32 train step, card vs CPU, losses
@@ -130,10 +129,6 @@ TRAIN_REF_GRAD_REL = 1e-4
 TRAIN_REF_PARAM_TOL = (2e-8, 2.5e-7)
 PROFILE_STEPS = 3            # full-width train steps under torch.profiler
 FRAME_STEPS = 8              # timed full-width single frames (after 1 warm-up)
-# SAT bin means, kernel vs plain on one table: the same corner order and
-# division, so 0 is expected; 1e-6 of the largest |mean| guards the same
-# faults as PSROI_MM_REL_TOL
-PSROI_MEAN_REL_TOL = 1e-6
 # correlation windows past the tensor-core band that dtt takes
 WIDE_WINDOWS = ((16, 4), (10, 2))
 KERNELS = {"correlation": corr_ops.correlation_cuda,
@@ -516,9 +511,12 @@ def phase_psroi_bwd(cfg: Config, seed: int) -> dict:
 
 
 def phase_psroi_mm(cfg: Config, seed: int) -> dict:
-    """The SAT pool's bin sums of one pair batch (the fused maps of its
-    PAIR_BATCH first frames at the test proposals, float32) against the
-    plain version; the SAT build is timed on its own."""
+    """Kernel 4 (``dtt_psroi_sat``) at one pair batch's shapes (the fused
+    maps of its PAIR_BATCH first frames at the test proposals, float32):
+    the bin sums against the plain version and the mean mode that the pair
+    path runs against ``bin_means`` of the plain sums, both bit for bit;
+    times of both, of the sums and the division as two steps (the pool
+    before the mean mode) and of the SAT build."""
     m = cfg.model
     k = m.roi.ps_grid
     hh, ww = cfg.input.canvas_height, cfg.input.canvas_width
@@ -532,39 +530,61 @@ def phase_psroi_mm(cfg: Config, seed: int) -> dict:
     bd = [x.contiguous() for x in psroi_ops.roi_bounds(
         draw_rois(np.random.RandomState(seed), b, n, hh, ww),
         1.0 / m.anchors.feat_stride, k, h, w)]
-    got = psroi_ops.psroi_mm_sums_cuda(table, *bd)
+    sums = psroi_ops.psroi_mm_sums_cuda(table, *bd)
+    means = psroi_ops.psroi_mm_means_cuda(table, *bd)
     torch.cuda.synchronize()
     want = psroi_ops.psroi_mm_sums_plain(table, *bd)
-    err = (got - want).abs().max().item()
-    tol = PSROI_MM_REL_TOL * want.abs().max().item()
-    if not err <= tol:
-        raise AssertionError(f"psroi SAT kernel vs plain (pair): max abs err "
-                             f"{err} > {tol}")
-    ms = time_ms(lambda: psroi_ops.psroi_mm_sums_cuda(table, *bd), iters=20)
-    plain_ms = time_ms(lambda: psroi_ops.psroi_mm_sums_plain(table, *bd),
+    err = max(exact_err(sums, want, "psroi_mm sums (pair)"),
+              exact_err(means, psroi_ops.bin_means(want, *bd),
+                        "psroi_mm mean mode (pair)"))
+    sums_ms = time_ms(lambda: psroi_ops.psroi_mm_sums_cuda(table, *bd),
+                      iters=20)
+    ms = time_ms(lambda: psroi_ops.psroi_mm_means_cuda(table, *bd), iters=20)
+    two_step_ms = time_ms(lambda: psroi_ops.bin_means(
+        psroi_ops.psroi_mm_sums_cuda(table, *bd), *bd), iters=20)
+    plain_ms = time_ms(lambda: psroi_ops.psroi_mm_means_plain(table, *bd),
                        iters=3, warmup=1)
     sat_ms = time_ms(lambda: psroi_ops.sat(maps), iters=20)
     r, c = psroi_ops.row_col_indicators(*bd, h, w)
     s6 = table.reshape(b, h + 1, w + 1, k, k, d)
     library = lambda: torch.einsum("bnpy,byxpqd,bnqx->bnpqd", r, s6, c)
-    lib_err = (library() - got).abs().max().item()
+    lib_err = (library() - sums).abs().max().item()
     library_ms = time_ms(library, iters=3, warmup=1)
     # bytes this run's bins need: each distinct SAT corner of a non-empty
-    # bin read once (D channels), the sums written once, the bounds read
+    # bin read once (D channels), the means written once, the bounds read;
+    # 3 subtractions and a division an output
     bound_ms, bound_by, nbytes, corners = sat_bound(bd, b, h, w, k, d,
-                                                    got.numel(), 3)
+                                                    means.numel(), 4)
+    # the same in the whole 32-byte sectors the corner runs touch
+    sectors = sat_sector_bytes(bd, b, h, w, k, d)
+    sector_ms, _ = bound(nbytes - corners * d * 4 + sectors, 0)
     log(f"psroi_mm [pair]: SAT {tuple(table.shape)} f32, {n} RoIs, k={k}, "
-        f"D={d}: max_abs_err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms (f32, "
-        f"max abs diff {lib_err:.3g}), SAT build {sat_ms:.4f} ms, bound_us "
-        f"{bound_ms * 1e3:.1f} ({bound_by}, {nbytes / 1e6:.1f} MB: "
-        f"{corners} distinct corners of non-empty bins x {d} channels)")
+        f"D={d}: max_abs_err {err:.3g} (bit for bit), mean mode {ms:.4f} "
+        f"ms, bin sums {sums_ms:.4f} ms, bin sums + bin_means {two_step_ms:.4f}"
+        f" ms, plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms "
+        f"(f32 bin sums, max abs diff {lib_err:.3g}), SAT build "
+        f"{sat_ms:.4f} ms, bound_us {bound_ms * 1e3:.1f} ({bound_by}, "
+        f"{nbytes / 1e6:.1f} MB: {corners} distinct corners of non-empty "
+        f"bins x {d} channels), {bound_ms / ms:.1%} of the bound; in whole "
+        f"32-byte sectors: bound_us {sector_ms * 1e3:.1f} ({sectors / 1e6:.1f}"
+        f" MB of the table), {sector_ms / ms:.1%} of it")
     return {"name": "psroi_mm", "path": "pair", "route": "cuda",
             "source": "dtt_torch/ops/csrc/psroi.cu",
             "replaces": "dtt/ops/psroi.py:311",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def exact_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """max |got - want|; raises unless it is 0 (the SAT kernels repeat
+    their plain versions' operations in the same order)."""
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if err != 0.0 or got.shape != want.shape:
+        raise AssertionError(f"{what}: max abs err {err} against the plain "
+                             f"version, want 0 ({tuple(got.shape)} vs "
+                             f"{tuple(want.shape)})")
+    return err
 
 
 def sat_bound(bd: list, b: int, h: int, w: int, k: int, d: int,
@@ -586,13 +606,37 @@ def sat_bound(bd: list, b: int, h: int, w: int, k: int, d: int,
             corners)
 
 
+def sat_sector_bytes(bd: list, b: int, h: int, w: int, k: int,
+                     d: int) -> int:
+    """Distinct bytes of the (B, H+1, W+1, k*k*D) float32 table that the
+    corners of non-empty bins read, in whole 32-byte sectors: each
+    corner's run of D channels rounded out to its sectors, each sector
+    counted once."""
+    hs, he, ws, we = (x.long() for x in bd)
+    dev = hs.device
+    c = k * k * d
+    frame = torch.arange(b, device=dev)[:, None, None, None]
+    bins = torch.arange(k * k, device=dev).reshape(k, k)
+    full = psroi_ops.bin_areas(*bd) > 0                     # (B, N, k, k)
+    start = 4 * torch.cat([
+        (((frame * (h + 1) + y[..., :, None]) * (w + 1) + x[..., None, :]) * c
+         + bins * d)[full] for y in (hs, he) for x in (ws, we)])
+    first, last = start // 32, (start + 4 * d - 1) // 32
+    hit = torch.zeros(-(-b * (h + 1) * (w + 1) * c * 4 // 32),
+                      dtype=torch.bool, device=dev)
+    for i in range(int((last - first).max().item()) + 1 if len(start) else 0):
+        hit[(first + i)[first + i <= last]] = True
+    return int(hit.sum().item()) * 32
+
+
 def phase_frame_pools(cfg: Config, seed: int) -> list:
-    """Kernels 5 and 6 at one frame's shapes: the SAT bin sums
-    (``psroi_mm_sums_cuda`` at B=1, the per-frame ``pallas_mm`` pool) and
-    the SAT bin means (``psroi_sat_means_cuda``, the ``pallas`` pool) of
-    one frame's float32 cls, bbox and track maps at the test proposals,
-    each call against its plain version; times are for the three calls.
-    The SAT build is timed on its own."""
+    """Kernels 5 and 6 at one frame's shapes: ``dtt_psroi_sat`` (the
+    per-frame ``pallas_mm`` pool: its mean mode, and its bin sums) and
+    ``dtt_psroi_sat_mean`` (the ``pallas`` pool) on one frame's float32
+    cls, bbox and track tables at the test proposals, each form as one
+    grouped launch of the three tables and as three single launches, every
+    output bit for bit against its plain version. Times are for the three
+    tables; the SAT build is timed on its own."""
     m = cfg.model
     k = m.roi.ps_grid
     hh, ww = cfg.input.canvas_height, cfg.input.canvas_width
@@ -615,40 +659,42 @@ def phase_frame_pools(cfg: Config, seed: int) -> list:
     library = lambda: [torch.einsum("bnpy,byxpqd,bnqx->bnpqd", r, s6, c)
                        for r, c, s6 in lib_inputs]
     library_ms = time_ms(library, iters=3, warmup=1)
-    forms = (("psroi_mm", psroi_ops.psroi_mm_sums_cuda,
-              psroi_ops.psroi_mm_sums_plain, PSROI_MM_REL_TOL, 3,
-              "dtt/ops/psroi.py:226"),
-             ("psroi_sat_mean", psroi_ops.psroi_sat_means_cuda,
-              psroi_ops.psroi_sat_means_plain, PSROI_MEAN_REL_TOL, 4,
-              "dtt/ops/psroi.py:586"))
+    group = psroi_ops.psroi_sat_group_cuda
+    run = {"grouped": lambda form: group(form, calls),
+           "single": lambda form: [group(form, [call])[0] for call in calls]}
+    forms = (("psroi_mm", ("mm_means", "mm_sums"), "dtt/ops/psroi.py:226"),
+             ("psroi_sat_mean", ("sat_means",), "dtt/ops/psroi.py:586"))
     entries = []
-    for name, kernel, plain, rel_tol, ops, replaces in forms:
-        err = 0.0
-        for t, bd in calls:
-            got = kernel(t, *bd)
-            torch.cuda.synchronize()
-            want = plain(t, *bd)
-            e = (got - want).abs().max().item()
-            tol = rel_tol * want.abs().max().item()
-            if not e <= tol:
-                raise AssertionError(f"{name} kernel vs plain (frame, "
-                                     f"{tuple(t.shape)}): max abs err {e} > "
-                                     f"{tol}")
-            err = max(err, e)
-        ms = time_ms(lambda: [kernel(t, *bd) for t, bd in calls], iters=20)
-        plain_ms = time_ms(lambda: [plain(t, *bd) for t, bd in calls],
-                           iters=3, warmup=1)
-        bounds = [sat_bound(bd, 1, h, w, k, d, n * k * k * d, ops)
+    for name, modes, replaces in forms:
+        err, times = 0.0, {}
+        for form in modes:              # the first is what the path runs
+            plain = psroi_ops.SAT_PLAIN[form]
+            wants = [plain(t, *bd) for t, bd in calls]
+            for how, fn in run.items():
+                outs = fn(form)
+                torch.cuda.synchronize()
+                err = max([err] + [exact_err(o, wt, f"{name} {form} {how} "
+                                                    f"(frame, D={d})")
+                                   for o, wt, d in zip(outs, wants, ds)])
+                times[form, how] = time_ms(lambda: fn(form), iters=20)
+            if form == modes[0]:
+                plain_ms = time_ms(lambda: [plain(t, *bd) for t, bd in calls],
+                                   iters=3, warmup=1)
+        ms = times[modes[0], "grouped"]
+        bounds = [sat_bound(bd, 1, h, w, k, d, n * k * k * d, 4)
                   for (_, bd), d in zip(calls, ds)]
         nbytes = sum(x[2] for x in bounds)
-        bound_ms, bound_by = bound(nbytes, sum(ops * n * k * k * d
-                                               for d in ds), F32_OPS_PER_S)
+        bound_ms, bound_by = bound(nbytes, sum(4 * n * k * k * d for d in ds),
+                                   F32_OPS_PER_S)
         log(f"{name} [frame]: SAT {[tuple(t.shape) for t, _ in calls]} f32, "
-            f"{n} RoIs, k={k}, D={ds}: max_abs_err {err:.3g} (tol {rel_tol} "
-            f"of the largest), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library einsum {library_ms:.4f} ms (f32 bin sums), bound_us "
-            f"{bound_ms * 1e3:.2f} ({bound_by}, {nbytes / 1e6:.2f} MB: "
-            f"{[x[3] for x in bounds]} distinct corners of non-empty bins)")
+            f"{n} RoIs, k={k}, D={ds}: max_abs_err {err:.3g} (bit for bit), "
+            + ", ".join(f"{form} {how} {t:.4f} ms"
+                        for (form, how), t in times.items())
+            + f" (grouped: one launch for the three tables), plain "
+            f"{plain_ms:.4f} ms, library einsum {library_ms:.4f} ms (f32 bin "
+            f"sums), bound_us {bound_ms * 1e3:.2f} ({bound_by}, "
+            f"{nbytes / 1e6:.2f} MB: {[x[3] for x in bounds]} distinct "
+            f"corners of non-empty bins), {bound_ms / ms:.1%} of the bound")
         entries.append({"name": name, "path": "frame", "route": "cuda",
                         "source": "dtt_torch/ops/csrc/psroi.cu",
                         "replaces": replaces, "max_abs_err": err, "ms": ms,
@@ -972,6 +1018,8 @@ def phase_stages(cfg: Config, model, frames: np.ndarray, path: str) -> None:
     log_stages(what, times)
     if path == "video":
         phase_pool_split(mcfg, fused, props.rois, pooled)
+    else:
+        phase_pair_pool_split(mcfg, fused, props.rois, pooled)
 
 
 def phase_pool_split(mcfg, fused: torch.Tensor, rois: torch.Tensor,
@@ -1003,6 +1051,33 @@ def phase_pool_split(mcfg, fused: torch.Tensor, rois: torch.Tensor,
     if not torch.equal(votes, pooled):
         raise AssertionError("the split pool stage differs from the stage")
     log_stages("the video pool stage, split", times)
+
+
+def phase_pair_pool_split(mcfg, fused: torch.Tensor, rois: torch.Tensor,
+                          pooled: torch.Tensor) -> None:
+    """The pair batch's "pool" stage split into its steps as
+    ``pool_vote_fused`` runs them for the SAT pool (``pallas_mm``):
+    ``roi_bounds``, the SAT build, the kernel (bin sums over the areas in
+    one launch) and the mean over the bins; the result must equal the
+    stage's."""
+    k = mcfg.roi.ps_grid
+    _, h, w, _ = fused.shape
+    scale = 1.0 / mcfg.anchors.feat_stride
+    stage, times = stage_timer()
+    with torch.inference_mode():
+        for _ in range(2):                  # report the second pass
+            bd = stage("roi_bounds", lambda: [t.contiguous() for t in
+                                              psroi_ops.roi_bounds(
+                                                  rois, scale, k, h, w)])
+            table = stage("sat_build",
+                          lambda: psroi_ops.sat(fused).contiguous())
+            means = stage("kernel", lambda: psroi_ops.psroi_mm_means(
+                table, *bd).to(fused.dtype))
+            votes = stage("mean", lambda: means.mean(dim=(2, 3)))
+    if not torch.equal(votes, pooled):
+        raise AssertionError("the split pair pool stage differs from the "
+                             "stage")
+    log_stages("the pair-batch pool stage, split", times)
 
 
 def phase_main_path(cfg: Config, card: str, tree: dict) -> dict:
@@ -1429,10 +1504,22 @@ def phase_frame_path(cfg: Config, tree: dict, card: str) -> dict:
         want = heads["xla"]()
         sat_atol = [8 * np.finfo(np.float32).eps
                     * psroi_ops.sat(x[None]).abs().max().item() for x in maps]
+        # SAT kernel launches (dtt_psroi_sat, dtt_psroi_sat_mean) that one
+        # rfcn_head call makes: one for both maps under the kernel forms
+        sat_launches = lambda: (psroi_ops.psroi_mm_sums_cuda.launches,
+                                psroi_ops.psroi_sat_means_cuda.launches)
+        one_call = {"xla": (0, 0), "mm": (0, 0), "pallas_mm": (1, 0),
+                    "pallas": (0, 1)}
         errs = {}
         for impl, fn in heads.items():
+            before = sat_launches()
             got = fn()
             torch.cuda.synchronize()
+            made = tuple(a - b for a, b in zip(sat_launches(), before))
+            if made != one_call[impl]:
+                raise AssertionError(f"rfcn_head({impl}) made SAT launches "
+                                     f"(dtt_psroi_sat, dtt_psroi_sat_mean) "
+                                     f"{made}, want {one_call[impl]}")
             errs[impl] = [(g - w_).abs().max().item()
                           for g, w_ in zip(got, want)]
             tol = [0.0] * 2 if impl in ("xla", "pallas") else [
@@ -1470,7 +1557,7 @@ def phase_frame_path(cfg: Config, tree: dict, card: str) -> dict:
         f"D={maps[1].shape[-1] // m.roi.ps_grid ** 2}, "
         f"{props.rois.shape[0]} RoIs) by impl: ms "
         f"{ {k: round(v, 4) for k, v in head_ms.items()} }, max abs err vs "
-        f"xla (cls, bbox) {errs}")
+        f"xla (cls, bbox) {errs}; SAT kernel launches a call {one_call}")
     log(f"frame correlation at one pair x 3 scales "
         f"{[tuple(a.shape) for a, _ in corr_cases]} by impl: ms "
         f"{ {k: round(v, 4) for k, v in corr_ms.items()} }, max abs err vs "

@@ -45,7 +45,8 @@ from dtt_torch.ops.correlation import correlation
 from dtt_torch.ops.nms import multiclass_nms
 from dtt_torch.ops.psroi import (psroi_pool, psroi_pool_batched,
                                  psroi_pool_batched_direct,
-                                 psroi_pool_batched_pallas_mm)
+                                 psroi_pool_batched_pallas_mm,
+                                 psroi_pool_maps)
 
 _BACKBONES = {
     "resnet101": (3, 4, 23, 3),
@@ -370,9 +371,12 @@ def pool_vote(cfg: ModelConfig, maps: torch.Tensor, rois: torch.Tensor,
 def rfcn_head(cfg: ModelConfig, cls_maps: torch.Tensor,
               bbox_maps: torch.Tensor, rois: torch.Tensor,
               spatial_scale: float, impl: str = "auto"):
-    """One frame's per-RoI class scores (N, C) and box deltas (N, 4*nb)."""
-    return (pool_vote(cfg, cls_maps, rois, spatial_scale, impl),
-            pool_vote(cfg, bbox_maps, rois, spatial_scale, impl))
+    """One frame's per-RoI class scores (N, C) and box deltas (N, 4*nb):
+    ``pool_vote`` of each map, the two pools in one kernel launch under
+    ``"pallas_mm"`` and ``"pallas"`` (``psroi_pool_maps``)."""
+    require_psroi(cfg)
+    return tuple(p.mean(dim=(1, 2)) for p in psroi_pool_maps(
+        (cls_maps, bbox_maps), rois, spatial_scale, cfg.roi.ps_grid, impl))
 
 
 def detect_frame(cfg: ModelConfig, feats: FrameFeats, anchors: torch.Tensor,

@@ -450,12 +450,14 @@ int launch_bwd(const float* ghat, const int* hs, const int* he, const int* ws,
   return (int)cudaGetLastError();
 }
 
-// SAT bin sums (dtt_psroi_sat). Replaces the TPU kernel _psroi_mm_kernel_b
-// (dtt/ops/psroi.py), which contracted one-hot +-1 row and column
-// difference indicators against each (frame, bin) slab of the summed-area
-// table on the MXU at HIGHEST precision: dense matmul work over almost all
-// zeros, done to avoid the TPU's slow gathers. On Hopper the same value is
-// four loads per output:
+// SAT pools (dtt_psroi_sat, dtt_psroi_sat_mean). dtt_psroi_sat replaces
+// the TPU kernel _psroi_mm_kernel_b (dtt/ops/psroi.py:311), which
+// contracted one-hot +-1 row and column difference indicators against each
+// (frame, bin) slab of the summed-area table on the MXU at HIGHEST
+// precision (dense matmul work over almost all zeros, done to avoid the
+// TPU's slow gathers), and, at B = 1, the per-frame _psroi_mm_kernel
+// (dtt/ops/psroi.py:226), the same body without the frame axis. On Hopper
+// the same value is four loads per output:
 //
 //   sums[b, n, ph, pw, d] = (S[he, we] - S[hs, we]) - (S[he, ws] - S[hs, ws])
 //
@@ -463,106 +465,233 @@ int launch_bwd(const float* ghat, const int* hs, const int* he, const int* ws,
 // indicator form evaluates (rows give t1[x] = S[he, x] - S[hs, x], then the
 // columns t1[we] - t1[ws]). A one-hot contraction adds only exact zeros
 // beside its two nonzero terms, so the plain einsum form gives the same
-// bits on the same table. The subtractions are __fsub_rn: nothing may
-// contract or reorder them (no --use_fast_math). The wrapper divides by the
-// area and zeroes empty bins. The per-frame TPU kernel _psroi_mm_kernel
-// (dtt/ops/psroi.py) has the same body without the frame axis; the port
-// launches this entry at B=1 for it.
+// bits on the same table. Its mean mode divides each sum by the bin's area
+// with __fdiv_rn, empty bins 0: the bits of the division the pool does
+// outside the TPU kernel (bin_means).
 //
-// SAT bin means (dtt_psroi_sat_mean). Replaces the TPU kernel _psroi_kernel
-// (dtt/ops/psroi.py), which kept one bin's SAT slab in VMEM (bin-major, for
-// Mosaic's block rules), read the RoIs' bounds from SMEM and walked the
-// RoIs one by one: the 4-corner difference ((S11 - S01) - S10) + S00,
-// divided by the area inside the kernel, empty bins 0. Here the index is
-// computed straight off the NHWC table and every output is its own
-// thread; the corners are combined in that order with __fsub_rn/__fadd_rn
-// and divided with __fdiv_rn, so the result equals the plain gather form
-// to the bit.
+// dtt_psroi_sat_mean replaces the TPU kernel _psroi_kernel
+// (dtt/ops/psroi.py:586), which kept one bin's SAT slab in VMEM, read the
+// RoIs' bounds from SMEM and walked the RoIs one by one: the corners
+// combined as ((S11 - S01) - S10) + S00, divided by the area inside the
+// kernel, empty bins 0. Here with __fsub_rn/__fadd_rn and __fdiv_rn, so
+// the result equals the plain gather form to the bit. Nothing may contract
+// or reorder these operations (no --use_fast_math).
 //
 // Bound: 4 f32 corner reads and one f32 write per output, so the memory
-// rate bounds both. A pair batch (4 frames x 300 RoIs x 2107 channels) needs
-// ~29 MB of distinct table corners and writes 10 MB of sums: ~12 us at
-// 3.35 TB/s; on an H100 80GB HBM3 at 700 W the sums take 0.028-0.051 ms
-// (chip_smoke.py). One thread per output, channel fastest: for a fixed RoI
-// and bin a warp reads 32 consecutive channels of each corner pixel, so
-// the corner loads coalesce.
-template <bool kMean>
-__global__ void psroi_sat_kernel(const float* __restrict__ sat,
-                                 const int* __restrict__ hs,
-                                 const int* __restrict__ he,
-                                 const int* __restrict__ ws,
-                                 const int* __restrict__ we,
-                                 float* __restrict__ out, int64_t total,
-                                 int N, int H, int W, int k, int D) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int ckk = k * k * D;
-  const int c = (int)(i % ckk);          // channel (ph*k + pw)*D + d
-  const int64_t bn = i / ckk;            // b*N + n
-  const int64_t b = bn / N;
-  const int bin = c / D;
-  const int ph = bin / k;
-  const int pw = bin % k;
-  // bounds from roi_bounds lie in [0, H] x [0, W]; clamp anyway so a bad
-  // bound can never read outside the table
-  const int y0 = min(max(hs[bn * k + ph], 0), H);
-  const int y1 = min(max(he[bn * k + ph], 0), H);
-  const int x0 = min(max(ws[bn * k + pw], 0), W);
-  const int x1 = min(max(we[bn * k + pw], 0), W);
-  const int64_t row = (int64_t)(W + 1) * ckk;
-  const float* s = sat + b * (H + 1) * row + c;
-  const float s11 = __ldg(s + y1 * row + (int64_t)x1 * ckk);
-  const float s01 = __ldg(s + y0 * row + (int64_t)x1 * ckk);
-  const float s10 = __ldg(s + y1 * row + (int64_t)x0 * ckk);
-  const float s00 = __ldg(s + y0 * row + (int64_t)x0 * ckk);
-  if (kMean) {
-    const float sum = __fadd_rn(__fsub_rn(__fsub_rn(s11, s01), s10), s00);
-    const int area = max(y1 - y0, 0) * max(x1 - x0, 0);
-    out[i] = area > 0 ? __fdiv_rn(sum, fmaxf((float)area, 1.f)) : 0.f;
-  } else {
-    out[i] = __fsub_rn(__fsub_rn(s11, s01), __fsub_rn(s10, s00));
+// rate bounds both: a pair batch (4 frames x 300 RoIs x 2107 channels)
+// reads ~29 MB of distinct corners off a 90.7 MB table (past the 50 MB
+// L2) and writes 10 MB; one frame's three maps (D = 31, 8, 4) ~10 MB all
+// told. What kept the first kernel (a thread per output) from that rate:
+// three 64-bit and three 32-bit divisions and four bound loads per output,
+// scalar loads where D allows 16 bytes, and at one frame the host's time
+// per launch (a launch per map).
+// Design: a block per (frame, R RoIs) of one member of a group of up to 4
+// (table, bounds, output) members, so one launch pools all of a frame's
+// maps; R RoIs fill a block's 256 threads where one RoI's k*k*D/V vectors
+// do not. The block first turns each of its R*k*k bins' clamped bounds into
+// the four corner offsets (the bin's channel base included) and its area,
+// in shared memory; then thread j of the block's contiguous run of outputs
+// is the bin j / (D/V) (one multiply and shift) and the channel vector
+// j % (D/V), V = 4, 2 or 1 channels as D and the pointers allow (D = 8 and
+// 4 read 16 bytes a corner). Offsets inside a frame are 32-bit; a thread
+// issues the 4 corner loads of 4/V outputs (16 floats) before its first
+// subtraction, so the V = 1 and V = 4 bodies of the one kernel need alike
+// few registers (40) and 6 blocks fit an SM.
+constexpr int kSatMaxMembers = 4;
+constexpr int kSatMaxBins = 1024;  // bins a block stages: R*k*k (k <= 32)
+constexpr int kSatThreads = 256;
+constexpr int kSatLoads = 16;      // floats a thread loads at once
+constexpr int kSatMinBlocks = 6;   // resident blocks an SM (42 registers)
+constexpr int kSatArgs = 12;       // int64 arguments per member
+
+enum SatMode { kSums = 0, kSumMeans = 1, kGatherMeans = 2 };
+
+struct SatMember {
+  const float* sat;   // (B, H+1, W+1, k*k*D)
+  const int* hs;      // (B, N, k) each
+  const int* he;
+  const int* ws;
+  const int* we;
+  float* out;         // (B, N, k, k, D)
+  int N, H, W, k, D;
+  int V;              // channels a thread loads at once
+  int R;              // RoIs a block
+  int groups;         // blocks a frame: ceil(N / R)
+  int first;          // the member's first block
+  Div per_vec;        // j -> bin: division by D / V
+  Div per_frame;      // block -> frame: division by groups
+};
+
+struct SatGroup {
+  SatMember m[kSatMaxMembers];
+  int count;
+  int bins;           // the most bins a block stages: R*k*k
+};
+
+template <int kMode, int V>
+__device__ __forceinline__ void sat_block(const SatMember& m, int blk,
+                                          int bins) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  int4* s_off = reinterpret_cast<int4*>(smem_raw);             // [bins]
+  float* s_area = reinterpret_cast<float*>(smem_raw + 16 * bins);
+  const int k = m.k, kk = k * k, D = m.D, H = m.H, W = m.W;
+  const int W1 = W + 1, C = kk * D, dv = D / V;
+  const int frame = blk / m.per_frame, n0 = (blk - frame * m.groups) * m.R;
+  const int nr = min(m.R, m.N - n0);
+  const int64_t bn0 = (int64_t)frame * m.N + n0;
+  // 1. each bin's corner offsets S11, S01, S10, S00 and area; bounds from
+  // roi_bounds lie in [0, H] x [0, W]: clamp anyway so a bad bound can
+  // never read outside the table
+  for (int t = threadIdx.x; t < nr * kk; t += kSatThreads) {
+    const int r = t / kk, bin = t - r * kk;
+    const int ph = bin / k, pw = bin - ph * k;
+    const int64_t rb = (bn0 + r) * k;
+    const int y0 = min(max(__ldg(m.hs + rb + ph), 0), H);
+    const int y1 = min(max(__ldg(m.he + rb + ph), 0), H);
+    const int x0 = min(max(__ldg(m.ws + rb + pw), 0), W);
+    const int x1 = min(max(__ldg(m.we + rb + pw), 0), W);
+    const int c = bin * D;
+    s_off[t] = make_int4((y1 * W1 + x1) * C + c, (y0 * W1 + x1) * C + c,
+                         (y1 * W1 + x0) * C + c, (y0 * W1 + x0) * C + c);
+    if (kMode != kSums) s_area[t] = (float)(max(y1 - y0, 0) * max(x1 - x0, 0));
+  }
+  __syncthreads();
+  // 2. the block's nr*C outputs are one contiguous run; V channels a thread
+  const float* sat = m.sat + (int64_t)frame * (H + 1) * W1 * C;
+  float* out = m.out + bn0 * C;
+  const int total = nr * kk * dv;
+  constexpr int U = kSatLoads / (4 * V);   // outputs a thread loads at once
+  for (int j0 = threadIdx.x; j0 < total; j0 += U * kSatThreads) {
+    float v[U][4][V];
+    int bin[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * kSatThreads;
+      bin[u] = 0;
+      if (j < total) {
+        const int t = j / m.per_vec;
+        const int4 o = s_off[t];
+        const float* p = sat + (j - t * dv) * V;
+        load_vec<V>(p + o.x, v[u][0]);
+        load_vec<V>(p + o.y, v[u][1]);
+        load_vec<V>(p + o.z, v[u][2]);
+        load_vec<V>(p + o.w, v[u][3]);
+        bin[u] = t;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * kSatThreads;
+      if (j >= total) break;
+      float r[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float s11 = v[u][0][e], s01 = v[u][1][e];
+        const float s10 = v[u][2][e], s00 = v[u][3][e];
+        r[e] = kMode == kGatherMeans
+                   ? __fadd_rn(__fsub_rn(__fsub_rn(s11, s01), s10), s00)
+                   : __fsub_rn(__fsub_rn(s11, s01), __fsub_rn(s10, s00));
+      }
+      if (kMode != kSums) {
+        const float area = s_area[bin[u]];
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          r[e] = area > 0.f ? __fdiv_rn(r[e], area) : 0.f;
+      }
+      store_vec<V>(out + (int64_t)j * V, r);
+    }
   }
 }
 
-template <bool kMean>
-int launch_sat(const void* sat, const void* hs, const void* he,
-               const void* ws, const void* we, void* out, int B, int N,
-               int H, int W, int k, int D, int device, void* stream) {
+// Block b belongs to the last member whose first block is <= b; the
+// group's members sit in kernel parameter space (uniform reads).
+template <int kMode>
+__global__ void __launch_bounds__(kSatThreads, kSatMinBlocks)
+psroi_sat_kernel(const __grid_constant__ SatGroup g) {
+  int i = 0;
+  while (i + 1 < g.count && (int)blockIdx.x >= g.m[i + 1].first) ++i;
+  const SatMember& m = g.m[i];
+  const int blk = (int)blockIdx.x - m.first;
+  switch (m.V) {
+    case 4: sat_block<kMode, 4>(m, blk, g.bins); break;
+    case 2: sat_block<kMode, 2>(m, blk, g.bins); break;
+    default: sat_block<kMode, 1>(m, blk, g.bins); break;
+  }
+}
+
+// Channels a thread reads with one load: 4, 2 or 1 floats, the widest that
+// divides D and to which the table and the output are aligned, so every
+// bin's run of D channels starts aligned.
+int sat_vec_width(const void* sat, const void* out, int D) {
+  for (int v = 4; v > 1; v >>= 1)
+    if (D % v == 0 && (uintptr_t)sat % (4 * v) == 0
+        && (uintptr_t)out % (4 * v) == 0)
+      return v;
+  return 1;
+}
+
+// args: per member sat, hs, he, ws, we, out (pointers), B, N, H, W, k, D.
+template <int kMode>
+int launch_sat(const int64_t* args, int count, int device, void* stream) {
+  if (count < 1 || count > kSatMaxMembers) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int64_t total = (int64_t)B * N * k * k * D;
-  if (total == 0) return (int)cudaSuccess;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  psroi_sat_kernel<kMean><<<(unsigned)blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sat), static_cast<const int*>(hs),
-      static_cast<const int*>(he), static_cast<const int*>(ws),
-      static_cast<const int*>(we), static_cast<float*>(out), total, N, H, W,
-      k, D);
+  SatGroup g{};
+  g.count = count;
+  int64_t blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    const int64_t* a = args + i * kSatArgs;
+    SatMember& m = g.m[i];
+    const int64_t B = a[6], N = a[7], H = a[8], W = a[9], k = a[10], D = a[11];
+    if (B < 0 || N < 0 || H < 0 || W < 0 || k < 1 || k * k > kSatMaxBins
+        || D < 1 || (H + 1) * (W + 1) * k * k * D >= ((int64_t)1 << 31))
+      return (int)cudaErrorInvalidValue;
+    m.sat = reinterpret_cast<const float*>(a[0]);
+    m.hs = reinterpret_cast<const int*>(a[1]);
+    m.he = reinterpret_cast<const int*>(a[2]);
+    m.ws = reinterpret_cast<const int*>(a[3]);
+    m.we = reinterpret_cast<const int*>(a[4]);
+    m.out = reinterpret_cast<float*>(a[5]);
+    m.N = (int)N; m.H = (int)H; m.W = (int)W; m.k = (int)k; m.D = (int)D;
+    m.V = sat_vec_width(m.sat, m.out, m.D);
+    const int per_roi = (int)(k * k) * (m.D / m.V);
+    m.R = (int)std::max<int64_t>(1, std::min<int64_t>(
+        std::min<int64_t>(kSatThreads / per_roi, kSatMaxBins / (k * k)), N));
+    m.groups = (int)((N + m.R - 1) / m.R);
+    m.first = (int)blocks;
+    m.per_vec = make_div(m.D / m.V);
+    m.per_frame = make_div(std::max(m.groups, 1));
+    g.bins = std::max(g.bins, m.R * m.k * m.k);
+    blocks += B * m.groups;
+    if (blocks >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  }
+  if (blocks == 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)g.bins * (kMode == kSums ? 16 : 20);
+  psroi_sat_kernel<kMode><<<(unsigned)blocks, kSatThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// sat: (B, H+1, W+1, k*k*D) float32 contiguous; hs/he/ws/we: (B, N, k)
-// int32; sums: (B, N, k, k, D) float32. Returns a cudaError_t (0 = launched).
-extern "C" int dtt_psroi_sat(const void* sat, const void* hs, const void* he,
-                             const void* ws, const void* we, void* sums,
-                             int B, int N, int H, int W, int k, int D,
+// args: `count` (1 to 4) members of 12 int64 each: the pointers sat
+// (B, H+1, W+1, k*k*D) float32, hs, he, ws, we (B, N, k) int32 and out
+// (B, N, k, k, D) float32, all contiguous, then B, N, H, W, k, D; k <= 32
+// and (H+1)*(W+1)*k*k*D < 2^31. One launch for all members. mean: 0 = the
+// bin sums, 1 = the sums divided by the bins' areas (0 for empty bins).
+// Returns a cudaError_t (0 = launched).
+extern "C" int dtt_psroi_sat(const int64_t* args, int count, int mean,
                              int device, void* stream) {
-  return launch_sat<false>(sat, hs, he, ws, we, sums, B, N, H, W, k, D,
-                           device, stream);
+  if (mean == 0) return launch_sat<kSums>(args, count, device, stream);
+  if (mean == 1) return launch_sat<kSumMeans>(args, count, device, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The same arguments; means: (B, N, k, k, D) float32 bin means, 0 for empty
+// The same members; out: the bin means of the gather form, 0 for empty
 // bins. Returns a cudaError_t (0 = launched).
-extern "C" int dtt_psroi_sat_mean(const void* sat, const void* hs,
-                                  const void* he, const void* ws,
-                                  const void* we, void* means, int B, int N,
-                                  int H, int W, int k, int D, int device,
+extern "C" int dtt_psroi_sat_mean(const int64_t* args, int count, int device,
                                   void* stream) {
-  return launch_sat<true>(sat, hs, he, ws, we, means, B, N, H, W, k, D,
-                          device, stream);
+  return launch_sat<kGatherMeans>(args, count, device, stream);
 }
 
 // maps: (B, H, W, k*k*D) contiguous; hs/he/ws/we: (B, N, k) int32;

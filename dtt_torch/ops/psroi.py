@@ -37,23 +37,31 @@ Summed-area-table (SAT) forms, the other two ``roi.eval_pool_impl``s:
   indicator contractions, rows first (the reference the kernel is held
   against; the CPU path), the kernel ``dtt_psroi_sat`` in
   ``csrc/psroi.cu`` (replaces the TPU kernel ``_psroi_mm_kernel_b``), and
-  the dispatcher.
-* `psroi_pool_batched_pallas_mm` — area and division around those sums,
-  inference only, as ``dtt``'s function of the same name.
+  the dispatcher; `psroi_mm_means_plain` / `psroi_mm_means_cuda` /
+  `psroi_mm_means` the same sums over the bins' areas (``bin_means``), in
+  the kernel's mean mode on CUDA.
+* `psroi_pool_batched_pallas_mm` — those bin means, inference only, as
+  ``dtt``'s function of the same name (which divides outside its kernel).
 * `psroi_sat_means_plain` / `psroi_sat_means_cuda` / `psroi_sat_means` —
   the gather form's bin means off the SAT: the corners combined as
   ((S11 - S01) - S10) + S00 and divided by the area (the reference the
   kernel is held against; the CPU path), the kernel ``dtt_psroi_sat_mean``
   in ``csrc/psroi.cu`` (replaces the TPU kernel ``_psroi_kernel``), and the
   dispatcher.
+* `psroi_sat_group_cuda` / `psroi_sat_group` — one launch of either SAT
+  kernel (``SAT_FORMS``) for 1 to 4 (table, bounds) members, and the
+  dispatcher (the plain version per member on the CPU); every single
+  wrapper above is a group of one.
 
 Per frame, ``psroi_pool(impl=...)`` with dtt's names: ``"xla"`` (the
 gather form at B=1, the default), ``"mm"`` (the bilinear form as einsums),
-``"pallas_mm"`` (``psroi_mm_sums`` at B=1: the TPU kernel
+``"pallas_mm"`` (``psroi_mm_means`` at B=1: the TPU kernel
 ``_psroi_mm_kernel`` has ``_psroi_mm_kernel_b``'s body without the frame
 axis, so the port launches the one kernel for both) and ``"pallas"``
-(``psroi_sat_means``). The two kernel forms are autograd functions whose
-backward is the ``"xla"`` form's scatter-add, as dtt pins both.
+(``psroi_sat_means``); `psroi_pool_maps` pools several maps at the same
+RoIs, in one launch under the two kernel forms. The kernel forms are
+autograd functions whose backward is the ``"xla"`` form's scatter-add per
+map, as dtt pins both.
 
 Numerics: the sums stay f32 throughout. The TPU kernels round their bf16
 row partial sums (forward) and ghat expansions (backward) to bf16 inside
@@ -64,6 +72,7 @@ difference of large f32 numbers; its error is a few ulps of the SAT.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 
@@ -415,68 +424,155 @@ def psroi_mm_sums_plain(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
     return torch.stack(rows, dim=2)
 
 
+def psroi_mm_means_plain(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
+    """``psroi_mm_sums_plain`` divided by the bins' areas, empty bins 0
+    (``bin_means``): the ``"pallas_mm"`` pool's bin means."""
+    return bin_means(psroi_mm_sums_plain(table, hs, he, ws, we),
+                     hs, he, ws, we)
+
+
+# The SAT pool forms: each C entry and its mode argument. Kernels 4 and 5
+# (bin sums, and the sums divided by the area in the kernel) are
+# ``dtt_psroi_sat``; kernel 6 (the gather form's bin means) is
+# ``dtt_psroi_sat_mean``. One launch pools 1 to 4 (table, bounds) members.
+SAT_FORMS = {"mm_sums": ("dtt_psroi_sat", 0),
+             "mm_means": ("dtt_psroi_sat", 1),
+             "sat_means": ("dtt_psroi_sat_mean", None)}
+_SAT_MAX_MEMBERS = 4
+_SAT_MAX_K = 32          # a block stages one RoI's k*k bins: kSatMaxBins
+
+
 @functools.lru_cache(maxsize=None)
 def _sat_entry(name: str):
     fn = getattr(_build.load("psroi"), name)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                   *([ctypes.c_int] if name == "dtt_psroi_sat" else []),
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_sat(wrapper, entry: str, table: torch.Tensor, bounds
-                ) -> torch.Tensor:
-    """Check the SAT kernels' arguments, launch `entry` on the current
-    stream, count the launch on `wrapper` and return its (B, N, k, k, D)
-    f32 output."""
-    name = wrapper.__name__
-    hs = bounds[0]
-    if not table.is_cuda or any(t.device != table.device for t in bounds):
-        raise ValueError(f"{name}: table and bounds must be on one CUDA "
-                         "device")
-    if table.dim() != 4 or table.dtype != torch.float32:
-        raise TypeError(f"{name}: the SAT must be (B, H+1, W+1, k*k*D) "
-                        f"float32, got {tuple(table.shape)} {table.dtype}")
-    b, h1, w1, c = table.shape
-    if hs.dim() != 3 or hs.shape[0] != b:
-        raise ValueError(f"{name}: bounds must be (B={b}, N, k), got "
-                         f"{tuple(hs.shape)}")
-    n, k = hs.shape[1], hs.shape[2]
-    if any(t.shape != hs.shape or t.dtype != torch.int32 for t in bounds):
-        raise TypeError(f"{name}: bounds must be four int32 tensors of one "
-                        "shape")
-    if c % (k * k) or min(h1, w1) < 1:
-        raise ValueError(f"{name}: {c} channels not divisible by k^2={k * k},"
-                         " or an empty table")
-    if not (table.is_contiguous() and all(t.is_contiguous() for t in bounds)):
-        raise ValueError(f"{name}: inputs must be contiguous")
-    if h1 * w1 * c >= 2 ** 31 or b * n * c >= 2 ** 62:
-        raise ValueError(f"{name}: table too large for int32 sizes")
-    d = c // (k * k)
-    out = torch.empty((b, n, k, k, d), dtype=torch.float32,
-                      device=table.device)
-    if out.numel() == 0:
-        return out
-    err = _sat_entry(entry)(table.data_ptr(), *(t.data_ptr() for t in bounds),
-                            out.data_ptr(), b, n, h1 - 1, w1 - 1, k, d,
-                            table.device.index,
-                            torch.cuda.current_stream(table.device).cuda_stream)
+def _sat_args(name: str, members) -> list:
+    """Check a SAT pool group's members, (table, (hs, he, ws, we)) each,
+    and return each member's output shape (B, N, k, k, D). Every member is
+    checked (the launch's host time is most of a frame's pool time, so
+    each check is one cheap test); all lie on the CUDA device of the
+    first table."""
+    if not 1 <= len(members) <= _SAT_MAX_MEMBERS:
+        raise ValueError(f"{name}: 1 to {_SAT_MAX_MEMBERS} (table, bounds) "
+                         f"members a launch, got {len(members)}")
+    f32, i32 = torch.float32, torch.int32
+    device = members[0][0].get_device()
+    shapes, pairs = [], 0
+    for table, bounds in members:
+        if table.dtype is not f32 or table.dim() != 4:
+            raise TypeError(f"{name}: the SAT must be (B, H+1, W+1, k*k*D) "
+                            f"float32, got {tuple(table.shape)} "
+                            f"{table.dtype}")
+        b, h1, w1, c = table.shape
+        if len(bounds) != 4:
+            raise ValueError(f"{name}: bounds are (hs, he, ws, we), got "
+                             f"{len(bounds)} tensors")
+        hs, he, ws, we = bounds
+        s = hs.shape
+        if len(s) != 3 or s[0] != b:
+            raise ValueError(f"{name}: bounds must be (B={b}, N, k), got "
+                             f"{tuple(s)}")
+        if he.shape != s or ws.shape != s or we.shape != s or not (
+                hs.dtype is i32 and he.dtype is i32 and ws.dtype is i32
+                and we.dtype is i32):
+            raise TypeError(f"{name}: bounds must be four int32 tensors of "
+                            "one shape")
+        _, n, k = s
+        if c % (k * k) or h1 < 1 or w1 < 1:
+            raise ValueError(f"{name}: {c} channels not divisible by "
+                             f"k^2={k * k}, or an empty table")
+        if k > _SAT_MAX_K:
+            raise ValueError(f"{name}: k={k} > {_SAT_MAX_K}: a block stages "
+                             "one RoI's k*k bins")
+        if not (table.is_contiguous() and hs.is_contiguous()
+                and he.is_contiguous() and ws.is_contiguous()
+                and we.is_contiguous()):
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if h1 * w1 * c >= 2 ** 31:
+            raise ValueError(f"{name}: a frame's table must have < 2^31 "
+                             f"elements (32-bit offsets), got {h1 * w1 * c}")
+        pairs += b * n
+        if pairs >= 2 ** 31:
+            raise ValueError(f"{name}: {pairs} (frame, RoI) pairs in one "
+                             "launch: the grid holds < 2^31")
+        if device < 0 or table.get_device() != device or \
+                hs.get_device() != device or he.get_device() != device or \
+                ws.get_device() != device or we.get_device() != device:
+            raise ValueError(f"{name}: tables and bounds must be on one CUDA "
+                             "device")
+        shapes.append((b, n, k, k, c // (k * k)))
+    return shapes
+
+
+def psroi_sat_group_cuda(form: str, members) -> list:
+    """One CUDA launch of SAT pool `form` (``SAT_FORMS``) for 1 to 4
+    members, each a (B, H+1, W+1, k*k*D) float32 SAT and its (B, N, k)
+    int32 bounds (hs, he, ws, we); members may differ in every size.
+    Returns each member's (B, N, k, k, D) f32 output: ``"mm_sums"`` the bin
+    sums, ``"mm_means"`` those over the areas, ``"sat_means"`` the gather
+    form's bin means (empty bins 0), the plain versions' bits. Bounds
+    outside [0, H] x [0, W] are clamped to the table.
+
+    Launches on the current stream. ``dtt_psroi_sat``'s launches count in
+    ``psroi_mm_sums_cuda.launches``, ``dtt_psroi_sat_mean``'s in
+    ``psroi_sat_means_cuda.launches``.
+    """
+    entry, mode = SAT_FORMS[form]
+    shapes = _sat_args(entry, members)
+    outs, args = [], []
+    for (table, (hs, he, ws, we)), shape in zip(members, shapes):
+        out = table.new_empty(shape)
+        outs.append(out)
+        args += (table.data_ptr(), hs.data_ptr(), he.data_ptr(),
+                 ws.data_ptr(), we.data_ptr(), out.data_ptr(), shape[0],
+                 shape[1], table.shape[1] - 1, table.shape[2] - 1, shape[2],
+                 shape[4])
+    if not any(b * n for b, n, *_ in shapes):
+        return outs
+    argv = array.array("q", args)
+    device = members[0][0].get_device()
+    # the raw current stream (torch.cuda.current_stream builds a Stream
+    # object, several microseconds of the launch's host time)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    fn = _sat_entry(entry)
+    err = (fn(argv.buffer_info()[0], len(members), device, stream)
+           if mode is None else
+           fn(argv.buffer_info()[0], len(members), mode, device, stream))
     if err:
-        raise RuntimeError(f"{name}: kernel launch failed: cudaError {err}")
-    wrapper.launches += 1
-    return out
+        raise RuntimeError(f"{entry}: kernel launch failed: cudaError {err}")
+    counter = psroi_mm_sums_cuda if mode is not None else psroi_sat_means_cuda
+    counter.launches += 1
+    return outs
+
+
+SAT_PLAIN = {"mm_sums": psroi_mm_sums_plain, "mm_means": psroi_mm_means_plain,
+              "sat_means": psroi_sat_means_plain}
+
+
+def psroi_sat_group(form: str, members) -> list:
+    """SAT pool `form` of each (table, bounds) member: the plain version per
+    member on CPU tensors, one CUDA launch otherwise (which raises off
+    CUDA)."""
+    if members[0][0].device.type == "cpu":
+        return [SAT_PLAIN[form](table, *bounds) for table, bounds in members]
+    return psroi_sat_group_cuda(form, members)
 
 
 def psroi_mm_sums_cuda(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
     """(B, H+1, W+1, k*k*D) float32 SAT, (B, N, k) int32 bounds ->
     (B, N, k, k, D) f32 bin sums by the CUDA kernel ``dtt_psroi_sat`` (4
-    corner reads per output). Bounds outside [0, H] x [0, W] are clamped to
-    the table.
+    corner reads per output), ``psroi_mm_sums_plain``'s bits.
 
-    Launches on the current stream; counts its launches in
-    ``psroi_mm_sums_cuda.launches``.
+    Launches on the current stream; ``psroi_mm_sums_cuda.launches`` counts
+    every launch of ``dtt_psroi_sat`` (``psroi_sat_group_cuda``).
     """
-    return _launch_sat(psroi_mm_sums_cuda, "dtt_psroi_sat", table,
-                       (hs, he, ws, we))
+    return psroi_sat_group_cuda("mm_sums", [(table, (hs, he, ws, we))])[0]
 
 
 psroi_mm_sums_cuda.launches = 0
@@ -485,9 +581,21 @@ psroi_mm_sums_cuda.launches = 0
 def psroi_mm_sums(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
     """SAT bin sums: the plain version on CPU tensors, the CUDA kernel
     otherwise (which raises off CUDA)."""
-    if table.device.type == "cpu":
-        return psroi_mm_sums_plain(table, hs, he, ws, we)
-    return psroi_mm_sums_cuda(table, hs, he, ws, we)
+    return psroi_sat_group("mm_sums", [(table, (hs, he, ws, we))])[0]
+
+
+def psroi_mm_means_cuda(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
+    """The bin sums of ``psroi_mm_sums_cuda`` divided by the bins' areas in
+    the same launch (``dtt_psroi_sat``'s mean mode), empty bins 0:
+    ``psroi_mm_means_plain``'s bits. Counted in
+    ``psroi_mm_sums_cuda.launches``."""
+    return psroi_sat_group_cuda("mm_means", [(table, (hs, he, ws, we))])[0]
+
+
+def psroi_mm_means(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
+    """SAT bin sums over the areas: the plain version on CPU tensors, the
+    CUDA kernel otherwise (which raises off CUDA)."""
+    return psroi_sat_group("mm_means", [(table, (hs, he, ws, we))])[0]
 
 
 def psroi_sat_means_cuda(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
@@ -495,11 +603,10 @@ def psroi_sat_means_cuda(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
     (B, N, k, k, D) f32 bin means by the CUDA kernel ``dtt_psroi_sat_mean``:
     the plain version's corner order and division, so the same bits.
 
-    Launches on the current stream; counts its launches in
-    ``psroi_sat_means_cuda.launches``.
+    Launches on the current stream; ``psroi_sat_means_cuda.launches``
+    counts every launch of ``dtt_psroi_sat_mean``.
     """
-    return _launch_sat(psroi_sat_means_cuda, "dtt_psroi_sat_mean", table,
-                       (hs, he, ws, we))
+    return psroi_sat_group_cuda("sat_means", [(table, (hs, he, ws, we))])[0]
 
 
 psroi_sat_means_cuda.launches = 0
@@ -508,9 +615,7 @@ psroi_sat_means_cuda.launches = 0
 def psroi_sat_means(table: torch.Tensor, hs, he, ws, we) -> torch.Tensor:
     """SAT bin means: the plain version on CPU tensors, the CUDA kernel
     otherwise (which raises off CUDA)."""
-    if table.device.type == "cpu":
-        return psroi_sat_means_plain(table, hs, he, ws, we)
-    return psroi_sat_means_cuda(table, hs, he, ws, we)
+    return psroi_sat_group("sat_means", [(table, (hs, he, ws, we))])[0]
 
 
 def psroi_pool_batched_pallas_mm(features: torch.Tensor, rois: torch.Tensor,
@@ -518,16 +623,18 @@ def psroi_pool_batched_pallas_mm(features: torch.Tensor, rois: torch.Tensor,
                                  ) -> torch.Tensor:
     """(B, H, W, k*k*D) maps, (B, N, 4) RoIs -> (B, N, k, k, D) bin means
     in the maps' dtype, off the f32 SAT (the ``"pallas_mm"`` pool, named
-    after ``dtt``'s function and setting). Area and division outside the
-    sums, empty bins 0. Inference only: the CUDA path has no gradient."""
+    after ``dtt``'s function and setting): the bin sums over the areas,
+    empty bins 0, in one kernel launch on CUDA (``dtt`` divides outside its
+    kernel; the bits are the same). Inference only: the CUDA path has no
+    gradient."""
     b, h, w, c = features.shape
     k = group_size
     if c % (k * k):
         raise ValueError(f"channels {c} not divisible by k^2={k * k}")
     bounds = [t.contiguous() for t in
               roi_bounds(rois.detach(), spatial_scale, k, h, w)]
-    sums = psroi_mm_sums(sat(features).contiguous(), *bounds)
-    return bin_means(sums, *bounds).to(features.dtype)
+    return psroi_mm_means(sat(features).contiguous(),
+                          *bounds).to(features.dtype)
 
 
 # ---------------------------------------------------------------- per frame
@@ -561,46 +668,67 @@ def psroi_pool_mm(features: torch.Tensor, rois: torch.Tensor,
     return bin_means(sums, *bounds)[0].to(features.dtype)
 
 
-def _pallas_mm_forward(features, rois, spatial_scale, group_size):
-    return psroi_pool_batched_pallas_mm(features[None], rois[None],
-                                        spatial_scale, group_size)[0]
+# the per-frame kernel pools: ``"pallas_mm"`` (kernel 5, whose TPU kernel
+# ``_psroi_mm_kernel`` is ``_psroi_mm_kernel_b`` without the frame axis, so
+# the port launches the one kernel at B=1; dtt divides outside its kernel,
+# the port in it, with the same bits) and ``"pallas"`` (kernel 6)
+_FRAME_KERNEL_FORMS = {"pallas_mm": "mm_means", "pallas": "sat_means"}
 
 
-def _pallas_forward(features, rois, spatial_scale, group_size):
-    bounds = _frame_bounds(features, rois, spatial_scale, group_size)
-    means = psroi_sat_means(sat(features[None]).contiguous(), *bounds)
-    return means[0].to(features.dtype)
+def _kernel_pools(maps, rois, spatial_scale, group_size, form) -> tuple:
+    """Each map's bin means by SAT pool `form`, one launch for all maps on
+    CUDA; maps of one size share their bounds."""
+    k = group_size
+    members, bounds = [], {}
+    for m in maps:
+        h, w, c = m.shape
+        if c % (k * k):
+            raise ValueError(f"channels {c} not divisible by k^2={k * k}")
+        if (h, w) not in bounds:
+            bounds[h, w] = [t[None].contiguous() for t in
+                            roi_bounds(rois.detach(), spatial_scale, k, h, w)]
+        members.append((sat(m[None]).contiguous(), bounds[h, w]))
+    return tuple(out[0].to(m.dtype) for out, m in
+                 zip(psroi_sat_group(form, members), maps))
 
 
-class _FramePool(torch.autograd.Function):
-    """A per-frame kernel pool whose backward is the scatter-add of the
+class _FramePools(torch.autograd.Function):
+    """A per-frame kernel pool of one or more maps at the same RoIs, one
+    launch for all of them; each map's backward is the scatter-add of the
     ``"xla"`` gather form, as dtt pins both Pallas pools' ``custom_vjp`` to
     AD of ``psroi_pool_xla``."""
 
     @staticmethod
-    def forward(ctx, features, rois, spatial_scale, group_size, form):
-        ctx.save_for_backward(features, rois)
+    def forward(ctx, rois, spatial_scale, group_size, form, *maps):
+        ctx.save_for_backward(rois, *maps)
         ctx.args = (spatial_scale, group_size)
-        return form(features, rois, spatial_scale, group_size)
+        ctx.set_materialize_grads(False)
+        return _kernel_pools(maps, rois, spatial_scale, group_size, form)
 
     @staticmethod
-    def backward(ctx, g):
-        features, rois = ctx.saved_tensors
-        with torch.enable_grad():
-            f = features.detach().requires_grad_()
-            (df,) = torch.autograd.grad(psroi_pool_xla(f, rois, *ctx.args), f,
-                                        g.to(features.dtype))
-        return df, None, None, None, None
+    def backward(ctx, *grads):
+        rois, *maps = ctx.saved_tensors
+        dmaps = []
+        for m, g, need in zip(maps, grads, ctx.needs_input_grad[4:]):
+            if g is None or not need:
+                dmaps.append(None)
+                continue
+            with torch.enable_grad():
+                f = m.detach().requires_grad_()
+                (df,) = torch.autograd.grad(psroi_pool_xla(f, rois, *ctx.args),
+                                            f, g.to(m.dtype))
+            dmaps.append(df)
+        return (None, None, None, None, *dmaps)
 
 
 def psroi_pool_pallas_mm(features: torch.Tensor, rois: torch.Tensor,
                          spatial_scale: float, group_size: int
                          ) -> torch.Tensor:
-    """The ``"pallas_mm"`` pool: SAT bin sums by ``psroi_mm_sums`` at B=1
-    (the kernel ``dtt_psroi_sat`` on CUDA, which replaces the TPU kernel
-    ``_psroi_mm_kernel``), area and division outside."""
-    return _FramePool.apply(features, rois, spatial_scale, group_size,
-                            _pallas_mm_forward)
+    """The ``"pallas_mm"`` pool: the SAT bin sums over the areas by
+    ``psroi_mm_means`` at B=1 (the kernel ``dtt_psroi_sat`` on CUDA, which
+    replaces the TPU kernel ``_psroi_mm_kernel``)."""
+    return _FramePools.apply(rois, spatial_scale, group_size, "mm_means",
+                             features)[0]
 
 
 def psroi_pool_pallas(features: torch.Tensor, rois: torch.Tensor,
@@ -608,8 +736,8 @@ def psroi_pool_pallas(features: torch.Tensor, rois: torch.Tensor,
     """The ``"pallas"`` pool: SAT bin means by ``psroi_sat_means`` (the
     kernel ``dtt_psroi_sat_mean`` on CUDA, which replaces the TPU kernel
     ``_psroi_kernel``), cast to the maps' dtype outside."""
-    return _FramePool.apply(features, rois, spatial_scale, group_size,
-                            _pallas_forward)
+    return _FramePools.apply(rois, spatial_scale, group_size, "sat_means",
+                             features)[0]
 
 
 _FRAME_POOLS = {"xla": psroi_pool_xla, "mm": psroi_pool_mm,
@@ -627,3 +755,20 @@ def psroi_pool(features: torch.Tensor, rois: torch.Tensor,
     if impl not in _FRAME_POOLS:
         raise ValueError(f"unknown psroi impl {impl!r}")
     return _FRAME_POOLS[impl](features, rois, spatial_scale, group_size)
+
+
+def psroi_pool_maps(maps, rois: torch.Tensor, spatial_scale: float,
+                    group_size: int, impl: str = "auto") -> tuple:
+    """``psroi_pool`` of each of several (H, W, k*k*D_i) maps at the same
+    (N, 4) RoIs -> a tuple of (N, k, k, D_i), each the bits of its own
+    ``psroi_pool`` call. Under ``"pallas_mm"`` and ``"pallas"`` one kernel
+    launch pools up to 4 maps."""
+    if impl == "auto":
+        impl = "xla"
+    if impl not in _FRAME_POOLS:
+        raise ValueError(f"unknown psroi impl {impl!r}")
+    if impl in _FRAME_KERNEL_FORMS:
+        return _FramePools.apply(rois, spatial_scale, group_size,
+                                 _FRAME_KERNEL_FORMS[impl], *maps)
+    return tuple(_FRAME_POOLS[impl](m, rois, spatial_scale, group_size)
+                 for m in maps)

@@ -437,3 +437,120 @@ def test_roi_bounds_match_the_cpu(cuda, k):
     want = tpsroi.roi_bounds(rois, 1 / 16, k, 38, 68)
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_.cpu(), w_, rtol=0, atol=0)
+
+
+# SAT pools, kernels 4-6 (``dtt_psroi_sat`` in both modes and
+# ``dtt_psroi_sat_mean``), each held to its plain version bit for bit on
+# one table: the main path's shapes (a pair batch, 4 frames x 300 RoIs at
+# D = 43, its f32 table past the 50 MB L2; one frame's cls, bbox and track
+# tables at D = 31, 8, 4) and the edges: N = 1 at k = 3, D = 6 (8-byte
+# vectors), odd D (scalars), D = 12 on a map smaller than the RoIs (bounds
+# at H and W). ``_pool_case``'s RoIs add the whole map, .5 coordinates,
+# one-pixel and empty bins and RoIs past the map.
+SAT_FORMS = {"mm_sums": tpsroi.psroi_mm_sums_plain,
+             "mm_means": tpsroi.psroi_mm_means_plain,
+             "sat_means": tpsroi.psroi_sat_means_plain}
+SAT_SHAPES = [(4, 38, 68, 7, 43, 300), (1, 38, 68, 7, 31, 300),
+              (1, 38, 68, 7, 8, 300), (1, 38, 68, 7, 4, 300),
+              (1, 9, 13, 3, 43, 1), (2, 10, 14, 7, 6, 24),
+              (2, 10, 14, 7, 9, 24), (3, 5, 4, 3, 12, 70)]
+
+
+def _sat_launches():
+    return (tpsroi.psroi_mm_sums_cuda.launches,
+            tpsroi.psroi_sat_means_cuda.launches)
+
+
+def _one_launch(form, before):
+    """The launch counts after one launch of `form`'s C entry."""
+    sums, means = before
+    return (sums + 1, means) if form != "sat_means" else (sums, means + 1)
+
+
+@pytest.mark.parametrize("form", sorted(SAT_FORMS))
+@pytest.mark.parametrize("shape", SAT_SHAPES)
+def test_sat_kernels_match_plain_bit_for_bit(cuda, form, shape):
+    b, h, w, k, d, n = shape
+    maps, _, bounds = _pool_case(shape, torch.float32, cuda, 7)
+    table = tpsroi.sat(maps).contiguous()
+    before = _sat_launches()
+    (got,) = tpsroi.psroi_sat_group(form, [(table, bounds)])
+    torch.cuda.synchronize()
+    assert _sat_launches() == _one_launch(form, before)
+    assert got.dtype == torch.float32 and got.shape == (b, n, k, k, d)
+    torch.testing.assert_close(got, SAT_FORMS[form](table, *bounds), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("form", sorted(SAT_FORMS))
+def test_sat_kernels_on_a_misaligned_table(cuda, form):
+    """A table 4 bytes off a 16-byte boundary at D = 8: the kernel reads
+    scalars, and the bits stay the plain version's."""
+    shape = (2, 10, 14, 7, 8, 24)
+    maps, _, bounds = _pool_case(shape, torch.float32, cuda, 8)
+    table = tpsroi.sat(maps).contiguous()
+    buf = torch.empty(table.numel() + 1, device=cuda)
+    moved = buf[1:].view(table.shape)
+    moved.copy_(table)
+    assert moved.is_contiguous() and moved.data_ptr() % 16 == 4
+    (got,) = tpsroi.psroi_sat_group_cuda(form, [(moved, bounds)])
+    torch.testing.assert_close(got, SAT_FORMS[form](table, *bounds), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("form", sorted(SAT_FORMS))
+def test_sat_kernels_group_members_in_one_launch(cuda, form):
+    """One launch for members that differ in frames, map size, k, D and
+    RoIs (a frame's three tables beside a pair batch's and a one-RoI
+    member): each output is its member's plain version, bit for bit."""
+    shapes = [(1, 38, 68, 7, 31, 300), (1, 38, 68, 7, 8, 17),
+              (1, 9, 13, 3, 43, 1), (4, 10, 14, 7, 4, 70)]
+    members = []
+    for i, shape in enumerate(shapes):
+        maps, _, bounds = _pool_case(shape, torch.float32, cuda, 10 + i)
+        members.append((tpsroi.sat(maps).contiguous(), bounds))
+    before = _sat_launches()
+    outs = tpsroi.psroi_sat_group(form, members)
+    torch.cuda.synchronize()
+    assert _sat_launches() == _one_launch(form, before)
+    for (table, bounds), out in zip(members, outs):
+        torch.testing.assert_close(out, SAT_FORMS[form](table, *bounds),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("impl", ["pallas_mm", "pallas"])
+def test_rfcn_head_launches_one_sat_kernel(cuda, impl):
+    """``rfcn_head`` under each kernel form pools its cls and bbox maps in
+    one launch a call; its votes match the ``"xla"`` form (``pallas``: to
+    the bit; ``pallas_mm``: to the SAT's f32 error) and so do its map
+    gradients (the same scatter-add, 1e-5 of the largest)."""
+    from dtt_torch.core.config import Config
+    from dtt_torch.models import dnt as tdnt
+
+    cfg = Config().model
+    k = cfg.roi.ps_grid
+    cls, rois, _ = _pool_case((1, 38, 68, k, cfg.num_classes, 300),
+                              torch.float32, cuda, 12)
+    bbox, _, _ = _pool_case((1, 38, 68, k, 8, 300), torch.float32, cuda, 13)
+    cls, bbox, rois = cls[0], bbox[0], rois[0]
+    xs = [cls.clone().requires_grad_(), bbox.clone().requires_grad_()]
+    ys = [cls.clone().requires_grad_(), bbox.clone().requires_grad_()]
+    want = tdnt.rfcn_head(cfg, *ys, rois, 1 / 16, "xla")
+    for _ in range(2):
+        before = _sat_launches()
+        got = tdnt.rfcn_head(cfg, *xs, rois, 1 / 16, impl)
+        torch.cuda.synchronize()
+        form = "mm_means" if impl == "pallas_mm" else "sat_means"
+        assert _sat_launches() == _one_launch(form, before)
+    gos = [torch.randn(g.shape, device=cuda) for g in got]
+    torch.autograd.backward(got, gos)
+    torch.autograd.backward(want, gos)
+    for g, w_, m in zip(got, want, (cls, bbox)):
+        atol = 0.0 if impl == "pallas" else (
+            8 * torch.finfo(torch.float32).eps
+            * tpsroi.sat(m[None]).abs().max().item())
+        torch.testing.assert_close(g, w_, rtol=0 if impl == "pallas" else
+                                   1e-5, atol=atol)
+    for x, y in zip(xs, ys):
+        torch.testing.assert_close(x.grad, y.grad, rtol=0,
+                                   atol=1e-5 * y.grad.abs().max().item())
