@@ -21,8 +21,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    and as three single launches), and CUDA-event times of those
    calls through the kernel, the plain version and, where one exists, one
    PyTorch call computing the same function, beside the least time the
-   card could take; the channel-split correlation also beside the unsplit
-   one at a video chunk's 16 pairs; then correlation windows past the
+   card could take; the channel-split correlation (its cluster form per
+   scale, three runs bit for bit, and both correlation forwards' device
+   time by the profiler) at one pair and beside the unsplit one at a video
+   chunk's 16 pairs; then correlation windows past the
    tensor-core band (d=16/s=4, d=10/s=2) in bf16 and f32 under every
    kernel form, forward and backward, against the plain versions;
 4. small references: the tiny test config in float32 through the kernels
@@ -705,15 +707,43 @@ def phase_frame_pools(cfg: Config, seed: int) -> list:
     return entries
 
 
+def device_ms(fn, iters: int = 10):
+    """Device time of one call of `fn` by ``torch.profiler``: its kernels'
+    summed durations (no launch gaps), averaged over `iters` calls; None
+    where the profiler recorded no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us else None
+
+
 def phase_correlation_forms(cfg: Config, pairs: int, seed: int) -> list:
     """Both correlation forward kernels on one set of inputs, `pairs`
     pairs x 3 scales: the unsplit kernel 1 (``correlation_cuda``) and the
     channel-split kernel 7 (``correlation_split_cuda``), each against the
-    plain version and timed in turns (split, unsplit, unsplit, split).
-    Returns their entries for the single-frame path."""
+    plain version and timed in turns (split, unsplit, unsplit, split) by
+    CUDA events, then by the profiler's device time. Prints kernel 7's
+    form per scale (``split_plan``, checked against the launcher's, and
+    cudaOccupancyMaxActiveClusters) and checks that three runs of it give
+    the same bits. Returns their entries for the single-frame path."""
     t = cfg.model.track
     d, s = t.max_displacement, t.stride
     cases = corr_inputs(cfg, pairs, seed)
+    for f1, _ in cases:
+        form = corr_ops.split_form(tuple(f1.shape), f1.dtype, d, s)
+        plan = corr_ops.split_plan(f1.shape[-1], f1.dtype, d, s)
+        if (form["body"], form["ranks"], form["channels"]) != tuple(plan):
+            raise AssertionError(f"split_plan {plan} differs from the "
+                                 f"launcher's form {form}")
+        log(f"split form ({pairs} pair(s), C={f1.shape[-1]}): {plan}, "
+            f"{form['rows']} row(s) a block, {form['max_active_clusters']} "
+            f"clusters resident at once")
     kernels = {"correlation": corr_ops.correlation_cuda,
                "correlation_split": corr_ops.correlation_split_cuda}
     errs = dict.fromkeys(kernels, 0.0)
@@ -725,23 +755,39 @@ def phase_correlation_forms(cfg: Config, pairs: int, seed: int) -> list:
             errs[name] = max(errs[name], corr_check(
                 got, want, f"{name} kernel vs plain ({pairs} pairs, "
                            f"C={f1.shape[-1]})"))
-    run = lambda kernel: time_ms(lambda: [kernel(a, c, d, s)
-                                          for a, c in cases], iters=20)
+    runs = [[corr_ops.correlation_split_cuda(a, c, d, s) for a, c in cases]
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    if not all(x.view(torch.int16).equal(y.view(torch.int16))
+               for run in runs[1:] for x, y in zip(runs[0], run)):
+        raise AssertionError(f"three runs of the split kernel ({pairs} "
+                             f"pairs) differ")
+    calls = {name: lambda kernel=kernel: [kernel(a, c, d, s)
+                                          for a, c in cases]
+             for name, kernel in kernels.items()}
     ms = dict.fromkeys(kernels, 0.0)
     for name in ("correlation_split", "correlation", "correlation",
                  "correlation_split"):
-        ms[name] += run(kernels[name]) / 2
+        ms[name] += time_ms(calls[name], iters=20) / 2
+    dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
     plain_ms = time_ms(lambda: [corr_ops.correlation_plain(a, c, d, s)
                                 for a, c in cases], iters=3, warmup=1)
     bound_ms, bound_by, nbytes, ops = corr_bound(cases, d, s)
+    shown = {name: "not measured" if v is None else f"{v:.4f} ms"
+             for name, v in dev.items()}
+    share = {name: "" if v is None else f", {bound_ms / v:.1%}"
+             for name, v in dev.items()}
     log(f"correlation forms: {pairs} pair(s) x 3 scales "
         f"{[tuple(c[0].shape) for c in cases]} bf16 d={d} s={s}: split "
         f"kernel {ms['correlation_split']:.4f} ms (max_abs_err "
-        f"{errs['correlation_split']:.3g}), unsplit kernel "
+        f"{errs['correlation_split']:.3g}, 3 runs bit-equal), unsplit kernel "
         f"{ms['correlation']:.4f} ms (max_abs_err {errs['correlation']:.3g}),"
-        f" tol 2^-7 |want| + 1e-5; plain {plain_ms:.4f} ms, library: none, "
-        f"bound_us {bound_ms * 1e3:.1f} ({bound_by}, {nbytes / 1e6:.1f} MB, "
-        f"{ops / 1e9:.2f} GFLOP); share of the bound: split "
+        f" tol 2^-7 |want| + 1e-5; device (profiler): split "
+        f"{shown['correlation_split']}{share['correlation_split']}, unsplit "
+        f"{shown['correlation']}{share['correlation']} of the bound; plain "
+        f"{plain_ms:.4f} ms, library: none, bound_us {bound_ms * 1e3:.1f} "
+        f"({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); share "
+        f"of the bound by events: split "
         f"{bound_ms / ms['correlation_split']:.1%}, unsplit "
         f"{bound_ms / ms['correlation']:.1%}")
     replaces = {"correlation": "dtt/ops/correlation.py:135",
@@ -795,9 +841,9 @@ def phase_wide_windows(seed: int) -> None:
                             raise AssertionError(f"{what}: max abs err {e}")
                         errs.append(e)
                 log(f"wide window d={d} s={s} {str(dtype)[6:]} impl={impl}: "
-                    f"body {body if impl != 'pallas' else 'cuda_cores'} "
-                    f"forward, {body} backward; launched {launched}; max abs"
-                    f" err out/df1/df2 {[f'{e:.3g}' for e in errs]}")
+                    f"body {body} forward and backward; launched "
+                    f"{launched}; max abs err out/df1/df2 "
+                    f"{[f'{e:.3g}' for e in errs]}")
 
 
 def tiny_config() -> Config:

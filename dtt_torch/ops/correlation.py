@@ -20,8 +20,11 @@ NHWC, batched over frame pairs.
   See the source for its design; `window_limit` names what the CUDA-core
   forward refuses.
 * `correlation_split_cuda` — the kernel ``dtt_correlation_split`` in the
-  same source, channel blocks summed by concurrent blocks; replaces the TPU
-  kernel ``_corr_kernel``.
+  same source, which replaces the TPU kernel ``_corr_kernel``: the blocks
+  of one output tile form a thread block cluster over 128-channel blocks
+  and sum their partial tiles in rank order through distributed shared
+  memory, on the body `correlation_body` names; `split_plan` gives the
+  cluster's ranks.
 * `correlation_bwd_plain` / `correlation_bwd_cuda` — the gradients of both
   inputs: the shifted multiply form, and a kernel in the same source (dtt
   differentiates its forward with XLA's AD instead).
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -64,8 +68,8 @@ def correlation_body(dtype: torch.dtype, max_displacement: int,
     ``"tensor_cores"`` (the ``mma.sync`` band) for bfloat16 maps with
     max_displacement <= 8 and at most 9 displacements per axis,
     ``"cuda_cores"`` (f32 multiply-adds; the gather backward) for float32
-    maps and every wider bf16 window. The split forward always runs on the
-    CUDA cores."""
+    maps and every wider bf16 window. Both forward forms (`correlation_cuda`
+    and the split `correlation_split_cuda`) take the same body."""
     nd = len(offsets(max_displacement, stride))
     if (dtype == torch.bfloat16 and max_displacement <= _TC_MAX_D
             and nd <= _TC_MAX_ND):
@@ -195,10 +199,10 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
                       dtype=f1.dtype, device=f1.device)
     if out.numel() == 0:
         return out
+    device = f1.get_device()
     err = _entry()(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c,
                    max_displacement, stride, _DTYPE_CODES[f1.dtype], int(tc),
-                   f1.device.index,
-                   torch.cuda.current_stream(f1.device).cuda_stream)
+                   device, torch._C._cuda_getCurrentRawStream(device))
     if err:
         raise RuntimeError(f"correlation kernel launch failed: cudaError {err}")
     correlation_cuda.launches += 1
@@ -209,45 +213,107 @@ correlation_cuda.launches = 0
 
 # channels per block of dtt_correlation_split (dtt's channel_block)
 _SPLIT_C = 128
+_MAX_RANKS = 8     # kMaxRanks: the portable thread block cluster limit
+# The most ranks a split cluster takes, per body, and the output rows a
+# tensor-core split block owns, measured on an H100 at one pair and at 16
+# pairs of 38x68 maps, C = 512/1024/1024 (tools/bench_psroi_torch.py
+# --kernels corr --split-forms; PERF.md, kernel 7): two rows a block and
+# 2 ranks on the tensor cores (more ranks are mostly ring fill: 4 and 8
+# took 1.3x and 1.7x as long at 16 pairs and gained nothing at one pair);
+# 8 on the CUDA cores (float32 at one pair: 0.57 ms against 0.73 with 2).
+SPLIT_RANKS = {"tensor_cores": 2, "cuda_cores": 8}
+SPLIT_ROWS = 2
+
+
+class SplitPlan(NamedTuple):
+    body: str       # correlation_body's name
+    ranks: int      # blocks a cluster (one output tile, its channel blocks)
+    channels: int   # channels a rank: a whole number of 128-channel blocks
+
+
+def split_plan(c: int, dtype: torch.dtype, max_displacement: int,
+               stride: int, max_ranks: int | None = None) -> SplitPlan:
+    """The form of ``correlation_split_cuda`` for C = `c` channels, by the
+    rule of ``dtt_correlation_split``: with nblk = ceil(C / 128) channel
+    blocks and at most `max_ranks` ranks (``SPLIT_RANKS[body]`` unless
+    given), each rank takes k = ceil(nblk / max_ranks) whole blocks, a
+    contiguous run, and there are ceil(nblk / k) ranks, so none is empty:
+    C = 1152 (9 blocks) at 8 gives 5 ranks of 256 channels."""
+    body = correlation_body(dtype, max_displacement, stride)
+    cap = SPLIT_RANKS[body] if max_ranks is None else max_ranks
+    if not (c >= 1 and 1 <= cap <= _MAX_RANKS):
+        raise ValueError(f"split_plan: needs C >= 1 and 1 <= max_ranks <= "
+                         f"{_MAX_RANKS}, got C={c}, max_ranks={cap}")
+    nblk = -(-c // _SPLIT_C)
+    k = -(-nblk // cap)
+    return SplitPlan(body, -(-nblk // k), k * _SPLIT_C)
 
 
 @functools.lru_cache(maxsize=None)
 def _split_entry():
     fn = _build.load("correlation").dtt_correlation_split
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _split_form_entry():
+    fn = _build.load("correlation").dtt_correlation_split_form
+    fn.argtypes = [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _split_args(name: str, shape, dtype: torch.dtype, max_displacement: int,
+                stride: int, max_ranks, rows) -> tuple:
+    """The C entry's (B, H, W, C, d, s, block, max_ranks, rows, dtype,
+    tensor_cores) for a split launch; raises on what the kernel refuses."""
+    b, h, w, c = shape
+    body = correlation_body(dtype, max_displacement, stride)
+    cap = SPLIT_RANKS[body] if max_ranks is None else max_ranks
+    ranks = split_plan(c, dtype, max_displacement, stride, cap).ranks
+    if body == "cuda_cores":
+        _check_window(name, max_displacement, stride)
+    rows = SPLIT_ROWS if rows is None else rows
+    if rows not in (1, 2):
+        raise ValueError(f"{name}: rows is 1 or 2, got {rows}")
+    if b * ranks >= 2 ** 16:
+        raise ValueError(f"{name}: needs B * ranks < 65536, got B={b}, "
+                         f"{ranks} ranks")
+    return (b, h, w, c, max_displacement, stride, _SPLIT_C, cap, rows,
+            _DTYPE_CODES[dtype], int(body == "tensor_cores"))
+
+
 def correlation_split_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                           max_displacement: int = 8, stride: int = 2
-                           ) -> torch.Tensor:
+                           max_displacement: int = 8, stride: int = 2, *,
+                           max_ranks: int | None = None,
+                           rows: int | None = None) -> torch.Tensor:
     """(B, H, W, C) x2 -> (B, H, W, nd^2) by the channel-split CUDA kernel:
-    one block per 128-channel block writes its f32 partial planes to a
-    workspace, a second kernel sums them in block order. The CUDA-core body
-    in both dtypes; raises, naming the limit, on a window that
-    ``window_limit`` refuses.
+    for each output tile a thread block cluster of ``split_plan(...).ranks``
+    blocks, each summing a run of whole 128-channel blocks, adds the
+    partial tiles in rank order through distributed shared memory, divides
+    by C and rounds once. The body is ``correlation_body``'s: the
+    tensor-core band (`rows` output rows a block, ``SPLIT_ROWS`` unless
+    given) for bf16 windows in it, the CUDA cores otherwise, where it
+    raises, naming the limit, on a window that ``window_limit`` refuses.
+    `max_ranks` overrides ``SPLIT_RANKS`` (for measurements). Allocates
+    only the output; deterministic.
 
     Launches on the current stream; counts its launches in
     ``correlation_split_cuda.launches``.
     """
-    _check_maps("correlation_split_cuda", f1, f2, max_displacement, stride)
-    _check_window("correlation_split_cuda", max_displacement, stride)
-    b, h, w, c = f1.shape
-    nblk = -(-c // _SPLIT_C)
-    if c < 1 or b * nblk >= 2 ** 16:
-        raise ValueError(f"correlation_split_cuda: needs 1 <= C and B * "
-                         f"ceil(C / {_SPLIT_C}) < 65536, got B={b}, C={c}")
-    nd2 = num_corr_channels(max_displacement, stride)
-    out = torch.empty((b, h, w, nd2), dtype=f1.dtype, device=f1.device)
+    name = "correlation_split_cuda"
+    _check_maps(name, f1, f2, max_displacement, stride)
+    args = _split_args(name, f1.shape, f1.dtype, max_displacement, stride,
+                       max_ranks, rows)
+    out = f1.new_empty((*f1.shape[:3],
+                        num_corr_channels(max_displacement, stride)))
     if out.numel() == 0:
         return out
-    part = torch.empty((nblk, b, h, w, nd2), dtype=torch.float32,
-                       device=f1.device)
-    err = _split_entry()(f1.data_ptr(), f2.data_ptr(), part.data_ptr(),
-                         out.data_ptr(), b, h, w, c, max_displacement, stride,
-                         _SPLIT_C, _DTYPE_CODES[f1.dtype], f1.device.index,
-                         torch.cuda.current_stream(f1.device).cuda_stream)
+    device = f1.get_device()
+    err = _split_entry()(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), *args,
+                         device, torch._C._cuda_getCurrentRawStream(device))
     if err:
         raise RuntimeError(f"correlation split kernel launch failed: "
                            f"cudaError {err}")
@@ -256,6 +322,27 @@ def correlation_split_cuda(f1: torch.Tensor, f2: torch.Tensor,
 
 
 correlation_split_cuda.launches = 0
+
+
+def split_form(shape, dtype: torch.dtype, max_displacement: int = 8,
+               stride: int = 2, *, max_ranks: int | None = None,
+               rows: int | None = None, device: int = 0) -> dict:
+    """What ``correlation_split_cuda`` launches for maps of `shape` and
+    `dtype` on CUDA device `device`, launching nothing: its ``split_plan``
+    as the kernel's launcher computes it (``ranks``, ``channels``),
+    ``rows`` a block and ``max_active_clusters``
+    (cudaOccupancyMaxActiveClusters: such clusters resident on the card
+    at once)."""
+    args = _split_args("split_form", shape, dtype, max_displacement, stride,
+                       max_ranks, rows)
+    info = (ctypes.c_int * 3)()
+    err = _split_form_entry()(*args, device, info)
+    if err:
+        raise RuntimeError(f"split_form: cudaError {err}")
+    tc = args[-1]
+    return {"body": "tensor_cores" if tc else "cuda_cores", "ranks": info[0],
+            "channels": info[1], "rows": args[8] if tc else 1,
+            "max_active_clusters": info[2]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -291,11 +378,12 @@ def correlation_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     df2 = torch.empty_like(f2)
     if df1.numel() == 0:
         return df1, df2
+    device = f1.get_device()
     err = _bwd_entry()(f1.data_ptr(), f2.data_ptr(), g.data_ptr(),
                        df1.data_ptr(), df2.data_ptr(), b, h, w, c,
                        max_displacement, stride, _DTYPE_CODES[f1.dtype],
-                       int(tc), f1.device.index,
-                       torch.cuda.current_stream(f1.device).cuda_stream)
+                       int(tc), device,
+                       torch._C._cuda_getCurrentRawStream(device))
     if err:
         raise RuntimeError(f"correlation backward kernel launch failed: "
                            f"cudaError {err}")

@@ -59,11 +59,62 @@
 //   limits are the card's: 32 x nd threads a block (nd <= 32, kMaxNdCore)
 //   and nd * 16 * ((32 + 2 dmax) | 1) f32 of staged f2 rows in a block's
 //   227 KB of shared memory (98 KB at d=20/s=2, past 48 KB by opt-in).
+//
+// Channel-split forward (dtt_correlation_split):
+// Replaces the TPU kernel _corr_kernel (dtt/ops/correlation.py), which
+// walked a sequential grid of 128-channel blocks (channels zero-padded to a
+// whole block) into one f32 accumulator held in VMEM, because VMEM could
+// not hold every channel. The same function, summed in f32 over those
+// 128-channel blocks. On the H100 what a channel split buys is parallelism
+// at small batch without staging any f2 row twice: one pair at 38x68 has
+// only 38-76 output tiles for 132 SMs. So the blocks of one output tile
+// become a thread block cluster (cudaLaunchKernelEx, cluster dimension nc
+// along z) over the channel blocks:
+//
+// * rank r of the cluster walks the whole 128-channel blocks [r k, (r+1) k)
+//   with k = ceil(nblk / max_ranks) and nc = ceil(nblk / k) ranks, so no
+//   rank is empty and any C is taken (nblk = 9 at C = 1152: k = 2, 5
+//   ranks); max_ranks (at most 8, the portable cluster limit) is the
+//   caller's: split_plan in dtt_torch/ops/correlation.py states the rule
+//   and SPLIT_RANKS the caps measured on the H100, 2 on the tensor cores (a
+//   128-channel block is only four 32-channel steps of the ring: 4 and 8
+//   ranks are mostly ring fill, 1.3x and 1.7x as long at 16 pairs) and 8
+//   on the CUDA cores;
+// * after its channel loop a rank writes its f32 partial tile into its own
+//   shared memory (over the ring or staging buffer), the cluster syncs, and
+//   each rank sums one 1/nc slice of the tile over ranks 0 ... nc - 1 in
+//   that order, reading the others' tiles through distributed shared
+//   memory (map_shared_rank, ld.shared::cluster); it divides by C, rounds
+//   once and writes its slice with coalesced stores; a second cluster sync
+//   keeps every block resident until the others have read its tile. No
+//   atomics, no workspace, no second launch: the same inputs give the same
+//   bits on every run.
+// * bfloat16 windows in the band (correlation_split_tc_kernel) run the
+//   forward's band above, its TMA staging (tc_issue; tc_fill where TMA
+//   cannot take the maps) and its diagonals (tc_diagonals), with every dy
+//   in one block of R rows x 64 columns (the caller's R; R = 2 measured
+//   faster than R = 1 at one pair and at 16 pairs: its blocks stage 41%
+//   fewer f2 rows a row); a rank's channels are a TMA coordinate offset and
+//   the TMA's bounds give the zeros past C. One pair at 38x68 and C = 1024
+//   is 38 tiles x 2 ranks = 76 blocks of 178 KB, each a 16-step pipeline.
+// * float32 maps and wider bf16 windows run the CUDA-core body above over a
+//   rank's channels; its 32 x nd^2 f32 partial tile fits in the staging
+//   buffer of every window window_limit admits.
+//
+// Bound: both maps are read once and the output written once (~13 bf16 MAC
+// per input byte at the main-path shapes), so the memory rate bounds it;
+// partial sums move only between the SMs of a cluster, never through device
+// memory.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <utility>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -118,18 +169,59 @@ int allow_smem(K* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+constexpr int kMaxRanks = 8;  // ranks of a split cluster (the portable limit)
+
+// The split forwards' reduction, after each rank of the cluster has written
+// its f32 partial tile to `part` in its own shared memory: the tile's
+// output rows rr < nrows hold per_row values each, at part[rr * row_pitch
+// + e], which go to dst[rr * dst_pitch + e]. Each rank sums one 1/nc slice
+// of the tile's outputs over the ranks' tiles in rank order (distributed
+// shared memory), divides by C and writes it. Every thread of every rank
+// calls it: it holds two cluster barriers.
+template <typename T>
+__device__ __forceinline__ void cluster_sum(float* part, int row_pitch,
+                                            T* __restrict__ dst,
+                                            int64_t dst_pitch, int nrows,
+                                            int per_row, int C, int tid,
+                                            int nthreads) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  cluster.sync();                  // every rank's partial tile is written
+  const float* parts[kMaxRanks];
+#pragma unroll
+  for (int q = 0; q < kMaxRanks; ++q)
+    parts[q] = cluster.map_shared_rank(part, q < nc ? q : 0);
+  const int64_t total = (int64_t)nrows * per_row;
+  const int lo = (int)(total * rank / nc), hi = (int)(total * (rank + 1) / nc);
+  const float fc = (float)C;
+  for (int i = lo + tid; i < hi; i += nthreads) {
+    const int rr = i / per_row, e = i - rr * per_row;
+    const int o = rr * row_pitch + e;
+    float v[kMaxRanks];
+#pragma unroll
+    for (int q = 0; q < kMaxRanks; ++q) v[q] = q < nc ? parts[q][o] : 0.f;
+    float sum = v[0];
+#pragma unroll
+    for (int q = 1; q < kMaxRanks; ++q)
+      if (q < nc) sum = __fadd_rn(sum, v[q]);
+    store(dst + rr * dst_pitch + e, sum / fc);
+  }
+  cluster.sync();                  // no rank leaves while its tile is read
+}
+
 // The body is shared with the channel-split forward (dtt_correlation_split,
-// below): with kSplit each block sums only the channels [cb*block_c,
-// (cb+1)*block_c) of its pair, blockIdx.z = cb*B + b, and writes its raw f32
-// sums to the (nblk, B, H, W, nd*nd) workspace; without it blockIdx.z = b,
-// block_c = C, and the block writes the channel mean in the input dtype.
+// above): with kSplit the block is rank blockIdx.z % nc of a cluster of nc
+// blocks over pair blockIdx.z / nc, sums only the channels [rank * block_c,
+// (rank + 1) * block_c), and the cluster sums the ranks' partial tiles
+// (cluster_sum); without it blockIdx.z = b, block_c = C, and the block
+// writes the channel mean in the input dtype.
 // kMaxJ bounds nd: correlation_kernel keeps the main path's 9 sums
 // (kMaxNd), correlation_kernel_wide takes the wide windows (kMaxNdCore; at
 // most 64 registers a thread, for 1024 threads).
 template <typename T, bool kSplit, int kMaxJ>
 __device__ __forceinline__ void correlation_core(
     const T* __restrict__ f1, const T* __restrict__ f2,
-    void* __restrict__ out_, int B, int H, int W, int C, int dmax, int stride,
+    T* __restrict__ out, int B, int H, int W, int C, int dmax, int stride,
     int nd, int block_c) {
   extern __shared__ float smem[];
   const int halo_w = kTileX + 2 * dmax;
@@ -143,8 +235,9 @@ __device__ __forceinline__ void correlation_core(
   const int nthreads = kTileX * nd;
   const int x0 = blockIdx.x * kTileX;
   const int y = blockIdx.y;
-  const int b = kSplit ? blockIdx.z % B : blockIdx.z;
-  const int c_lo = kSplit ? (blockIdx.z / B) * block_c : 0;
+  const int nc = kSplit ? (int)cg::this_cluster().num_blocks() : 1;
+  const int b = kSplit ? blockIdx.z / nc : blockIdx.z;
+  const int c_lo = kSplit ? (blockIdx.z % nc) * block_c : 0;
   const int c_hi = kSplit ? min(C, c_lo + block_c) : C;
   const int64_t frame = (int64_t)b * H * W * C;
 
@@ -186,76 +279,55 @@ __device__ __forceinline__ void correlation_core(
     __syncthreads();
   }
 
+  if (kSplit) {
+    // the partial tile [32 columns][nd2] over the free staging buffer (it
+    // holds 32 nd2 floats for every window window_limit admits)
+    const int nd2 = nd * nd;
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j)
+      if (j < nd) smem[tx * nd2 + ty * nd + j] = acc[j];
+    cluster_sum(smem, kTileX * nd2,
+                out + (((int64_t)b * H + y) * W + x0) * nd2, 0, 1,
+                min(kTileX, W - x0) * nd2, C, tid, nthreads);
+    return;
+  }
   const int x = x0 + tx;
   if (x < W) {
-    const int64_t o = (((int64_t)blockIdx.z * H + y) * W + x) * nd * nd + ty * nd;
-    if (kSplit) {
-      float* part = static_cast<float*>(out_) + o;
+    T* dst = out + (((int64_t)blockIdx.z * H + y) * W + x) * nd * nd + ty * nd;
+    const float fc = (float)C;
 #pragma unroll
-      for (int j = 0; j < kMaxJ; ++j)
-        if (j < nd) part[j] = acc[j];
-    } else {
-      T* dst = static_cast<T*>(out_) + o;
-      const float fc = (float)C;
-#pragma unroll
-      for (int j = 0; j < kMaxJ; ++j)
-        if (j < nd) store(dst + j, acc[j] / fc);
-    }
+    for (int j = 0; j < kMaxJ; ++j)
+      if (j < nd) store(dst + j, acc[j] / fc);
   }
 }
 
 template <typename T, bool kSplit>
 __global__ void correlation_kernel(const T* __restrict__ f1,
                                    const T* __restrict__ f2,
-                                   void* __restrict__ out_, int B, int H,
-                                   int W, int C, int dmax, int stride, int nd,
+                                   T* __restrict__ out, int B, int H, int W,
+                                   int C, int dmax, int stride, int nd,
                                    int block_c) {
-  correlation_core<T, kSplit, kMaxNd>(f1, f2, out_, B, H, W, C, dmax, stride,
+  correlation_core<T, kSplit, kMaxNd>(f1, f2, out, B, H, W, C, dmax, stride,
                                       nd, block_c);
 }
 
 template <typename T, bool kSplit>
 __global__ void __launch_bounds__(kTileX * kMaxNdCore)
 correlation_kernel_wide(const T* __restrict__ f1, const T* __restrict__ f2,
-                        void* __restrict__ out_, int B, int H, int W, int C,
+                        T* __restrict__ out, int B, int H, int W, int C,
                         int dmax, int stride, int nd, int block_c) {
-  correlation_core<T, kSplit, kMaxNdCore>(f1, f2, out_, B, H, W, C, dmax,
+  correlation_core<T, kSplit, kMaxNdCore>(f1, f2, out, B, H, W, C, dmax,
                                           stride, nd, block_c);
 }
 
-template <typename T>
-int launch_corr_body(void (*kernel)(const T*, const T*, void*, int, int, int,
-                                    int, int, int, int, int),
-                     const void* f1, const void* f2, void* out, int B, int H,
-                     int W, int C, int dmax, int stride, int nd, int block_c,
-                     int nblk, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const int err = allow_smem(kernel, smem);
-    if (err) return err;
-  }
-  dim3 grid((W + kTileX - 1) / kTileX, H, B * nblk);
-  dim3 block(kTileX, nd);
-  kernel<<<grid, block, smem, stream>>>(
-      static_cast<const T*>(f1), static_cast<const T*>(f2), out, B, H, W, C,
-      dmax, stride, nd, block_c);
-  return (int)cudaGetLastError();
-}
-
-// The CUDA-core forward (both forms); refuses nd > kMaxNdCore and staging
-// past a block's shared memory (correlation.py window_limit names both).
-template <typename T, bool kSplit>
-int launch_corr(const void* f1, const void* f2, void* out, int B, int H,
-                int W, int C, int dmax, int stride, int block_c, int nblk,
-                cudaStream_t stream) {
-  const int nd = (2 * dmax) / stride + 1;
-  const int halo_w = kTileX + 2 * dmax;
-  const size_t smem = sizeof(float) *
-      (kChunkC * kPitch1 + (size_t)nd * kChunkC * (halo_w | 1));
-  if (nd > kMaxNdCore || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return launch_corr_body<T>(nd <= kMaxNd ? correlation_kernel<T, kSplit>
-                                          : correlation_kernel_wide<T, kSplit>,
-                             f1, f2, out, B, H, W, C, dmax, stride, nd,
-                             block_c, nblk, smem, stream);
+// The CUDA-core forward's dynamic shared memory: f1's row tile and the nd
+// f2 rows of one 16-channel chunk; split, also the 32 x nd^2 f32 partial
+// tile laid over them.
+size_t core_smem(int nd, int dmax, bool split) {
+  const size_t staging = sizeof(float) *
+      (kChunkC * kPitch1 + (size_t)nd * kChunkC * ((kTileX + 2 * dmax) | 1));
+  const size_t tile = sizeof(float) * kTileX * nd * nd;
+  return split && tile > staging ? tile : staging;
 }
 
 // --- the bf16 tensor-core forward (see the note at the top) ---
@@ -347,6 +419,86 @@ __device__ __forceinline__ void band_step(float (&acc)[kTilesX][4][4],
   }
 }
 
+// The TMA loads of one stage of a tensor-core block (one thread): 32
+// channels from chunk * kStepC of f1's R row tiles (rows yb + rr stride, 64
+// pixels from xg0) and of the nrows2 f2 rows yb - dmax + (iy0 + t) stride
+// (80 pixels from xg0 - dmax) into the stage at `s`, completing on `bar`.
+template <int R>
+__device__ __forceinline__ void tc_issue(uint32_t s, uint32_t bar,
+                                         uint32_t box_bytes,
+                                         const CUtensorMap* m1,
+                                         const CUtensorMap* m2, int chunk,
+                                         int xg0, int yb, int b, int dmax,
+                                         int stride, int iy0, int nrows2) {
+  mbar_expect(bar, box_bytes);
+  for (int rr = 0; rr < R; ++rr)
+    tma_load(s + rr * kGroupX * kRowB, m1, chunk * kStepC, xg0,
+             yb + rr * stride, b, bar);
+  for (int t = 0; t < nrows2; ++t)
+    tma_load(s + (R * kGroupX + t * kCols) * kRowB, m2, chunk * kStepC,
+             xg0 - dmax, yb - dmax + (iy0 + t) * stride, b, bar);
+}
+
+// The same stage filled by all threads with 2-byte loads into `ring`, for
+// maps that TMA cannot take (zeros outside the map and past C).
+template <int R>
+__device__ __forceinline__ void tc_fill(uint8_t* ring,
+                                        const uint16_t* __restrict__ f1,
+                                        const uint16_t* __restrict__ f2,
+                                        int chunk, int stage_rows, int b,
+                                        int H, int W, int C, int xg0, int yb,
+                                        int dmax, int stride, int iy0,
+                                        int tid, int nthreads) {
+  const int64_t frame = (int64_t)b * H * W;
+  for (int i = tid; i < stage_rows * (kStepC / 8); i += nthreads) {
+    const int p = i / (kStepC / 8), part = i % (kStepC / 8);
+    int yy, x;
+    const uint16_t* src;
+    if (p < R * kGroupX) {
+      const int rr = p / kGroupX;
+      yy = yb + rr * stride; x = xg0 + p - rr * kGroupX; src = f1;
+    } else {
+      const int t = (p - R * kGroupX) / kCols;
+      yy = yb - dmax + (iy0 + t) * stride;
+      x = xg0 - dmax + (p - R * kGroupX - t * kCols);
+      src = f2;
+    }
+    const int c = chunk * kStepC + part * 8;
+    const bool in = yy >= 0 && yy < H && x >= 0 && x < W;
+    __align__(16) uint16_t v[8];
+    const int64_t off = in ? (frame + (int64_t)yy * W + x) * C + c : 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = in && c + e < C ? src[off + e] : 0;
+    *reinterpret_cast<uint4*>(ring + swz(p, part)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// Calls put(p, ix, v), where `keep`, for each of a warp's accumulators that
+// holds a kept diagonal: v is the sum for x-position p (0 ... 63) of the
+// column group and dx index ix. Accumulator (q, n) of tile t holds f1[x0 + 16t + q] .
+// f2[x0 - dmax + 16t + n], i.e. ix = (n - q) / stride; the division of
+// k = n - q < 32 by stride <= 16 is (k * inv) >> 16, exact in that range.
+template <typename Put>
+__device__ __forceinline__ void tc_diagonals(
+    const float (&acc)[kTilesX][4][4], int lane, int stride, int nd,
+    bool keep, Put&& put) {
+  const int g = lane >> 2, t4 = lane & 3;
+  const int inv = (65535 + stride) / stride;
+#pragma unroll
+  for (int t = 0; t < kTilesX; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = g + 8 * (e >> 1);
+        const int k = 8 * j + 2 * t4 + (e & 1) - q;
+        const int ix = (k * inv) >> 16;
+        if (k >= 0 && ix * stride == k && ix < nd && keep)
+          put(16 * t + q, ix, acc[t][j][e]);
+      }
+}
+
 // Block: R output rows y_r = yb + r * stride (one residue class mod stride,
 // so consecutive rows share nd - 1 of their f2 rows) x 64 columns of one
 // pair x nw of its nd dy; warp (r, dy). A stage holds 32 channels of f1's R
@@ -395,40 +547,12 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
       ? (R * (W - xg0) + nrows2 * (W - xg0 + 2 * dmax)) * kRowB : stage_bytes;
   auto issue = [&](int chunk) {   // kTma, one thread
     const int buf = chunk % kStages;
-    const uint32_t s = ring_addr + buf * stage_bytes;
-    const uint32_t bar = bars + 8 * buf;
-    mbar_expect(bar, box_bytes);
-    for (int rr = 0; rr < R; ++rr)
-      tma_load(s + rr * kGroupX * kRowB, m1, chunk * kStepC, xg0,
-               yb + rr * stride, b, bar);
-    for (int t = 0; t < nrows2; ++t)
-      tma_load(s + (R * kGroupX + t * kCols) * kRowB, m2, chunk * kStepC,
-               xg0 - dmax, yb - dmax + (iy0 + t) * stride, b, bar);
+    tc_issue<R>(ring_addr + buf * stage_bytes, bars + 8 * buf, box_bytes, m1,
+                m2, chunk, xg0, yb, b, dmax, stride, iy0, nrows2);
   };
   auto fill = [&](int chunk) {    // !kTma, all threads, into stage 0
-    const int64_t frame = (int64_t)b * H * W;
-    for (int i = tid; i < stage_rows * (kStepC / 8); i += nthreads) {
-      const int p = i / (kStepC / 8), part = i % (kStepC / 8);
-      int yy, x;
-      const uint16_t* src;
-      if (p < R * kGroupX) {
-        const int rr = p / kGroupX;
-        yy = yb + rr * stride; x = xg0 + p - rr * kGroupX; src = f1;
-      } else {
-        const int t = (p - R * kGroupX) / kCols;
-        yy = yb - dmax + (iy0 + t) * stride;
-        x = xg0 - dmax + (p - R * kGroupX - t * kCols);
-        src = f2;
-      }
-      const int c = chunk * kStepC + part * 8;
-      const bool in = yy >= 0 && yy < H && x >= 0 && x < W;
-      __align__(16) uint16_t v[8];
-      const int64_t off = in ? (frame + (int64_t)yy * W + x) * C + c : 0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = in && c + e < C ? src[off + e] : 0;
-      *reinterpret_cast<uint4*>(ring + swz(p, part)) =
-          *reinterpret_cast<const uint4*>(v);
-    }
+    tc_fill<R>(ring, f1, f2, chunk, stage_rows, b, H, W, C, xg0, yb, dmax,
+               stride, iy0, tid, nthreads);
   };
 
   if (kTma) {
@@ -476,28 +600,13 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
   }
   __syncthreads();
 
-  // keep the diagonals: accumulator (q, n) of tile t holds f1[x0 + 16t + q]
-  // . f2[x0 - dmax + 16t + n], i.e. dx index ix = (n - q) / stride; the
-  // division of k = n - q < 32 by stride <= 16 is (k * inv) >> 16, exact
-  // in that range
+  // the kept diagonals, divided by C and rounded once, in shared memory
   const int nd2 = nd * nd, pitch = nw * nd;   // so: [R][64 px][nw * nd]
   __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(ring);
   const float fc = (float)C;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int inv = (65535 + stride) / stride;
-#pragma unroll
-  for (int t = 0; t < kTilesX; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = g + 8 * (e >> 1);
-        const int k = 8 * j + 2 * t4 + (e & 1) - q;
-        const int ix = (k * inv) >> 16;
-        if (k >= 0 && ix * stride == k && ix < nd && iy < nd)
-          so[(row1 + 16 * t + q) * pitch + iyl * nd + ix] =
-              __float2bfloat16(acc[t][j][e] / fc);
-      }
+  tc_diagonals(acc, lane, stride, nd, iy < nd, [&](int p, int ix, float v) {
+    so[(row1 + p) * pitch + iyl * nd + ix] = __float2bfloat16(v / fc);
+  });
   __syncthreads();
   const int nx = min(kGroupX, W - xg0);
   const int seg = (min(nw, nd - iy0)) * nd;     // this block's channels
@@ -518,6 +627,111 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
         dst[(i / seg) * nd2 + i % seg] = src[(i / seg) * pitch + i % seg];
     }
   }
+}
+
+// The channel-split forward on the tensor cores (see the note at the top):
+// block (column group, row block, pair x rank) of a cluster of nc blocks
+// along z; R rows x 64 columns x all nd dy, warp (r, dy), as
+// correlation_tc_kernel's blocks with nw = nd, over the rank's channels
+// [rank rank_c, (rank + 1) rank_c) only. Its diagonals stay f32 in a
+// partial tile [R][64 px][nd^2] over the ring (at most 41 KB of its 150 or
+// 178 KB), which cluster_sum adds up across the ranks.
+template <int R, bool kTma>
+__global__ void __launch_bounds__(32 * kMaxNd * R, 1)
+correlation_split_tc_kernel(const __grid_constant__ CUtensorMap map1,
+                            const __grid_constant__ CUtensorMap map2,
+                            const __grid_constant__ CUtensorMap tail1,
+                            const __grid_constant__ CUtensorMap tail2,
+                            const uint16_t* __restrict__ f1,
+                            const uint16_t* __restrict__ f2,
+                            __nv_bfloat16* __restrict__ out, int H, int W,
+                            int C, int dmax, int stride, int nd,
+                            int rank_c) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring_addr = smem_addr(ring);
+  const int nrows2 = R + nd - 1;
+  const int stage_rows = R * kGroupX + nrows2 * kCols;  // 64-byte rows
+  const uint32_t stage_bytes = stage_rows * kRowB;
+  const uint32_t bars = ring_addr + kStages * stage_bytes;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r = warp / nd, iy = warp - r * nd;
+  const int xg0 = blockIdx.x * kGroupX;
+  const int yb = blockIdx.y % stride + stride * R * (blockIdx.y / stride);
+  const int nc = (int)cg::this_cluster().num_blocks();
+  const int b = blockIdx.z / nc, rank = blockIdx.z % nc;
+  // the rank's 32-channel steps step0 ... step0 + nsteps - 1 (never none)
+  const int step0 = rank * (rank_c / kStepC);
+  const int nsteps = min((C + kStepC - 1) / kStepC - step0, rank_c / kStepC);
+
+  const bool tail = xg0 + kGroupX > W;
+  const CUtensorMap* m1 = tail ? &tail1 : &map1;
+  const CUtensorMap* m2 = tail ? &tail2 : &map2;
+  const uint32_t box_bytes = tail
+      ? (R * (W - xg0) + nrows2 * (W - xg0 + 2 * dmax)) * kRowB : stage_bytes;
+  auto issue = [&](int i) {       // kTma, one thread: the rank's step i
+    const int buf = i % kStages;
+    tc_issue<R>(ring_addr + buf * stage_bytes, bars + 8 * buf, box_bytes, m1,
+                m2, step0 + i, xg0, yb, b, dmax, stride, 0, nrows2);
+  };
+
+  if (kTma) {
+    if (tid == 0) {
+      for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int st = 0; st < kStages - 1 && st < nsteps; ++st) issue(st);
+  }
+
+  const int yo = yb + r * stride;                       // output row
+  const int yy2 = yb - dmax + (r + iy) * stride;        // its f2 row for dy
+  const bool live = yo < H && yy2 >= 0 && yy2 < H;      // else 0
+  const int ntiles = min(kTilesX, (W - xg0 + 15) / 16);
+  const int row1 = r * kGroupX, row2 = R * kGroupX + (r + iy) * kCols;
+  float acc[kTilesX][4][4];
+#pragma unroll
+  for (int t = 0; t < kTilesX; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+
+  for (int i = 0; i < nsteps; ++i) {
+    __syncthreads();                 // the stage computed last is free
+    int buf = 0;
+    if (kTma) {
+      if (tid == 0 && i + kStages - 1 < nsteps) issue(i + kStages - 1);
+      buf = i % kStages;
+      mbar_wait(bars + 8 * buf, (i / kStages) & 1);
+    } else {
+      tc_fill<R>(ring, f1, f2, step0 + i, stage_rows, b, H, W, C, xg0, yb,
+                 dmax, stride, 0, tid, nthreads);
+      __syncthreads();
+    }
+    if (!live) continue;
+    const int base = buf * stage_rows;
+    switch (ntiles) {     // a branch-free body per tile count
+      case 4: band_step<4>(acc, ring, base + row1, base + row2, lane); break;
+      case 3: band_step<3>(acc, ring, base + row1, base + row2, lane); break;
+      case 2: band_step<2>(acc, ring, base + row1, base + row2, lane); break;
+      default: band_step<1>(acc, ring, base + row1, base + row2, lane);
+    }
+  }
+  __syncthreads();                   // every stage is read: the ring is free
+
+  const int nd2 = nd * nd;
+  float* part = reinterpret_cast<float*>(ring);
+  tc_diagonals(acc, lane, stride, nd, true, [&](int p, int ix, float v) {
+    part[(row1 + p) * nd2 + iy * nd + ix] = v;
+  });
+  const int nrows = yb < H ? min(R, (H - 1 - yb) / stride + 1) : 0;
+  cluster_sum(part, kGroupX * nd2,
+              out + (((int64_t)b * H + yb) * W + xg0) * nd2,
+              (int64_t)stride * W * nd2, nrows,
+              min(kGroupX, W - xg0) * nd2, C, tid, nthreads);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -558,6 +772,23 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C,
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+
+// The f1 and f2 maps of the tensor-core forwards: boxes of 32 channels x
+// 64 (f1) or 80 (f2, with the halo) pixels for full column groups and of
+// the ragged last group's columns.
+int encode_tc_maps(CUtensorMap (&maps)[4], const void* f1, const void* f2,
+                   int B, int H, int W, int C, int dmax) {
+  const int tail = W % kGroupX ? W % kGroupX : kGroupX;
+  const void* src[4] = {f1, f2, f1, f2};
+  const int box_w[4] = {kGroupX, kCols, tail, tail + 2 * dmax};
+  for (int i = 0; i < 4; ++i) {
+    const int err = encode_map(&maps[i], src[i], B, H, W, C, kStepC,
+                               box_w[i], CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err) return err;
+  }
+  return 0;
+}
+
 template <int R, bool kTma>
 int launch_tc_rows(const CUtensorMap (&maps)[4], const void* f1,
                    const void* f2, void* out, int B, int H, int W, int C,
@@ -587,17 +818,10 @@ int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
   const int nd = (2 * dmax) / stride + 1;
   if (dmax > kMaxD || nd > kMaxNd) return (int)cudaErrorInvalidValue;
   const bool tma = C % 8 == 0 && ((uintptr_t)f1 | (uintptr_t)f2) % 16 == 0;
-  // f1 and f2 boxes for full column groups and for the ragged last one
   CUtensorMap maps[4] = {};
   if (tma) {
-    const int tail = W % kGroupX ? W % kGroupX : kGroupX;
-    const void* src[4] = {f1, f2, f1, f2};
-    const int box_w[4] = {kGroupX, kCols, tail, tail + 2 * dmax};
-    for (int i = 0; i < 4; ++i) {
-      const int err = encode_map(&maps[i], src[i], B, H, W, C, kStepC,
-                                 box_w[i], CU_TENSOR_MAP_SWIZZLE_64B);
-      if (err) return err;
-    }
+    const int err = encode_tc_maps(maps, f1, f2, B, H, W, C, dmax);
+    if (err) return err;
   }
   const bool two = (long)B * H * ((W + kGroupX - 1) / kGroupX)
                    >= sm_count();
@@ -610,59 +834,158 @@ int launch_tc(const void* f1, const void* f2, void* out, int B, int H, int W,
   return tma ? args(launch_tc_rows<1, true>) : args(launch_tc_rows<1, false>);
 }
 
+// The CUDA-core forward; refuses nd > kMaxNdCore and staging past a
+// block's shared memory (correlation.py window_limit names both).
 template <typename T>
 int launch(const void* f1, const void* f2, void* out, int B, int H, int W,
            int C, int dmax, int stride, cudaStream_t stream) {
-  return launch_corr<T, false>(f1, f2, out, B, H, W, C, dmax, stride, C, 1,
-                               stream);
-}
-
-// Channel-split forward (dtt_correlation_split). Replaces the TPU kernel
-// _corr_kernel (dtt/ops/correlation.py), which walked a sequential grid of
-// 128-channel blocks (channels zero-padded to a whole block) and added each
-// block's 81 planes into one f32 accumulator that stayed in VMEM. On Hopper
-// blocks run in parallel in no order, so the channel blocks become
-// concurrent CUDA blocks: the body above, one block per (column tile, row,
-// pair, channel block), e.g. 3 x 38 x 8 = 912 blocks for one pair at
-// C = 1024 where the unsplit kernel has 114 (under one wave of 132 SMs).
-// Each writes its partial planes to an f32 workspace; a second kernel adds
-// the partials in block order, divides by C and casts to the input dtype,
-// so the result does not depend on the order the blocks ran in (no
-// atomics). Channels past C are not read, which the zero padding made
-// inert on the TPU.
-//
-// Bound: the maps are read once and the output written once (~13 bf16 MAC
-// per input byte at the main-path shapes), so the memory rate bounds it;
-// the workspace adds nblk x 4 bytes per output each way.
-template <typename T>
-__global__ void correlation_split_sum_kernel(const float* __restrict__ part,
-                                             T* __restrict__ out,
-                                             int64_t total, int nblk, int C) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float acc = 0.f;
-  for (int cb = 0; cb < nblk; ++cb) acc = __fadd_rn(acc, part[cb * total + i]);
-  store(out + i, acc / (float)C);
-}
-
-template <typename T>
-int launch_split(const void* f1, const void* f2, void* part, void* out,
-                 int B, int H, int W, int C, int dmax, int stride,
-                 int block_c, cudaStream_t stream) {
-  if (stride < 1 || dmax < 0 || C < 1 || block_c < 1)
-    return (int)cudaErrorInvalidValue;
   const int nd = (2 * dmax) / stride + 1;
-  const int nblk = (C + block_c - 1) / block_c;
-  int err = launch_corr<T, true>(f1, f2, part, B, H, W, C, dmax, stride,
-                                 block_c, nblk, stream);
-  if (err) return err;
-  const int64_t total = (int64_t)B * H * W * nd * nd;
-  if (total == 0) return (int)cudaSuccess;
-  constexpr int kThreads = 256;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  correlation_split_sum_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(out), total, nblk, C);
+  const size_t smem = core_smem(nd, dmax, false);
+  if (nd > kMaxNdCore || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const auto kernel = nd <= kMaxNd ? correlation_kernel<T, false>
+                                   : correlation_kernel_wide<T, false>;
+  if (smem > 48 * 1024) {
+    const int err = allow_smem(kernel, smem);
+    if (err) return err;
+  }
+  dim3 grid((W + kTileX - 1) / kTileX, H, B);
+  kernel<<<grid, dim3(kTileX, nd), smem, stream>>>(
+      static_cast<const T*>(f1), static_cast<const T*>(f2),
+      static_cast<T*>(out), B, H, W, C, dmax, stride, nd, C);
   return (int)cudaGetLastError();
+}
+
+// --- the channel-split forward's launch (see the note at the top) ---
+
+// Launches `kernel` in clusters of nc blocks along z; with `clusters`,
+// launches nothing and stores there cudaOccupancyMaxActiveClusters of that
+// launch (how many such clusters the card holds at once).
+template <typename... KArgs, typename... Args>
+int cluster_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                   size_t smem, int nc, cudaStream_t stream, int* clusters,
+                   Args&&... args) {
+  if (smem > 48 * 1024) {
+    const int err = allow_smem(kernel, smem);
+    if (err) return err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = nc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (clusters)
+    return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+// Ranks of a split cluster: k = ceil(nblk / max_ranks) whole blocks of
+// block_c channels a rank, nc = ceil(nblk / k) ranks, so none is empty
+// (split_plan in correlation.py states the same rule).
+struct SplitPlan {
+  int nc, rank_c;
+};
+
+SplitPlan split_plan(int C, int block_c, int max_ranks) {
+  const int nblk = (C + block_c - 1) / block_c;
+  const int k = (nblk + max_ranks - 1) / max_ranks;
+  return {(nblk + k - 1) / k, k * block_c};
+}
+
+template <int R, bool kTma>
+int launch_split_tc_rows(const CUtensorMap (&maps)[4], const void* f1,
+                         const void* f2, void* out, int B, int H, int W,
+                         int C, int dmax, int stride, int nd, SplitPlan plan,
+                         cudaStream_t stream, int* clusters) {
+  const size_t smem = (size_t)kStages * kRowB
+      * (R * kGroupX + (R + nd - 1) * kCols) + 8 * kStages + 1024;
+  const int per_class = ((H + stride - 1) / stride + R - 1) / R;
+  return cluster_launch(
+      correlation_split_tc_kernel<R, kTma>,
+      dim3((W + kGroupX - 1) / kGroupX, stride * per_class, B * plan.nc),
+      dim3(32 * nd * R), smem, plan.nc, stream, clusters, maps[0], maps[1],
+      maps[2], maps[3], static_cast<const uint16_t*>(f1),
+      static_cast<const uint16_t*>(f2), static_cast<__nv_bfloat16*>(out), H,
+      W, C, dmax, stride, nd, plan.rank_c);
+}
+
+// The tensor-core split, `rows` (1 or 2) output rows a block.
+int launch_split_tc(const void* f1, const void* f2, void* out, int B, int H,
+                    int W, int C, int dmax, int stride, int rows,
+                    SplitPlan plan, cudaStream_t stream, int* clusters) {
+  const int nd = (2 * dmax) / stride + 1;
+  if (dmax > kMaxD || nd > kMaxNd || (rows != 1 && rows != 2))
+    return (int)cudaErrorInvalidValue;
+  const bool tma = C % 8 == 0 && ((uintptr_t)f1 | (uintptr_t)f2) % 16 == 0;
+  CUtensorMap maps[4] = {};
+  if (tma && !clusters) {
+    const int err = encode_tc_maps(maps, f1, f2, B, H, W, C, dmax);
+    if (err) return err;
+  }
+  const auto args = [&](auto fn) {
+    return fn(maps, f1, f2, out, B, H, W, C, dmax, stride, nd, plan, stream,
+              clusters);
+  };
+  if (rows == 2)
+    return tma ? args(launch_split_tc_rows<2, true>)
+               : args(launch_split_tc_rows<2, false>);
+  return tma ? args(launch_split_tc_rows<1, true>)
+             : args(launch_split_tc_rows<1, false>);
+}
+
+// The CUDA-core split; refuses what the unsplit CUDA-core forward refuses.
+template <typename T>
+int launch_split_core(const void* f1, const void* f2, void* out, int B, int H,
+                      int W, int C, int dmax, int stride, SplitPlan plan,
+                      cudaStream_t stream, int* clusters) {
+  const int nd = (2 * dmax) / stride + 1;
+  if (nd > kMaxNdCore || core_smem(nd, dmax, false) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = nd <= kMaxNd ? correlation_kernel<T, true>
+                                   : correlation_kernel_wide<T, true>;
+  return cluster_launch(kernel,
+                        dim3((W + kTileX - 1) / kTileX, H, B * plan.nc),
+                        dim3(kTileX, nd), core_smem(nd, dmax, true), plan.nc,
+                        stream, clusters, static_cast<const T*>(f1),
+                        static_cast<const T*>(f2), static_cast<T*>(out), B,
+                        H, W, C, dmax, stride, nd, plan.rank_c);
+}
+
+// dtt_correlation_split's launch; with `info`, launches nothing and stores
+// there the launch's ranks, channels a rank and resident clusters.
+int run_split(const void* f1, const void* f2, void* out, int B, int H, int W,
+              int C, int dmax, int stride, int block_c, int max_ranks,
+              int rows, int dtype, int tensor_cores, cudaStream_t s,
+              int* info) {
+  if (stride < 1 || dmax < 0 || B < 1 || H < 1 || W < 1 || C < 1 ||
+      block_c < kStepC || block_c % kStepC || max_ranks < 1 ||
+      max_ranks > kMaxRanks)
+    return (int)cudaErrorInvalidValue;
+  const SplitPlan plan = split_plan(C, block_c, max_ranks);
+  if ((int64_t)B * plan.nc > 65535) return (int)cudaErrorInvalidValue;
+  int* clusters = nullptr;
+  if (info) {
+    info[0] = plan.nc;
+    info[1] = plan.rank_c;
+    clusters = info + 2;
+  }
+  if (tensor_cores)
+    return dtype == 1 ? launch_split_tc(f1, f2, out, B, H, W, C, dmax, stride,
+                                        rows, plan, s, clusters)
+                      : (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_split_core<float>(f1, f2, out, B, H, W, C, dmax, stride,
+                                    plan, s, clusters);
+  if (dtype == 1)
+    return launch_split_core<__nv_bfloat16>(f1, f2, out, B, H, W, C, dmax,
+                                            stride, plan, s, clusters);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Backward (dtt_correlation_bwd). dtt has no TPU kernel here: its backward
@@ -1058,24 +1381,38 @@ extern "C" int dtt_correlation(const void* f1, const void* f2, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// f1, f2: (B, H, W, C) contiguous; part: (ceil(C / block_c), B, H, W,
-// nd*nd) float32 workspace; out: (B, H, W, nd*nd) of the maps' dtype.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// f1, f2: (B, H, W, C) contiguous; out: (B, H, W, nd*nd) of the maps'
+// dtype (0 = float32, 1 = bfloat16). Channels are summed in whole blocks of
+// block_c (a multiple of 32) by clusters of at most max_ranks (1 ... 8)
+// ranks. tensor_cores: 1 runs the bf16 band (dmax <= 8, nd <= 9) with
+// `rows` (1 or 2) output rows a block, 0 the CUDA-core body (nd <= 32).
+// Returns a cudaError_t (0 = launched).
 extern "C" int dtt_correlation_split(const void* f1, const void* f2,
-                                     void* part, void* out, int B, int H,
-                                     int W, int C, int dmax, int stride,
-                                     int block_c, int dtype, int device,
+                                     void* out, int B, int H, int W, int C,
+                                     int dmax, int stride, int block_c,
+                                     int max_ranks, int rows, int dtype,
+                                     int tensor_cores, int device,
                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_split<float>(f1, f2, part, out, B, H, W, C, dmax, stride,
-                               block_c, s);
-  if (dtype == 1)
-    return launch_split<__nv_bfloat16>(f1, f2, part, out, B, H, W, C, dmax,
-                                       stride, block_c, s);
-  return (int)cudaErrorInvalidValue;
+  return run_split(f1, f2, out, B, H, W, C, dmax, stride, block_c, max_ranks,
+                   rows, dtype, tensor_cores,
+                   static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// What dtt_correlation_split launches for the same arguments, launching
+// nothing: info[0] = ranks a cluster, info[1] = channels a rank, info[2] =
+// cudaOccupancyMaxActiveClusters of the launch. Returns a cudaError_t.
+extern "C" int dtt_correlation_split_form(int B, int H, int W, int C,
+                                          int dmax, int stride, int block_c,
+                                          int max_ranks, int rows, int dtype,
+                                          int tensor_cores, int device,
+                                          int* info) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return run_split(nullptr, nullptr, nullptr, B, H, W, C, dmax, stride,
+                   block_c, max_ranks, rows, dtype, tensor_cores, nullptr,
+                   info);
 }
 
 // f1, f2, df1, df2: (B, H, W, C) contiguous; g: (B, H, W, nd*nd); all of

@@ -132,7 +132,11 @@ def test_psroi_pool_refuses_unknown_impl():
 
 CORR_CASES = {"c64_d8s2": ((2, 12, 20, 64), 8, 2),
               # two 128-channel blocks of _corr_kernel, the second padded
-              "c160_d2s1": ((2, 7, 11, 160), 2, 1)}
+              "c160_d2s1": ((2, 7, 11, 160), 2, 1),
+              # three blocks, the last padded (C % 8 != 0)
+              "c300_d2s1": ((1, 5, 7, 300), 2, 1),
+              # nine blocks: several a rank in the port's split clusters
+              "c1152_d8s2": ((1, 6, 9, 1152), 8, 2)}
 
 
 def _corr_maps(case, seed):

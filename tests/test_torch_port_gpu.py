@@ -385,18 +385,51 @@ def test_psroi_sat_kernel_at_one_frame(cuda):
                                atol=1e-5 * x.grad.abs().max().item())
 
 
+# Kernel 7's cases, each with its bf16 body and the ranks of its clusters
+# by split_plan (SPLIT_RANKS: at most 2 on the tensor cores, 8 on the CUDA
+# cores, which float32 maps take); the rule does not read the card's SM
+# count, so a 132-SM H100 runs these forms
+SPLIT_SHAPES = [
+    # C < 128: clusters of 1; tensor cores by TMA
+    ((2, 12, 20, 64), 8, 2),
+    # tensor cores by TMA, 2 ranks of 128 (f32: the same), the second block
+    # 32 channels
+    ((2, 7, 11, 160), 2, 1),
+    # C % 8 != 0: tensor cores with 2-byte staging, 2 ranks of 256, the
+    # second 44 channels (f32: 3 ranks of 128)
+    ((3, 9, 37, 300), 8, 2),
+    ((2, 7, 11, 300), 2, 1),
+    # the main path's maps, tensor cores by TMA: 2 ranks of 256 and of 512
+    # (f32: 4 and 8 ranks of 128)
+    ((1, 38, 68, 512), 8, 2),
+    ((1, 38, 68, 1024), 8, 2),
+    # C > 1024, several blocks a rank: 12 blocks, 2 ranks of 768 (f32: 6 of
+    # 256); 17 blocks, 2 ranks of 1152, the last block 32 channels (f32: 6
+    # ranks of 384)
+    ((2, 12, 20, 1536), 8, 2),
+    ((1, 9, 17, 2080), 2, 1),
+    # a bf16 window past the band: the CUDA cores, 2 ranks of 128
+    ((2, 12, 20, 256), 16, 4),
+    # the widest window the CUDA cores take (32 displacements an axis:
+    # 1,024 threads and 196 KB of staging a block) in clusters of 8 ranks
+    ((1, 6, 40, 1024), 31, 2)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,d,s", [((2, 12, 20, 64), 8, 2),
-                                       ((2, 7, 11, 160), 2, 1),
-                                       ((3, 9, 37, 300), 8, 2)])
+@pytest.mark.parametrize("shape,d,s", SPLIT_SHAPES)
 def test_correlation_split_kernel_matches_plain(cuda, dtype, shape, d, s):
     """Kernel 7 (``dtt_correlation_split``): 128-channel blocks summed in
-    block order, a partial last block, against the plain version (f32:
-    1e-5; bf16: one bf16 ulp of each output, 2^-7 |x|, which a dropped
-    block of channels would exceed many times)."""
+    rank order across a cluster, against the plain version (f32: 1e-5;
+    bf16: one bf16 ulp of each output, 2^-7 |x|, which a dropped block of
+    channels would exceed many times); the launcher's form is
+    ``split_plan``'s."""
     g = torch.Generator().manual_seed(2)
     f1 = torch.randn(shape, generator=g).to(cuda, dtype)
     f2 = torch.randn(shape, generator=g).to(cuda, dtype)
+    plan = tcorr.split_plan(shape[-1], dtype, d, s)
+    form = tcorr.split_form(shape, dtype, d, s)
+    assert (form["body"], form["ranks"], form["channels"]) == plan
+    assert form["max_active_clusters"] >= 1
     before = tcorr.correlation_split_cuda.launches
     got = tcorr.correlation(f1, f2, d, s, "pallas")
     torch.cuda.synchronize()
@@ -404,6 +437,62 @@ def test_correlation_split_kernel_matches_plain(cuda, dtype, shape, d, s):
     want = tcorr.correlation_plain(f1, f2, d, s)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **CORR_TOL[dtype])
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("max_ranks", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 38, 68, 1024), (2, 9, 17, 300)])
+def test_correlation_split_forms_match_plain(cuda, rows, max_ranks, shape):
+    """Every form the split's rule can choose (1 or 2 rows a tensor-core
+    block, clusters of at most 2, 4 or 8 ranks), by TMA and by 2-byte
+    staging, within one bf16 ulp of the plain version."""
+    g = torch.Generator().manual_seed(6)
+    f1, f2 = (torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    got = tcorr.correlation_split_cuda(f1, f2, 8, 2, max_ranks=max_ranks,
+                                       rows=rows)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               tcorr.correlation_plain(f1, f2, 8, 2).float(),
+                               **CORR_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_correlation_split_kernel_is_deterministic(cuda, dtype):
+    """The ranks' partial tiles are summed in rank order, not in the order
+    the blocks ran: three runs give the same bits."""
+    g = torch.Generator().manual_seed(7)
+    f1, f2 = (torch.randn(1, 38, 68, 1024, generator=g).to(cuda, dtype)
+              for _ in range(2))
+    runs = [tcorr.correlation_split_cuda(f1, f2, 8, 2) for _ in range(3)]
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for run in runs[1:]:
+        assert torch.equal(run.view(bits), runs[0].view(bits))
+
+
+def test_correlation_split_makes_one_launch_and_allocates_its_output(cuda):
+    """One kernel on the device and one allocation, the output: no
+    workspace and no second pass."""
+    g = torch.Generator().manual_seed(8)
+    f1, f2 = (torch.randn(1, 38, 68, 1024, generator=g).to(cuda,
+                                                          torch.bfloat16)
+              for _ in range(2))
+    tcorr.correlation_split_cuda(f1, f2, 8, 2)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    before = tcorr.correlation_split_cuda.launches
+    tcorr.correlation_split_cuda(f1, f2, 8, 2)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
+    assert tcorr.correlation_split_cuda.launches == before + 1
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tcorr.correlation_split_cuda(f1, f2, 8, 2)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "correlation_split" in kernels[0], kernels
 
 
 def test_correlation_pallas_autograd_launches_split_and_bwd(cuda):

@@ -248,6 +248,50 @@ def test_correlation_window_limit_names_the_card(d, s, match):
         assert re.search(match, limit), limit
 
 
+@pytest.mark.parametrize("c,max_ranks,ranks,channels", [
+    (1, 8, 1, 128), (64, 8, 1, 128),          # under one block: a cluster of 1
+    (300, 8, 3, 128), (300, 2, 2, 256),
+    (512, 8, 4, 128), (512, 2, 2, 256),       # the main path's c3
+    (1024, 8, 8, 128), (1024, 4, 4, 256),     # c4 and the reduced c5
+    (1024, 2, 2, 512),
+    (1152, 8, 5, 256),                        # 9 blocks: k = 2, not 8 ranks
+    (1536, 8, 6, 256), (2080, 8, 6, 384),     # C > 1024: several blocks a rank
+    (4096, 8, 8, 512), (70000, 8, 8, 8832)])
+@pytest.mark.parametrize("dtype,d,s", [(torch.bfloat16, 8, 2),
+                                       (torch.float32, 2, 1)])
+def test_split_plan_takes_whole_channel_blocks(c, max_ranks, ranks,
+                                               channels, dtype, d, s):
+    """The split forward's clusters: at most `max_ranks` (<= 8) ranks, each a
+    contiguous run of k = ceil(nblk / max_ranks) whole 128-channel blocks,
+    ceil(nblk / k) ranks so that none is empty, together covering C exactly;
+    any C is taken."""
+    plan = tcorr.split_plan(c, dtype, d, s, max_ranks)
+    assert (plan.ranks, plan.channels) == (ranks, channels)
+    assert plan.body == tcorr.correlation_body(dtype, d, s)
+    assert 1 <= plan.ranks <= max_ranks <= 8 and plan.channels % 128 == 0
+    runs = [(r * plan.channels, min(c, (r + 1) * plan.channels))
+            for r in range(plan.ranks)]
+    assert runs[0][0] == 0 and runs[-1][1] == c
+    assert all(lo < hi for lo, hi in runs)
+
+
+@pytest.mark.parametrize("dtype,d,s,body", [
+    (torch.bfloat16, 8, 2, "tensor_cores"),   # the main path's window
+    (torch.bfloat16, 16, 4, "cuda_cores"),    # past the band
+    (torch.float32, 8, 2, "cuda_cores")])
+def test_split_plan_body_and_default_ranks(dtype, d, s, body):
+    """Without `max_ranks` the plan takes its body's ``SPLIT_RANKS`` (2, 4
+    or 8); the body is ``correlation_body``'s, as in the unsplit forward;
+    C < 1 and a cap past the portable cluster limit of 8 raise."""
+    cap = tcorr.SPLIT_RANKS[body]
+    assert cap in (2, 4, 8) and tcorr.SPLIT_ROWS in (1, 2)
+    assert tcorr.split_plan(1024, dtype, d, s) == (body, cap, 1024 // cap)
+    with pytest.raises(ValueError, match="max_ranks <= 8"):
+        tcorr.split_plan(1024, dtype, d, s, 16)
+    with pytest.raises(ValueError, match="C >= 1"):
+        tcorr.split_plan(0, dtype, d, s)
+
+
 def test_correlation_bf16_matches_pallas_mm():
     """bfloat16 in and out, f32 sums in both: the results differ by the
     final rounding to bf16, one bf16 ulp of values below 1 (4e-3)."""

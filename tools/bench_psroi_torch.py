@@ -1,5 +1,5 @@
-"""Time the port's PSRoI pool kernels on one card, by CUDA events and by the
-device's own kernel times.
+"""Time the port's PSRoI pool and correlation forward kernels on one card,
+by CUDA events and by the device's own kernel times.
 
 Imports ``dtt_torch`` and ``chip_smoke`` from the tree at ``--root``
 (default: this checkout), so one call can time two trees in turns. Each
@@ -18,7 +18,16 @@ chip_smoke's random RoIs):
   ``dtt_psroi_sat_mean`` as three single launches and, where the tree has
   grouped launches, as one. Then the pair batch's pool stage split
   (bounds, SAT build, kernel, division, vote) as ``pool_vote_fused`` runs
-  it with ``roi.eval_pool_impl=pallas_mm``.
+  it with ``roi.eval_pool_impl=pallas_mm``;
+* ``corr``: the correlation forwards, kernel 1 ``correlation_cuda`` and
+  kernel 7 ``correlation_split_cuda``, at one pair's three scales (path
+  ``frame``: 38x68, C = 512 / 1024 / 1024, bf16, d = 8, s = 2) and at 16
+  pairs' (``chunk``), each held to one bf16 ulp of the plain version, then
+  on the same maps in float32 (``frame_f32``, ``chunk_f32``: the CUDA-core
+  bodies) at 1e-5, with the least time the card could take
+  (``bound_ms``); ``--split-forms``
+  adds kernel 7 at other forms (rows a block : most ranks a cluster) where
+  the tree takes them.
 
 Each timed case prints one JSON line: ``event_ms``, CUDA events around
 ``--iters`` repetitions as ``chip_smoke.py`` times them (host launch gaps
@@ -29,6 +38,7 @@ with each kernel's share in ``device_ms_per_call``::
 
     python tools/bench_psroi_torch.py --label change
     python tools/bench_psroi_torch.py --root _chip_tree/parent --label parent
+    python tools/bench_psroi_torch.py --kernels corr --split-forms 1:2,2:8
 """
 
 from __future__ import annotations
@@ -47,7 +57,10 @@ def main() -> int:
     p.add_argument("--label", default="tree")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--kernels", default="direct,sat",
-                   help="comma-separated: direct, sat")
+                   help="comma-separated: direct, sat, corr")
+    p.add_argument("--split-forms", default="",
+                   help="comma-separated rows:max_ranks forms of kernel 7 "
+                        "to time beside its default (e.g. 1:2,2:8)")
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -110,6 +123,10 @@ def main() -> int:
         bench_direct(cfg, cs, ops, report, k, h, w, bf16)
     if "sat" in kinds:
         bench_sat(cfg, cs, ops, report, timed, args.label, np, k, hh, ww)
+    if "corr" in kinds:
+        forms = [tuple(int(x) for x in f.split(":"))
+                 for f in args.split_forms.split(",") if f]
+        bench_corr(cfg, cs, report, forms)
     return 0
 
 
@@ -239,6 +256,55 @@ def bench_sat(cfg, cs, ops, report, timed, label, np, k, hh, ww) -> None:
             report(name, "frame_grouped", err,
                    lambda: ops.psroi_sat_group_cuda(form, members),
                    launches=1)
+
+
+def bench_corr(cfg, cs, report, forms) -> None:
+    """Kernels 1 and 7 at one pair's and 16 pairs' three scales
+    (chip_smoke's seeds 10 and 1), in bf16 against the plain version at one
+    bf16 ulp, then on the same maps in float32 (the CUDA-core bodies) at
+    1e-5; kernel 7 also at each (rows, max_ranks) of `forms`."""
+    import functools
+    import torch
+    from dtt_torch.ops import correlation as corr
+    t = cfg.model.track
+    d, s = t.max_displacement, t.stride
+    new = hasattr(corr, "split_plan")
+
+    def f32_check(got, want, what):
+        err = (got - want).abs().max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"{what}: max abs err {err}")
+        return err
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for path, pairs, seed in (("frame", 1, 10), ("chunk", 16, 1)):
+            cases = [(a.to(dtype), c.to(dtype))
+                     for a, c in cs.corr_inputs(cfg, pairs, seed)]
+            if dtype == torch.float32:
+                path += "_f32"
+            check = cs.corr_check if dtype == torch.bfloat16 else f32_check
+            wants = [corr.correlation_plain(a, c, d, s) for a, c in cases]
+            bound_ms = cs.corr_bound(cases, d, s)[0]
+            kernels = {"correlation": (corr.correlation_cuda, {}),
+                       "correlation_split": (corr.correlation_split_cuda, {})}
+            for rows, ranks in forms if new else ():
+                if dtype == torch.float32 and rows != forms[0][0]:
+                    continue            # rows are the tensor cores' only
+                kernels[f"correlation_split_r{rows}_n{ranks}"] = (
+                    corr.correlation_split_cuda,
+                    {"rows": rows, "max_ranks": ranks})
+            for name, (fn, kw) in kernels.items():
+                kernel = functools.partial(fn, **kw)
+                err = max(check(kernel(a, c, d, s), want, f"{name} ({path})")
+                          for (a, c), want in zip(cases, wants))
+                extra = {"bound_ms": bound_ms}
+                if new and fn is corr.correlation_split_cuda:
+                    extra["forms"] = [corr.split_form(tuple(a.shape), a.dtype,
+                                                      d, s, **kw)
+                                      for a, _ in cases]
+                report(name, path, err,
+                       lambda: [kernel(a, c, d, s) for a, c in cases],
+                       **extra)
 
 
 if __name__ == "__main__":
