@@ -22,9 +22,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    calls through the kernel, the plain version and, where one exists, one
    PyTorch call computing the same function, beside the least time the
    card could take; the channel-split correlation (its cluster form per
-   scale, three runs bit for bit, and both correlation forwards' device
-   time by the profiler) at one pair and beside the unsplit one at a video
-   chunk's 16 pairs; then correlation windows past the
+   scale and three runs bit for bit) at one pair and beside the unsplit
+   one at a video chunk's 16 pairs; then correlation windows past the
    tensor-core band (d=16/s=4, d=10/s=2) in bf16 and f32 under every
    kernel form, forward and backward, against the plain versions;
 4. small references: the tiny test config in float32 through the kernels
@@ -58,7 +57,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    split, then on the last frame ``rfcn_head`` under every ``impl`` (one
    SAT kernel launch a call for both maps under ``pallas_mm`` and
    ``pallas``) and ``correlation`` under both kernel forms at one pair's
-   three scales, each checked, its launches counted and timed.
+   three scales, each checked, its launches counted and timed;
+9. both correlation forwards' device time by ``torch.profiler`` at one
+   pair and at 16 pairs, after the main paths, since a traced card slows
+   the host's later launches.
 
 It prints a JSON line of the kernels' numbers before the last line, one
 entry per kernel and path, each with the launches of that path's run, and
@@ -728,8 +730,8 @@ def phase_correlation_forms(cfg: Config, pairs: int, seed: int) -> list:
     pairs x 3 scales: the unsplit kernel 1 (``correlation_cuda``) and the
     channel-split kernel 7 (``correlation_split_cuda``), each against the
     plain version and timed in turns (split, unsplit, unsplit, split) by
-    CUDA events, then by the profiler's device time. Prints kernel 7's
-    form per scale (``split_plan``, checked against the launcher's, and
+    CUDA events (device time: ``phase_correlation_device``). Prints kernel 7's
+    form per scale (``split_plan``'s ranks, the launch's clusters and
     cudaOccupancyMaxActiveClusters) and checks that three runs of it give
     the same bits. Returns their entries for the single-frame path."""
     t = cfg.model.track
@@ -737,13 +739,12 @@ def phase_correlation_forms(cfg: Config, pairs: int, seed: int) -> list:
     cases = corr_inputs(cfg, pairs, seed)
     for f1, _ in cases:
         form = corr_ops.split_form(tuple(f1.shape), f1.dtype, d, s)
-        plan = corr_ops.split_plan(f1.shape[-1], f1.dtype, d, s)
-        if (form["body"], form["ranks"], form["channels"]) != tuple(plan):
-            raise AssertionError(f"split_plan {plan} differs from the "
-                                 f"launcher's form {form}")
-        log(f"split form ({pairs} pair(s), C={f1.shape[-1]}): {plan}, "
-            f"{form['rows']} row(s) a block, {form['max_active_clusters']} "
-            f"clusters resident at once")
+        if not (1 <= form["ranks"] <= 8 and form["max_active_clusters"] >= 1):
+            raise AssertionError(f"split form {form}")
+        log(f"split form ({pairs} pair(s), C={f1.shape[-1]}): "
+            f"{form['body']}, {form['ranks']} rank(s) of "
+            f"{form['channels']} channels, {form['clusters']} clusters, "
+            f"{form['max_active_clusters']} resident at once")
     kernels = {"correlation": corr_ops.correlation_cuda,
                "correlation_split": corr_ops.correlation_split_cuda}
     errs = dict.fromkeys(kernels, 0.0)
@@ -769,23 +770,15 @@ def phase_correlation_forms(cfg: Config, pairs: int, seed: int) -> list:
     for name in ("correlation_split", "correlation", "correlation",
                  "correlation_split"):
         ms[name] += time_ms(calls[name], iters=20) / 2
-    dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
     plain_ms = time_ms(lambda: [corr_ops.correlation_plain(a, c, d, s)
                                 for a, c in cases], iters=3, warmup=1)
     bound_ms, bound_by, nbytes, ops = corr_bound(cases, d, s)
-    shown = {name: "not measured" if v is None else f"{v:.4f} ms"
-             for name, v in dev.items()}
-    share = {name: "" if v is None else f", {bound_ms / v:.1%}"
-             for name, v in dev.items()}
     log(f"correlation forms: {pairs} pair(s) x 3 scales "
         f"{[tuple(c[0].shape) for c in cases]} bf16 d={d} s={s}: split "
         f"kernel {ms['correlation_split']:.4f} ms (max_abs_err "
         f"{errs['correlation_split']:.3g}, 3 runs bit-equal), unsplit kernel "
         f"{ms['correlation']:.4f} ms (max_abs_err {errs['correlation']:.3g}),"
-        f" tol 2^-7 |want| + 1e-5; device (profiler): split "
-        f"{shown['correlation_split']}{share['correlation_split']}, unsplit "
-        f"{shown['correlation']}{share['correlation']} of the bound; plain "
-        f"{plain_ms:.4f} ms, library: none, bound_us {bound_ms * 1e3:.1f} "
+        f" tol 2^-7 |want| + 1e-5; plain {plain_ms:.4f} ms, library: none, bound_us {bound_ms * 1e3:.1f} "
         f"({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); share "
         f"of the bound by events: split "
         f"{bound_ms / ms['correlation_split']:.1%}, unsplit "
@@ -797,6 +790,29 @@ def phase_correlation_forms(cfg: Config, pairs: int, seed: int) -> list:
              "replaces": replaces[name], "max_abs_err": errs[name],
              "ms": ms[name], "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": None} for name in kernels]
+
+
+def phase_correlation_device(cfg: Config) -> None:
+    """The profiler's device time of both correlation forwards on
+    ``phase_correlation_forms``' inputs (one pair, seed 10; 16 pairs, seed
+    1), beside the bound. It runs after the main paths: once the profiler
+    has traced the card, every later launch costs the host more, which
+    slows the launch-bound paths (NMS loops) that follow."""
+    t = cfg.model.track
+    d, s = t.max_displacement, t.stride
+    for pairs, seed in ((1, 10), (FRAMES_PER_CHUNK - 1, 1)):
+        cases = corr_inputs(cfg, pairs, seed)
+        bound_ms = corr_bound(cases, d, s)[0]
+        shown = []
+        for name, kernel in (("split", corr_ops.correlation_split_cuda),
+                             ("unsplit", corr_ops.correlation_cuda)):
+            v = device_ms(lambda: [kernel(a, c, d, s) for a, c in cases],
+                          iters=20)
+            shown.append(f"{name} not measured" if v is None else
+                         f"{name} {v:.4f} ms, {bound_ms / v:.1%} of the "
+                         f"bound")
+        log(f"correlation forms, device (profiler): {pairs} pair(s) x 3 "
+            f"scales: {'; '.join(shown)}")
 
 
 def phase_wide_windows(seed: int) -> None:
@@ -1649,6 +1665,7 @@ def main() -> int:
                 "frame": phase_frame_path(cfg, tree, card)}
     for k in kernels:
         k["launches"] = launches[k["path"]][k["name"]]
+    phase_correlation_device(cfg)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

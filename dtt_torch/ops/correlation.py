@@ -23,8 +23,8 @@ NHWC, batched over frame pairs.
   same source, which replaces the TPU kernel ``_corr_kernel``: the blocks
   of one output tile form a thread block cluster over 128-channel blocks
   and sum their partial tiles in rank order through distributed shared
-  memory, on the body `correlation_body` names; `split_plan` gives the
-  cluster's ranks.
+  memory, on the body `correlation_body` names; `split_plan` chooses the
+  cluster's ranks from the card's occupancy.
 * `correlation_bwd_plain` / `correlation_bwd_cuda` — the gradients of both
   inputs: the shifted multiply form, and a kernel in the same source (dtt
   differentiates its forward with XLA's AD instead).
@@ -213,16 +213,8 @@ correlation_cuda.launches = 0
 
 # channels per block of dtt_correlation_split (dtt's channel_block)
 _SPLIT_C = 128
-_MAX_RANKS = 8     # kMaxRanks: the portable thread block cluster limit
-# The most ranks a split cluster takes, per body, and the output rows a
-# tensor-core split block owns, measured on an H100 at one pair and at 16
-# pairs of 38x68 maps, C = 512/1024/1024 (tools/bench_psroi_torch.py
-# --kernels corr --split-forms; PERF.md, kernel 7): two rows a block and
-# 2 ranks on the tensor cores (more ranks are mostly ring fill: 4 and 8
-# took 1.3x and 1.7x as long at 16 pairs and gained nothing at one pair);
-# 8 on the CUDA cores (float32 at one pair: 0.57 ms against 0.73 with 2).
-SPLIT_RANKS = {"tensor_cores": 2, "cuda_cores": 8}
-SPLIT_ROWS = 2
+_SPLIT_CAPS = (1, 2, 4, 8)  # the most ranks a cluster, fewest first; 8 is
+                            # the portable thread block cluster limit
 
 
 class SplitPlan(NamedTuple):
@@ -232,88 +224,135 @@ class SplitPlan(NamedTuple):
 
 
 def split_plan(c: int, dtype: torch.dtype, max_displacement: int,
-               stride: int, max_ranks: int | None = None) -> SplitPlan:
-    """The form of ``correlation_split_cuda`` for C = `c` channels, by the
-    rule of ``dtt_correlation_split``: with nblk = ceil(C / 128) channel
-    blocks and at most `max_ranks` ranks (``SPLIT_RANKS[body]`` unless
-    given), each rank takes k = ceil(nblk / max_ranks) whole blocks, a
-    contiguous run, and there are ceil(nblk / k) ranks, so none is empty:
-    C = 1152 (9 blocks) at 8 gives 5 ranks of 256 channels."""
+               stride: int, occupancy) -> SplitPlan:
+    """The clusters of ``correlation_split_cuda`` for C = `c` channels.
+    With nblk = ceil(C / 128) channel blocks and a cap of at most 1, 2, 4
+    or 8 ranks, each rank takes k = ceil(nblk / cap) whole blocks, a
+    contiguous run, and there are ceil(nblk / k) ranks, so none is empty
+    (C = 1152, 9 blocks, at a cap of 8: 5 ranks of 256 channels). Of these
+    forms it takes the fewest ranks whose launch fills the card, else the
+    most: ``occupancy(ranks, channels)`` gives a form's (clusters of the
+    launch, clusters the card holds at once), and the launch fills the card
+    where the first is at least the second. Forms the card cannot hold
+    (none at once) are passed over. Ranks fill SMs the tiles leave idle;
+    where the tiles fill the card, more ranks only add ring fills and
+    partial sums (measured on an H100: ``PERF.md``, kernel 7)."""
+    if c < 1:
+        raise ValueError(f"split_plan: needs C >= 1, got C={c}")
     body = correlation_body(dtype, max_displacement, stride)
-    cap = SPLIT_RANKS[body] if max_ranks is None else max_ranks
-    if not (c >= 1 and 1 <= cap <= _MAX_RANKS):
-        raise ValueError(f"split_plan: needs C >= 1 and 1 <= max_ranks <= "
-                         f"{_MAX_RANKS}, got C={c}, max_ranks={cap}")
     nblk = -(-c // _SPLIT_C)
-    k = -(-nblk // cap)
-    return SplitPlan(body, -(-nblk // k), k * _SPLIT_C)
+    forms = []
+    for cap in _SPLIT_CAPS:
+        k = -(-nblk // cap)
+        form = (-(-nblk // k), k * _SPLIT_C)
+        if form not in forms:
+            forms.append(form)
+    held = []
+    for form in forms:
+        clusters, resident = occupancy(*form)
+        if resident > 0:
+            if clusters >= resident:
+                return SplitPlan(body, *form)
+            held.append(form)
+    return SplitPlan(body, *(held[-1] if held else forms[0]))
 
 
 @functools.lru_cache(maxsize=None)
 def _split_entry():
     fn = _build.load("correlation").dtt_correlation_split
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _split_form_entry():
-    fn = _build.load("correlation").dtt_correlation_split_form
-    fn.argtypes = [ctypes.c_int] * 12 + [ctypes.c_void_p]
+def _occupancy_entry():
+    fn = _build.load("correlation").dtt_correlation_split_occupancy
+    fn.argtypes = [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _split_args(name: str, shape, dtype: torch.dtype, max_displacement: int,
-                stride: int, max_ranks, rows) -> tuple:
-    """The C entry's (B, H, W, C, d, s, block, max_ranks, rows, dtype,
-    tensor_cores) for a split launch; raises on what the kernel refuses."""
+@functools.lru_cache(maxsize=None)
+def _split_occupancy(shape, dtype: torch.dtype, max_displacement: int,
+                     stride: int, ranks: int, channels: int,
+                     device: int) -> tuple:
+    """(clusters of the split launch, clusters CUDA device `device` holds
+    at once) for clusters of `ranks` ranks of `channels` channels; (0, 0)
+    where the grid cannot take the ranks."""
     b, h, w, c = shape
-    body = correlation_body(dtype, max_displacement, stride)
-    cap = SPLIT_RANKS[body] if max_ranks is None else max_ranks
-    ranks = split_plan(c, dtype, max_displacement, stride, cap).ranks
-    if body == "cuda_cores":
-        _check_window(name, max_displacement, stride)
-    rows = SPLIT_ROWS if rows is None else rows
-    if rows not in (1, 2):
-        raise ValueError(f"{name}: rows is 1 or 2, got {rows}")
     if b * ranks >= 2 ** 16:
-        raise ValueError(f"{name}: needs B * ranks < 65536, got B={b}, "
-                         f"{ranks} ranks")
-    return (b, h, w, c, max_displacement, stride, _SPLIT_C, cap, rows,
-            _DTYPE_CODES[dtype], int(body == "tensor_cores"))
+        return (0, 0)
+    info = (ctypes.c_int * 2)()
+    tc = correlation_body(dtype, max_displacement, stride) == "tensor_cores"
+    err = _occupancy_entry()(b, h, w, c, max_displacement, stride, ranks,
+                             channels, _DTYPE_CODES[dtype], int(tc), device,
+                             info)
+    if err:
+        raise RuntimeError(f"correlation split occupancy: cudaError {err}")
+    return info[0], info[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(shape, dtype: torch.dtype, max_displacement: int,
+                 stride: int, device: int) -> SplitPlan:
+    return split_plan(shape[-1], dtype, max_displacement, stride,
+                      functools.partial(_split_occupancy, shape, dtype,
+                                        max_displacement, stride,
+                                        device=device))
+
+
+def split_form(shape, dtype: torch.dtype, max_displacement: int = 8,
+               stride: int = 2, device: int = 0) -> dict:
+    """What ``correlation_split_cuda`` launches for maps of `shape` and
+    `dtype` on CUDA device `device`, launching nothing: its ``split_plan``
+    (``body``, ``ranks``, ``channels``), the launch's ``clusters`` and
+    ``max_active_clusters`` (cudaOccupancyMaxActiveClusters: such clusters
+    resident on the card at once)."""
+    shape = tuple(shape)
+    plan = _device_plan(shape, dtype, max_displacement, stride, device)
+    clusters, resident = _split_occupancy(shape, dtype, max_displacement,
+                                          stride, plan.ranks, plan.channels,
+                                          device=device)
+    return {**plan._asdict(), "clusters": clusters,
+            "max_active_clusters": resident}
 
 
 def correlation_split_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                           max_displacement: int = 8, stride: int = 2, *,
-                           max_ranks: int | None = None,
-                           rows: int | None = None) -> torch.Tensor:
+                           max_displacement: int = 8, stride: int = 2
+                           ) -> torch.Tensor:
     """(B, H, W, C) x2 -> (B, H, W, nd^2) by the channel-split CUDA kernel:
-    for each output tile a thread block cluster of ``split_plan(...).ranks``
-    blocks, each summing a run of whole 128-channel blocks, adds the
-    partial tiles in rank order through distributed shared memory, divides
-    by C and rounds once. The body is ``correlation_body``'s: the
-    tensor-core band (`rows` output rows a block, ``SPLIT_ROWS`` unless
-    given) for bf16 windows in it, the CUDA cores otherwise, where it
-    raises, naming the limit, on a window that ``window_limit`` refuses.
-    `max_ranks` overrides ``SPLIT_RANKS`` (for measurements). Allocates
-    only the output; deterministic.
+    for each output tile a thread block cluster of ``split_plan``'s ranks,
+    each summing a run of whole 128-channel blocks, adds the partial tiles
+    in rank order through distributed shared memory, divides by C and
+    rounds once. The body is ``correlation_body``'s: the tensor-core band
+    (two output rows a block) for bf16 windows in it, the CUDA cores
+    otherwise, where it raises, naming the limit, on a window that
+    ``window_limit`` refuses. Allocates only the output; deterministic.
 
     Launches on the current stream; counts its launches in
     ``correlation_split_cuda.launches``.
     """
     name = "correlation_split_cuda"
     _check_maps(name, f1, f2, max_displacement, stride)
-    args = _split_args(name, f1.shape, f1.dtype, max_displacement, stride,
-                       max_ranks, rows)
-    out = f1.new_empty((*f1.shape[:3],
-                        num_corr_channels(max_displacement, stride)))
+    body = correlation_body(f1.dtype, max_displacement, stride)
+    if body == "cuda_cores":
+        _check_window(name, max_displacement, stride)
+    b, h, w, c = f1.shape
+    out = f1.new_empty((b, h, w, num_corr_channels(max_displacement, stride)))
     if out.numel() == 0:
         return out
+    if c < 1 or b >= 2 ** 16:
+        raise ValueError(f"{name}: needs C >= 1 and B < 65536, got B={b}, "
+                         f"C={c}")
     device = f1.get_device()
-    err = _split_entry()(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), *args,
-                         device, torch._C._cuda_getCurrentRawStream(device))
+    plan = _device_plan((b, h, w, c), f1.dtype, max_displacement, stride,
+                        device)
+    err = _split_entry()(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h,
+                         w, c, max_displacement, stride, plan.ranks,
+                         plan.channels, _DTYPE_CODES[f1.dtype],
+                         int(body == "tensor_cores"), device,
+                         torch._C._cuda_getCurrentRawStream(device))
     if err:
         raise RuntimeError(f"correlation split kernel launch failed: "
                            f"cudaError {err}")
@@ -322,27 +361,6 @@ def correlation_split_cuda(f1: torch.Tensor, f2: torch.Tensor,
 
 
 correlation_split_cuda.launches = 0
-
-
-def split_form(shape, dtype: torch.dtype, max_displacement: int = 8,
-               stride: int = 2, *, max_ranks: int | None = None,
-               rows: int | None = None, device: int = 0) -> dict:
-    """What ``correlation_split_cuda`` launches for maps of `shape` and
-    `dtype` on CUDA device `device`, launching nothing: its ``split_plan``
-    as the kernel's launcher computes it (``ranks``, ``channels``),
-    ``rows`` a block and ``max_active_clusters``
-    (cudaOccupancyMaxActiveClusters: such clusters resident on the card
-    at once)."""
-    args = _split_args("split_form", shape, dtype, max_displacement, stride,
-                       max_ranks, rows)
-    info = (ctypes.c_int * 3)()
-    err = _split_form_entry()(*args, device, info)
-    if err:
-        raise RuntimeError(f"split_form: cudaError {err}")
-    tc = args[-1]
-    return {"body": "tensor_cores" if tc else "cuda_cores", "ranks": info[0],
-            "channels": info[1], "rows": args[8] if tc else 1,
-            "max_active_clusters": info[2]}
 
 
 @functools.lru_cache(maxsize=None)

@@ -71,15 +71,19 @@
 // become a thread block cluster (cudaLaunchKernelEx, cluster dimension nc
 // along z) over the channel blocks:
 //
-// * rank r of the cluster walks the whole 128-channel blocks [r k, (r+1) k)
-//   with k = ceil(nblk / max_ranks) and nc = ceil(nblk / k) ranks, so no
-//   rank is empty and any C is taken (nblk = 9 at C = 1152: k = 2, 5
-//   ranks); max_ranks (at most 8, the portable cluster limit) is the
-//   caller's: split_plan in dtt_torch/ops/correlation.py states the rule
-//   and SPLIT_RANKS the caps measured on the H100, 2 on the tensor cores (a
-//   128-channel block is only four 32-channel steps of the ring: 4 and 8
-//   ranks are mostly ring fill, 1.3x and 1.7x as long at 16 pairs) and 8
-//   on the CUDA cores;
+// * rank r of the cluster walks the contiguous channels [r rank_c, (r+1)
+//   rank_c), rank_c a whole number of 128-channel blocks; nc is at most 8,
+//   the portable cluster limit, so any C is taken. The caller chooses nc
+//   and rank_c (split_plan in dtt_torch/ops/correlation.py): k =
+//   ceil(nblk / cap) blocks a rank and ceil(nblk / k) ranks, so none is
+//   empty (nblk = 9 at C = 1152 and a cap of 8: k = 2, 5 ranks), taking
+//   the fewest ranks (a cap of 1, 2, 4, then 8) whose launch fills the
+//   card, that is has at least as many clusters as the card holds at once
+//   (cudaOccupancyMaxActiveClusters, which dtt_correlation_split_occupancy
+//   reports), and else the most. A rank is there to fill SMs that the
+//   tiles leave idle: where the tiles fill the card, more ranks only add
+//   ring fills and partial sums (a 128-channel block is four 32-channel
+//   steps of the ring);
 // * after its channel loop a rank writes its f32 partial tile into its own
 //   shared memory (over the ring or staging buffer), the cluster syncs, and
 //   each rank sums one 1/nc slice of the tile over ranks 0 ... nc - 1 in
@@ -92,11 +96,12 @@
 // * bfloat16 windows in the band (correlation_split_tc_kernel) run the
 //   forward's band above, its TMA staging (tc_issue; tc_fill where TMA
 //   cannot take the maps) and its diagonals (tc_diagonals), with every dy
-//   in one block of R rows x 64 columns (the caller's R; R = 2 measured
-//   faster than R = 1 at one pair and at 16 pairs: its blocks stage 41%
-//   fewer f2 rows a row); a rank's channels are a TMA coordinate offset and
-//   the TMA's bounds give the zeros past C. One pair at 38x68 and C = 1024
-//   is 38 tiles x 2 ranks = 76 blocks of 178 KB, each a 16-step pipeline.
+//   in one block of kSplitRows = 2 rows x 64 columns (measured faster than
+//   one row at one pair and at 16 pairs: its blocks stage 41% fewer f2
+//   rows a row); a rank's channels are a TMA coordinate offset and the
+//   TMA's bounds give the zeros past C. One pair at 38x68 and C = 1024 is
+//   40 tiles of 178 KB blocks (one an SM), which with 4 ranks fill the
+//   card's 30 resident clusters of 4.
 // * float32 maps and wider bf16 windows run the CUDA-core body above over a
 //   rank's channels; its 32 x nd^2 f32 partial tile fits in the staging
 //   buffer of every window window_limit admits.
@@ -631,12 +636,13 @@ correlation_tc_kernel(const __grid_constant__ CUtensorMap map1,
 
 // The channel-split forward on the tensor cores (see the note at the top):
 // block (column group, row block, pair x rank) of a cluster of nc blocks
-// along z; R rows x 64 columns x all nd dy, warp (r, dy), as
+// along z; R = kSplitRows rows x 64 columns x all nd dy, warp (r, dy), as
 // correlation_tc_kernel's blocks with nw = nd, over the rank's channels
 // [rank rank_c, (rank + 1) rank_c) only. Its diagonals stay f32 in a
-// partial tile [R][64 px][nd^2] over the ring (at most 41 KB of its 150 or
-// 178 KB), which cluster_sum adds up across the ranks.
-template <int R, bool kTma>
+// partial tile [R][64 px][nd^2] over the ring (at most 41 KB of its 178
+// KB), which cluster_sum adds up across the ranks.
+constexpr int kSplitRows = 2;
+template <bool kTma, int R = kSplitRows>
 __global__ void __launch_bounds__(32 * kMaxNd * R, 1)
 correlation_split_tc_kernel(const __grid_constant__ CUtensorMap map1,
                             const __grid_constant__ CUtensorMap map2,
@@ -857,12 +863,13 @@ int launch(const void* f1, const void* f2, void* out, int B, int H, int W,
 
 // --- the channel-split forward's launch (see the note at the top) ---
 
-// Launches `kernel` in clusters of nc blocks along z; with `clusters`,
-// launches nothing and stores there cudaOccupancyMaxActiveClusters of that
-// launch (how many such clusters the card holds at once).
+// Launches `kernel` in clusters of nc blocks along z; with `info`,
+// launches nothing and stores there the launch's clusters and
+// cudaOccupancyMaxActiveClusters of it (how many such clusters the card
+// holds at once).
 template <typename... KArgs, typename... Args>
 int cluster_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block,
-                   size_t smem, int nc, cudaStream_t stream, int* clusters,
+                   size_t smem, int nc, cudaStream_t stream, int* info,
                    Args&&... args) {
   if (smem > 48 * 1024) {
     const int err = allow_smem(kernel, smem);
@@ -880,111 +887,86 @@ int cluster_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block,
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  if (clusters)
-    return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (info) {
+    info[0] = (int)(grid.x * grid.y * (grid.z / nc));
+    return (int)cudaOccupancyMaxActiveClusters(info + 1, kernel, &cfg);
+  }
   return (int)cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
-// Ranks of a split cluster: k = ceil(nblk / max_ranks) whole blocks of
-// block_c channels a rank, nc = ceil(nblk / k) ranks, so none is empty
-// (split_plan in correlation.py states the same rule).
-struct SplitPlan {
-  int nc, rank_c;
-};
-
-SplitPlan split_plan(int C, int block_c, int max_ranks) {
-  const int nblk = (C + block_c - 1) / block_c;
-  const int k = (nblk + max_ranks - 1) / max_ranks;
-  return {(nblk + k - 1) / k, k * block_c};
-}
-
-template <int R, bool kTma>
+template <bool kTma>
 int launch_split_tc_rows(const CUtensorMap (&maps)[4], const void* f1,
                          const void* f2, void* out, int B, int H, int W,
-                         int C, int dmax, int stride, int nd, SplitPlan plan,
-                         cudaStream_t stream, int* clusters) {
+                         int C, int dmax, int stride, int nd, int nc,
+                         int rank_c, cudaStream_t stream, int* info) {
+  constexpr int R = kSplitRows;
   const size_t smem = (size_t)kStages * kRowB
       * (R * kGroupX + (R + nd - 1) * kCols) + 8 * kStages + 1024;
   const int per_class = ((H + stride - 1) / stride + R - 1) / R;
   return cluster_launch(
-      correlation_split_tc_kernel<R, kTma>,
-      dim3((W + kGroupX - 1) / kGroupX, stride * per_class, B * plan.nc),
-      dim3(32 * nd * R), smem, plan.nc, stream, clusters, maps[0], maps[1],
-      maps[2], maps[3], static_cast<const uint16_t*>(f1),
+      correlation_split_tc_kernel<kTma>,
+      dim3((W + kGroupX - 1) / kGroupX, stride * per_class, B * nc),
+      dim3(32 * nd * R), smem, nc, stream, info, maps[0], maps[1], maps[2],
+      maps[3], static_cast<const uint16_t*>(f1),
       static_cast<const uint16_t*>(f2), static_cast<__nv_bfloat16*>(out), H,
-      W, C, dmax, stride, nd, plan.rank_c);
+      W, C, dmax, stride, nd, rank_c);
 }
 
-// The tensor-core split, `rows` (1 or 2) output rows a block.
+// The tensor-core split, kSplitRows output rows a block.
 int launch_split_tc(const void* f1, const void* f2, void* out, int B, int H,
-                    int W, int C, int dmax, int stride, int rows,
-                    SplitPlan plan, cudaStream_t stream, int* clusters) {
+                    int W, int C, int dmax, int stride, int nc, int rank_c,
+                    cudaStream_t stream, int* info) {
   const int nd = (2 * dmax) / stride + 1;
-  if (dmax > kMaxD || nd > kMaxNd || (rows != 1 && rows != 2))
-    return (int)cudaErrorInvalidValue;
+  if (dmax > kMaxD || nd > kMaxNd) return (int)cudaErrorInvalidValue;
   const bool tma = C % 8 == 0 && ((uintptr_t)f1 | (uintptr_t)f2) % 16 == 0;
   CUtensorMap maps[4] = {};
-  if (tma && !clusters) {
+  if (tma && !info) {
     const int err = encode_tc_maps(maps, f1, f2, B, H, W, C, dmax);
     if (err) return err;
   }
-  const auto args = [&](auto fn) {
-    return fn(maps, f1, f2, out, B, H, W, C, dmax, stride, nd, plan, stream,
-              clusters);
-  };
-  if (rows == 2)
-    return tma ? args(launch_split_tc_rows<2, true>)
-               : args(launch_split_tc_rows<2, false>);
-  return tma ? args(launch_split_tc_rows<1, true>)
-             : args(launch_split_tc_rows<1, false>);
+  const auto fn = tma ? launch_split_tc_rows<true> : launch_split_tc_rows<false>;
+  return fn(maps, f1, f2, out, B, H, W, C, dmax, stride, nd, nc, rank_c,
+            stream, info);
 }
 
 // The CUDA-core split; refuses what the unsplit CUDA-core forward refuses.
 template <typename T>
 int launch_split_core(const void* f1, const void* f2, void* out, int B, int H,
-                      int W, int C, int dmax, int stride, SplitPlan plan,
-                      cudaStream_t stream, int* clusters) {
+                      int W, int C, int dmax, int stride, int nc, int rank_c,
+                      cudaStream_t stream, int* info) {
   const int nd = (2 * dmax) / stride + 1;
   if (nd > kMaxNdCore || core_smem(nd, dmax, false) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const auto kernel = nd <= kMaxNd ? correlation_kernel<T, true>
                                    : correlation_kernel_wide<T, true>;
-  return cluster_launch(kernel,
-                        dim3((W + kTileX - 1) / kTileX, H, B * plan.nc),
-                        dim3(kTileX, nd), core_smem(nd, dmax, true), plan.nc,
-                        stream, clusters, static_cast<const T*>(f1),
+  return cluster_launch(kernel, dim3((W + kTileX - 1) / kTileX, H, B * nc),
+                        dim3(kTileX, nd), core_smem(nd, dmax, true), nc,
+                        stream, info, static_cast<const T*>(f1),
                         static_cast<const T*>(f2), static_cast<T*>(out), B,
-                        H, W, C, dmax, stride, nd, plan.rank_c);
+                        H, W, C, dmax, stride, nd, rank_c);
 }
 
 // dtt_correlation_split's launch; with `info`, launches nothing and stores
-// there the launch's ranks, channels a rank and resident clusters.
+// there the launch's clusters and the clusters resident at once. Checks
+// the caller's ranks: nc in 1 ... 8, rank_c a multiple of 32, none empty.
 int run_split(const void* f1, const void* f2, void* out, int B, int H, int W,
-              int C, int dmax, int stride, int block_c, int max_ranks,
-              int rows, int dtype, int tensor_cores, cudaStream_t s,
-              int* info) {
-  if (stride < 1 || dmax < 0 || B < 1 || H < 1 || W < 1 || C < 1 ||
-      block_c < kStepC || block_c % kStepC || max_ranks < 1 ||
-      max_ranks > kMaxRanks)
+              int C, int dmax, int stride, int nc, int rank_c, int dtype,
+              int tensor_cores, cudaStream_t s, int* info) {
+  if (stride < 1 || dmax < 0 || B < 1 || H < 1 || W < 1 || C < 1 || nc < 1 ||
+      nc > kMaxRanks || rank_c < kStepC || rank_c % kStepC ||
+      (int64_t)(nc - 1) * rank_c >= C || (int64_t)nc * rank_c < C ||
+      (int64_t)B * nc > 65535)
     return (int)cudaErrorInvalidValue;
-  const SplitPlan plan = split_plan(C, block_c, max_ranks);
-  if ((int64_t)B * plan.nc > 65535) return (int)cudaErrorInvalidValue;
-  int* clusters = nullptr;
-  if (info) {
-    info[0] = plan.nc;
-    info[1] = plan.rank_c;
-    clusters = info + 2;
-  }
   if (tensor_cores)
     return dtype == 1 ? launch_split_tc(f1, f2, out, B, H, W, C, dmax, stride,
-                                        rows, plan, s, clusters)
+                                        nc, rank_c, s, info)
                       : (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_split_core<float>(f1, f2, out, B, H, W, C, dmax, stride,
-                                    plan, s, clusters);
+    return launch_split_core<float>(f1, f2, out, B, H, W, C, dmax, stride, nc,
+                                    rank_c, s, info);
   if (dtype == 1)
     return launch_split_core<__nv_bfloat16>(f1, f2, out, B, H, W, C, dmax,
-                                            stride, plan, s, clusters);
+                                            stride, nc, rank_c, s, info);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1382,37 +1364,34 @@ extern "C" int dtt_correlation(const void* f1, const void* f2, void* out,
 }
 
 // f1, f2: (B, H, W, C) contiguous; out: (B, H, W, nd*nd) of the maps'
-// dtype (0 = float32, 1 = bfloat16). Channels are summed in whole blocks of
-// block_c (a multiple of 32) by clusters of at most max_ranks (1 ... 8)
-// ranks. tensor_cores: 1 runs the bf16 band (dmax <= 8, nd <= 9) with
-// `rows` (1 or 2) output rows a block, 0 the CUDA-core body (nd <= 32).
-// Returns a cudaError_t (0 = launched).
+// dtype (0 = float32, 1 = bfloat16). Clusters of nc (1 ... 8) ranks, rank
+// r summing the channels [r rank_c, (r + 1) rank_c) (rank_c a multiple of
+// 32; none empty); split_plan in correlation.py chooses them. tensor_cores:
+// 1 runs the bf16 band (dmax <= 8, nd <= 9), 0 the CUDA-core body (nd <=
+// 32). Returns a cudaError_t (0 = launched).
 extern "C" int dtt_correlation_split(const void* f1, const void* f2,
                                      void* out, int B, int H, int W, int C,
-                                     int dmax, int stride, int block_c,
-                                     int max_ranks, int rows, int dtype,
-                                     int tensor_cores, int device,
+                                     int dmax, int stride, int nc, int rank_c,
+                                     int dtype, int tensor_cores, int device,
                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return run_split(f1, f2, out, B, H, W, C, dmax, stride, block_c, max_ranks,
-                   rows, dtype, tensor_cores,
-                   static_cast<cudaStream_t>(stream), nullptr);
+  return run_split(f1, f2, out, B, H, W, C, dmax, stride, nc, rank_c, dtype,
+                   tensor_cores, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// What dtt_correlation_split launches for the same arguments, launching
-// nothing: info[0] = ranks a cluster, info[1] = channels a rank, info[2] =
-// cudaOccupancyMaxActiveClusters of the launch. Returns a cudaError_t.
-extern "C" int dtt_correlation_split_form(int B, int H, int W, int C,
-                                          int dmax, int stride, int block_c,
-                                          int max_ranks, int rows, int dtype,
-                                          int tensor_cores, int device,
-                                          int* info) {
+// For the same arguments, launches nothing: info[0] = the clusters
+// dtt_correlation_split would launch, info[1] = how many of them the card
+// holds at once (cudaOccupancyMaxActiveClusters). Returns a cudaError_t.
+extern "C" int dtt_correlation_split_occupancy(int B, int H, int W, int C,
+                                               int dmax, int stride, int nc,
+                                               int rank_c, int dtype,
+                                               int tensor_cores, int device,
+                                               int* info) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return run_split(nullptr, nullptr, nullptr, B, H, W, C, dmax, stride,
-                   block_c, max_ranks, rows, dtype, tensor_cores, nullptr,
-                   info);
+  return run_split(nullptr, nullptr, nullptr, B, H, W, C, dmax, stride, nc,
+                   rank_c, dtype, tensor_cores, nullptr, info);
 }
 
 // f1, f2, df1, df2: (B, H, W, C) contiguous; g: (B, H, W, nd*nd); all of

@@ -385,27 +385,32 @@ def test_psroi_sat_kernel_at_one_frame(cuda):
                                atol=1e-5 * x.grad.abs().max().item())
 
 
-# Kernel 7's cases, each with its bf16 body and the ranks of its clusters
-# by split_plan (SPLIT_RANKS: at most 2 on the tensor cores, 8 on the CUDA
-# cores, which float32 maps take); the rule does not read the card's SM
-# count, so a 132-SM H100 runs these forms
+# Kernel 7's cases, each with its bf16 body and the ranks split_plan takes
+# on a 132-SM H100: the fewest whose launch has as many clusters (output
+# tiles) as the card holds at once, else the most (f32 in brackets)
 SPLIT_SHAPES = [
     # C < 128: clusters of 1; tensor cores by TMA
     ((2, 12, 20, 64), 8, 2),
-    # tensor cores by TMA, 2 ranks of 128 (f32: the same), the second block
-    # 32 channels
+    # tensor cores by TMA, 2 ranks of 128, the second 32 channels (f32: the
+    # same)
     ((2, 7, 11, 160), 2, 1),
-    # C % 8 != 0: tensor cores with 2-byte staging, 2 ranks of 256, the
-    # second 44 channels (f32: 3 ranks of 128)
+    # C % 8 != 0: tensor cores with 2-byte staging, 3 ranks of 128, the
+    # third 44 channels (f32: the same)
     ((3, 9, 37, 300), 8, 2),
     ((2, 7, 11, 300), 2, 1),
-    # the main path's maps, tensor cores by TMA: 2 ranks of 256 and of 512
-    # (f32: 4 and 8 ranks of 128)
+    # the main path's maps at one pair, tensor cores by TMA: 40 tiles fill
+    # the card's 30 clusters of 4 ranks of 128 and of 256 (f32: 114 tiles,
+    # 4 ranks of 128 and 8 of 128)
     ((1, 38, 68, 512), 8, 2),
     ((1, 38, 68, 1024), 8, 2),
-    # C > 1024, several blocks a rank: 12 blocks, 2 ranks of 768 (f32: 6 of
-    # 256); 17 blocks, 2 ranks of 1152, the last block 32 channels (f32: 6
-    # ranks of 384)
+    # 80 tiles fill the card's 66 clusters of 2 ranks of 128 (f32: 228
+    # tiles, none fill: 2 ranks)
+    ((2, 38, 68, 256), 8, 2),
+    # 6 tiles: 8 ranks of 128 (f32: the same)
+    ((1, 12, 20, 1024), 8, 2),
+    # C > 1024, several blocks a rank: 12 blocks, 6 ranks of 256 (f32: the
+    # same); 17 blocks, 6 ranks of 384, the last block 32 channels (f32:
+    # the same)
     ((2, 12, 20, 1536), 8, 2),
     ((1, 9, 17, 2080), 2, 1),
     # a bf16 window past the band: the CUDA cores, 2 ranks of 128
@@ -422,14 +427,20 @@ def test_correlation_split_kernel_matches_plain(cuda, dtype, shape, d, s):
     rank order across a cluster, against the plain version (f32: 1e-5;
     bf16: one bf16 ulp of each output, 2^-7 |x|, which a dropped block of
     channels would exceed many times); the launcher's form is
-    ``split_plan``'s."""
+    ``split_plan``'s, one cluster an output tile."""
     g = torch.Generator().manual_seed(2)
     f1 = torch.randn(shape, generator=g).to(cuda, dtype)
     f2 = torch.randn(shape, generator=g).to(cuda, dtype)
-    plan = tcorr.split_plan(shape[-1], dtype, d, s)
+    b, h, w, c = shape
     form = tcorr.split_form(shape, dtype, d, s)
-    assert (form["body"], form["ranks"], form["channels"]) == plan
-    assert form["max_active_clusters"] >= 1
+    assert form["body"] == tcorr.correlation_body(dtype, d, s)
+    assert 1 <= form["ranks"] <= 8 and form["max_active_clusters"] >= 1
+    # one cluster an output tile: 64 columns x 2 rows of one residue class
+    # mod s (tensor cores), 32 columns x 1 row (CUDA cores)
+    rows = -(-h // s)                # rows of a residue class, at most
+    tiles = (-(-w // 64) * s * -(-rows // 2)
+             if form["body"] == "tensor_cores" else -(-w // 32) * h)
+    assert form["clusters"] == b * tiles
     before = tcorr.correlation_split_cuda.launches
     got = tcorr.correlation(f1, f2, d, s, "pallas")
     torch.cuda.synchronize()
@@ -437,24 +448,6 @@ def test_correlation_split_kernel_matches_plain(cuda, dtype, shape, d, s):
     want = tcorr.correlation_plain(f1, f2, d, s)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **CORR_TOL[dtype])
-
-
-@pytest.mark.parametrize("rows", [1, 2])
-@pytest.mark.parametrize("max_ranks", [2, 4, 8])
-@pytest.mark.parametrize("shape", [(1, 38, 68, 1024), (2, 9, 17, 300)])
-def test_correlation_split_forms_match_plain(cuda, rows, max_ranks, shape):
-    """Every form the split's rule can choose (1 or 2 rows a tensor-core
-    block, clusters of at most 2, 4 or 8 ranks), by TMA and by 2-byte
-    staging, within one bf16 ulp of the plain version."""
-    g = torch.Generator().manual_seed(6)
-    f1, f2 = (torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
-              for _ in range(2))
-    got = tcorr.correlation_split_cuda(f1, f2, 8, 2, max_ranks=max_ranks,
-                                       rows=rows)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(),
-                               tcorr.correlation_plain(f1, f2, 8, 2).float(),
-                               **CORR_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -261,11 +261,15 @@ def test_correlation_window_limit_names_the_card(d, s, match):
                                        (torch.float32, 2, 1)])
 def test_split_plan_takes_whole_channel_blocks(c, max_ranks, ranks,
                                                channels, dtype, d, s):
-    """The split forward's clusters: at most `max_ranks` (<= 8) ranks, each a
-    contiguous run of k = ceil(nblk / max_ranks) whole 128-channel blocks,
-    ceil(nblk / k) ranks so that none is empty, together covering C exactly;
-    any C is taken."""
-    plan = tcorr.split_plan(c, dtype, d, s, max_ranks)
+    """The split forward's clusters: at most 8 ranks, each a contiguous run
+    of k = ceil(nblk / cap) whole 128-channel blocks, ceil(nblk / k) ranks
+    so that none is empty, together covering C exactly; any C is taken.
+    Here no form fills the card and the card holds none of more than
+    `max_ranks` ranks, so the plan is the most ranks under that cap."""
+    def occupancy(n, ch):
+        return 1, (2 if n <= max_ranks else 0)
+
+    plan = tcorr.split_plan(c, dtype, d, s, occupancy)
     assert (plan.ranks, plan.channels) == (ranks, channels)
     assert plan.body == tcorr.correlation_body(dtype, d, s)
     assert 1 <= plan.ranks <= max_ranks <= 8 and plan.channels % 128 == 0
@@ -275,21 +279,44 @@ def test_split_plan_takes_whole_channel_blocks(c, max_ranks, ranks,
     assert all(lo < hi for lo, hi in runs)
 
 
+# clusters a 132-SM H100 holds at once (cudaOccupancyMaxActiveClusters) by
+# ranks a cluster, for the main path's window: one 178 KB block an SM on
+# the tensor cores, a few small ones on the CUDA cores
+_RESIDENT = {"tensor_cores": {1: 132, 2: 66, 4: 30, 8: 15},
+             "cuda_cores": {1: 528, 2: 264, 4: 124, 8: 62}}
+
+
 @pytest.mark.parametrize("dtype,d,s,body", [
     (torch.bfloat16, 8, 2, "tensor_cores"),   # the main path's window
     (torch.bfloat16, 16, 4, "cuda_cores"),    # past the band
     (torch.float32, 8, 2, "cuda_cores")])
 def test_split_plan_body_and_default_ranks(dtype, d, s, body):
-    """Without `max_ranks` the plan takes its body's ``SPLIT_RANKS`` (2, 4
-    or 8); the body is ``correlation_body``'s, as in the unsplit forward;
-    C < 1 and a cap past the portable cluster limit of 8 raise."""
-    cap = tcorr.SPLIT_RANKS[body]
-    assert cap in (2, 4, 8) and tcorr.SPLIT_ROWS in (1, 2)
-    assert tcorr.split_plan(1024, dtype, d, s) == (body, cap, 1024 // cap)
-    with pytest.raises(ValueError, match="max_ranks <= 8"):
-        tcorr.split_plan(1024, dtype, d, s, 16)
+    """The plan takes the fewest ranks whose launch fills the card (as many
+    clusters as the card holds at once), else the most: at one pair of
+    38x68 maps (40 tiles on the tensor cores, 114 on the CUDA cores) 4 and
+    8 ranks of 128 channels at C = 512 | 1024, at 16 pairs (640 and 1,824
+    tiles) one rank; forms the card cannot hold are passed over. The body
+    is ``correlation_body``'s, as in the unsplit forward; C < 1 raises."""
+    resident = _RESIDENT[body]
+    tiles = 40 if body == "tensor_cores" else 114
+
+    def occupancy(pairs, held=resident):
+        return lambda n, ch: (pairs * tiles, held.get(n, 0))
+
+    fill = {1024: 4 if body == "tensor_cores" else 8, 512: 4}
+    for c in (512, 1024):
+        assert tcorr.split_plan(c, dtype, d, s, occupancy(1)) == (
+            body, fill[c], c // fill[c])
+        assert tcorr.split_plan(c, dtype, d, s, occupancy(16)) == (body, 1, c)
+    # none of 8 ranks held: 4; the whole grid fills the card at 2 ranks: 2
+    assert tcorr.split_plan(1024, dtype, d, s,
+                            occupancy(1, {1: 9999, 2: 9999, 4: 9999})) == (
+        body, 4, 256)
+    assert tcorr.split_plan(1024, dtype, d, s,
+                            occupancy(1, {1: 9999, 2: 1, 4: 1, 8: 1})) == (
+        body, 2, 512)
     with pytest.raises(ValueError, match="C >= 1"):
-        tcorr.split_plan(0, dtype, d, s)
+        tcorr.split_plan(0, dtype, d, s, occupancy(1))
 
 
 def test_correlation_bf16_matches_pallas_mm():

@@ -25,9 +25,8 @@ chip_smoke's random RoIs):
   pairs' (``chunk``), each held to one bf16 ulp of the plain version, then
   on the same maps in float32 (``frame_f32``, ``chunk_f32``: the CUDA-core
   bodies) at 1e-5, with the least time the card could take
-  (``bound_ms``); ``--split-forms``
-  adds kernel 7 at other forms (rows a block : most ranks a cluster) where
-  the tree takes them.
+  (``bound_ms``) and, where the tree has ``split_form``, kernel 7's
+  clusters per scale.
 
 Each timed case prints one JSON line: ``event_ms``, CUDA events around
 ``--iters`` repetitions as ``chip_smoke.py`` times them (host launch gaps
@@ -38,7 +37,7 @@ with each kernel's share in ``device_ms_per_call``::
 
     python tools/bench_psroi_torch.py --label change
     python tools/bench_psroi_torch.py --root _chip_tree/parent --label parent
-    python tools/bench_psroi_torch.py --kernels corr --split-forms 1:2,2:8
+    python tools/bench_psroi_torch.py --kernels corr
 """
 
 from __future__ import annotations
@@ -58,9 +57,6 @@ def main() -> int:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--kernels", default="direct,sat",
                    help="comma-separated: direct, sat, corr")
-    p.add_argument("--split-forms", default="",
-                   help="comma-separated rows:max_ranks forms of kernel 7 "
-                        "to time beside its default (e.g. 1:2,2:8)")
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -124,9 +120,7 @@ def main() -> int:
     if "sat" in kinds:
         bench_sat(cfg, cs, ops, report, timed, args.label, np, k, hh, ww)
     if "corr" in kinds:
-        forms = [tuple(int(x) for x in f.split(":"))
-                 for f in args.split_forms.split(",") if f]
-        bench_corr(cfg, cs, report, forms)
+        bench_corr(cfg, cs, report)
     return 0
 
 
@@ -258,17 +252,16 @@ def bench_sat(cfg, cs, ops, report, timed, label, np, k, hh, ww) -> None:
                    launches=1)
 
 
-def bench_corr(cfg, cs, report, forms) -> None:
+def bench_corr(cfg, cs, report) -> None:
     """Kernels 1 and 7 at one pair's and 16 pairs' three scales
     (chip_smoke's seeds 10 and 1), in bf16 against the plain version at one
     bf16 ulp, then on the same maps in float32 (the CUDA-core bodies) at
-    1e-5; kernel 7 also at each (rows, max_ranks) of `forms`."""
-    import functools
+    1e-5."""
     import torch
     from dtt_torch.ops import correlation as corr
     t = cfg.model.track
     d, s = t.max_displacement, t.stride
-    new = hasattr(corr, "split_plan")
+    new = hasattr(corr, "split_form")
 
     def f32_check(got, want, what):
         err = (got - want).abs().max().item()
@@ -285,22 +278,15 @@ def bench_corr(cfg, cs, report, forms) -> None:
             check = cs.corr_check if dtype == torch.bfloat16 else f32_check
             wants = [corr.correlation_plain(a, c, d, s) for a, c in cases]
             bound_ms = cs.corr_bound(cases, d, s)[0]
-            kernels = {"correlation": (corr.correlation_cuda, {}),
-                       "correlation_split": (corr.correlation_split_cuda, {})}
-            for rows, ranks in forms if new else ():
-                if dtype == torch.float32 and rows != forms[0][0]:
-                    continue            # rows are the tensor cores' only
-                kernels[f"correlation_split_r{rows}_n{ranks}"] = (
-                    corr.correlation_split_cuda,
-                    {"rows": rows, "max_ranks": ranks})
-            for name, (fn, kw) in kernels.items():
-                kernel = functools.partial(fn, **kw)
+            kernels = {"correlation": corr.correlation_cuda,
+                       "correlation_split": corr.correlation_split_cuda}
+            for name, kernel in kernels.items():
                 err = max(check(kernel(a, c, d, s), want, f"{name} ({path})")
                           for (a, c), want in zip(cases, wants))
                 extra = {"bound_ms": bound_ms}
-                if new and fn is corr.correlation_split_cuda:
+                if new and kernel is corr.correlation_split_cuda:
                     extra["forms"] = [corr.split_form(tuple(a.shape), a.dtype,
-                                                      d, s, **kw)
+                                                      d, s)
                                       for a, _ in cases]
                 report(name, path, err,
                        lambda: [kernel(a, c, d, s) for a, c in cases],
