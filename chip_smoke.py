@@ -1,5 +1,5 @@
-"""Drive dtt_torch's video-mode inference, training, evaluation and
-single-frame detection on one CUDA card and check them.
+"""Drive dtt_torch's video-mode inference, training, evaluation,
+single-frame detection and data path on one CUDA card and check them.
 
 Run from the repository root, with one card visible:
 
@@ -58,7 +58,17 @@ Phases, in order; any failure ends the script with a non-zero exit:
    SAT kernel launch a call for both maps under ``pallas_mm`` and
    ``pallas``) and ``correlation`` under both kernel forms at one pair's
    three scales, each checked, its launches counted and timed;
-9. both correlation forwards' device time by ``torch.profiler`` at one
+9. the data path: a VID/DET tree of 1280x720 JPEG frames written here
+   (two train snippets of 10 frames, one val snippet of 17, four DET
+   images), the decode route and its host ms per frame, ``PairLoader``'s
+   rate alone, then at full width with the same weights 1 + 6 train steps
+   from ``PairLoader`` (VID and DET mixed) through ``device_prefetch``
+   (its first upload bit for bit against its host batch), 1 + 6 on
+   host-rendered and 1 + 6 on device-rendered synthetic pairs (the
+   card's canvases pixel for pixel against the host renderer's first),
+   each with its launches, and ``eval_torch.main --dataset ... --link``
+   on the val snippet, which must decode every frame once;
+10. both correlation forwards' device time by ``torch.profiler`` at one
    pair and at 16 pairs, after the main paths, since a traced card slows
    the host's later launches.
 
@@ -72,7 +82,9 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -133,6 +145,9 @@ TRAIN_REF_GRAD_REL = 1e-4
 TRAIN_REF_PARAM_TOL = (2e-8, 2.5e-7)
 PROFILE_STEPS = 3            # full-width train steps under torch.profiler
 FRAME_STEPS = 8              # timed full-width single frames (after 1 warm-up)
+DATA_STEPS = 6               # timed full-width steps per data source
+DATA_WORKERS = 4             # PairLoader threads
+DATA_DET_FRACTION = 0.5      # DET:VID mixture of the loader's batches
 # correlation windows past the tensor-core band that dtt takes
 WIDE_WINDOWS = ((16, 4), (10, 2))
 KERNELS = {"correlation": corr_ops.correlation_cuda,
@@ -1627,6 +1642,230 @@ def phase_frame_path(cfg: Config, tree: dict, card: str) -> dict:
     return launches
 
 
+def timed_train(cfg: Config, state, step, stream, gen, label: str,
+                card: str):
+    """One warm-up step and DATA_STEPS timed steps of `step` on batches
+    pulled from `stream`: checks the losses and the train path's kernels,
+    logs ms/step, pairs/s, the wait for batches, peak memory and launches
+    a step. Returns the state and the timed ms/step."""
+    b = cfg.train.batch_size_per_chip
+    state, _ = step(state, next(stream), sample_draws(cfg, b, gen, "cuda"),
+                    gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history, wait = [], 0.0
+    t0 = time.perf_counter()
+    for _ in range(DATA_STEPS):
+        tw = time.perf_counter()
+        batch = next(stream)
+        wait += time.perf_counter() - tw
+        state, metrics = step(state, batch, sample_draws(cfg, b, gen, "cuda"),
+                              gen)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches("train", launches)
+    for metrics in history:
+        values = {k: v.item() for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"{label}: non-finite loss: {values}")
+    ms = dt * 1e3 / DATA_STEPS
+    per_step = {k: v / DATA_STEPS for k, v in launches.items() if v}
+    log(f"data train ({label}): {DATA_STEPS} steps {ms:.1f} ms/step, "
+        f"{DATA_STEPS * b / dt:.3f} pairs/s on {card}; waited "
+        f"{wait * 1e3 / DATA_STEPS:.2f} ms/step for batches; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+        f"launches/step {per_step}; last losses "
+        f"{json.dumps({k: round(v, 4) for k, v in values.items()})}")
+    return state, ms
+
+
+def phase_data(cfg: Config, tree: dict, card: str) -> None:
+    """The data path at full width on a VID/DET tree written here (1280 x
+    720 JPEG frames, 600/720 onto the canvas): the decode route and its
+    host ms per frame; PairLoader's rate alone; training from PairLoader
+    (VID and DET mixed by det_fraction) through device_prefetch, whose
+    first upload must equal its host batch bit for bit; the device
+    renderer pixel for pixel against the host renderer, then training on
+    it beside host-rendered synthetic batches; and ``eval_torch.main
+    --dataset ... --link``, which must decode every frame once."""
+    import dtt_torch.data.imagenet_vid  # noqa: F401  (registers datasets)
+    from dtt_torch.data import device_synth, native, transforms
+    from dtt_torch.data.imdb import combined_roidb
+    from dtt_torch.data.loader import PairLoader, device_prefetch
+    from dtt_torch.data.synthetic import render_frame, sample_params_batch
+    from dtt_torch.data.vid_tree import write_vid_tree
+
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    b, seed = cfg.train.batch_size_per_chip, cfg.train.seed
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        counts = write_vid_tree(root, seed=0)
+        log(f"data tree: {counts} frames of 1280x720 JPEG (PIL, quality "
+            f"90) in {time.perf_counter() - t0:.1f} s")
+        val = os.path.join(root, "Data", "VID", "val", "snippet_000")
+        paths = sorted(os.path.join(val, f) for f in os.listdir(val))
+        route = transforms.frame_route(paths[0])
+        transforms.prepare_frame(paths[0], cfg.input)
+        t0 = time.perf_counter()
+        for p in paths:
+            canvas, scale = transforms.prepare_frame(p, cfg.input)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        log(f"data decode: route {route} (native: "
+            f"{native.unavailable_reason() or 'built'}); prepare_frame "
+            f"{decode_ms:.2f} ms/frame on one host thread over "
+            f"{len(paths)} frames, scale {scale:.4f} onto {h}x{w}")
+
+        roidb = combined_roidb("imagenet_vid_train+imagenet_det_train",
+                               root=root, use_flipped=cfg.input.use_flipped)
+        loader = PairLoader(roidb, cfg.input, b, seed=seed,
+                            num_workers=DATA_WORKERS,
+                            det_fraction=DATA_DET_FRACTION)
+        it = iter(loader)
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(DATA_STEPS):
+            next(it)
+        dt = time.perf_counter() - t0
+        loader.stop()
+        log(f"data loader alone: {len(roidb)} roidb entries, "
+            f"{DATA_WORKERS} workers: {DATA_STEPS * b / dt:.2f} pairs/s")
+
+        model, state = create_train_state(cfg, "cuda", tree=tree)
+        feat_hw = (h // 16, w // 16)
+        step = make_train_step(cfg, model, feat_hw)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        loader = PairLoader(roidb, cfg.input, b, seed=seed,
+                            num_workers=DATA_WORKERS,
+                            det_fraction=DATA_DET_FRACTION)
+        host: list = []
+
+        def tap(batches):
+            for batch in batches:
+                host.append(batch)
+                yield batch
+
+        cast = {"images": torch.bfloat16}
+        prefetched = device_prefetch(tap(iter(loader)), "cuda", size=2,
+                                     cast=cast)
+        first = next(prefetched)
+        for k, v in host[0].items():
+            want = torch.from_numpy(v)
+            want = want.to(cast[k]) if k in cast else want
+            if not torch.equal(first[k].cpu(), want):
+                raise AssertionError(f"prefetched {k} differs from its host "
+                                     "batch")
+        log(f"data prefetch: first batch on the card equals its host batch "
+            f"bit for bit ({', '.join(f'{k} {tuple(v.shape)} {v.dtype}' for k, v in first.items())})")
+        try:
+            state, data_ms = timed_train(
+                cfg, state, step, itertools.chain([first], prefetched), gen,
+                "PairLoader + device_prefetch", card)
+        finally:
+            prefetched.close()
+            loader.stop()
+        det = [bool(np.array_equal(x["images"][0, 0], x["images"][0, 1]))
+               for x in host[:DATA_STEPS + 1]]
+        if all(det) or not any(det):
+            raise AssertionError(f"one group only in the batches: DET {det}")
+        log(f"data mixture: DET (identity) pairs {sum(det)} of {len(det)} "
+            f"at det_fraction {DATA_DET_FRACTION}")
+
+        rng = np.random.RandomState(seed)
+        shape = (cfg.model.num_classes, cfg.input.max_gt_boxes)
+        n_obj = cfg.input.synthetic_objects
+        stream = device_prefetch(
+            (synthetic_batch(rng, b, h, w, *shape, cfg.input.pixel_means,
+                             uint8=True, num_objects=n_obj)
+             for _ in itertools.count()), "cuda")
+        try:
+            state, synth_ms = timed_train(cfg, state, step, stream, gen,
+                                          "host-rendered synthetic", card)
+        finally:
+            stream.close()
+
+        p = sample_params_batch(np.random.RandomState(1), 2, h, w, *shape,
+                                num_objects=(5, 30))
+        got = device_synth.render_pairs(
+            p["gt_boxes"], p["gt_labels"], p["gt_valid"],
+            torch.Generator(device="cuda").manual_seed(2), h, w)
+        bg = device_synth.pair_background(
+            torch.Generator(device="cuda").manual_seed(2), 2, h, w,
+            "cuda").cpu().numpy()
+        got = got.cpu().numpy()
+        t0 = time.perf_counter()
+        for i in range(2):
+            for f in range(2):
+                want = render_frame(bg[i, f].copy(), p["gt_boxes"][i, f],
+                                    p["gt_labels"][i], p["gt_valid"][i, f])
+                if not np.array_equal(got[i, f], want):
+                    raise AssertionError("device render differs from the "
+                                         f"host renderer at pair {i} frame "
+                                         f"{f}")
+        host_ms = (time.perf_counter() - t0) * 1e3 / 2
+        dev_ms = time_ms(lambda: device_synth.render_pairs(
+            p["gt_boxes"], p["gt_labels"], p["gt_valid"], gen, h, w), 10)
+        log(f"data render: the card's canvases equal the host renderer's "
+            f"pixel for pixel (2 pairs, {int(p['gt_valid'].sum())} objects); "
+            f"render_pairs {dev_ms / 2:.3f} ms/pair on the card (events), "
+            f"host objects {host_ms:.1f} ms/pair")
+        render_step = make_train_step(
+            cfg, model, feat_hw,
+            render_fn=device_synth.make_pair_render_fn(h, w))
+        stream = device_prefetch(
+            (sample_params_batch(rng, b, h, w, *shape, num_objects=n_obj)
+             for _ in itertools.count()), "cuda")
+        try:
+            state, render_ms = timed_train(cfg, state, render_step, stream,
+                                           gen, "device-rendered synthetic",
+                                           card)
+        finally:
+            stream.close()
+        log(f"data train ms/step: PairLoader {data_ms:.1f}, host-rendered "
+            f"{synth_ms:.1f}, device-rendered {render_ms:.1f} on {card}")
+        del model, state, step, render_step
+
+        with tempfile.TemporaryDirectory() as ck:
+            _, fresh = create_train_state(cfg, "cuda", tree=tree)
+            save_checkpoint(ck, fresh, cfg)
+            del fresh
+            seen = []
+            stream_vid = eval_torch.snippet_stream_vid
+
+            def spy(cfg_, snippets):
+                for item in stream_vid(cfg_, snippets):
+                    seen.append(item[1])
+                    yield item
+
+            eval_torch.snippet_stream_vid = spy
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                out, clock, pairs = run_eval(
+                    ["--dataset", "imagenet_vid_val", "--data-root", root,
+                     "--checkpoint", ck, "--link"])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            finally:
+                eval_torch.snippet_stream_vid = stream_vid
+        launches = read_launches()
+        check_launches("eval_video", launches)
+        for key in ("mAP", "mAP_nolink", "link_uplift"):
+            if not (key in out and np.isfinite(out[key])):
+                raise AssertionError(f"data eval: {key} is {out.get(key)!r}")
+        decoded = sum(f.decode_count for f in seen)
+        if decoded != counts["val"] or sum(len(f) for f in seen) != decoded:
+            raise AssertionError(f"data eval decoded {decoded} frames of "
+                                 f"{counts['val']}")
+        split = ", ".join(f"{k} {v:.1f} ms" for k, v in clock.items())
+        log(f"data eval (--dataset imagenet_vid_val --link): {pairs} pairs, "
+            f"{decoded} frames decoded once each, in {wall:.1f} ms wall "
+            f"({split}) on {card}; launches {launches}; mAP {out['mAP']}, "
+            f"mAP_nolink {out['mAP_nolink']} (random weights)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1663,6 +1902,7 @@ def main() -> int:
                 "train": phase_train(cfg, tree, card),
                 **phase_eval(cfg, tree, card),
                 "frame": phase_frame_path(cfg, tree, card)}
+    phase_data(cfg, tree, card)
     for k in kernels:
         k["launches"] = launches[k["path"]][k["name"]]
     phase_correlation_device(cfg)

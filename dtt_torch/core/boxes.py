@@ -123,3 +123,11 @@ def clip_boxes(boxes: torch.Tensor, height, width) -> torch.Tensor:
     xmax, ymax = torch.broadcast_tensors(xmax, ymax)
     lim = torch.stack([xmax, ymax, xmax, ymax], dim=-1)[..., None, :]
     return torch.minimum(torch.maximum(b, zero), lim).reshape(shape)
+
+
+def flip_boxes(boxes: torch.Tensor, width) -> torch.Tensor:
+    """Horizontal flip in an image `width` pixels wide (the roidb
+    'flipped' augmentation): x1' = W - 1 - x2, x2' = W - 1 - x1."""
+    x1 = width - _ONE - boxes[..., 2]
+    x2 = width - _ONE - boxes[..., 0]
+    return torch.stack([x1, boxes[..., 1], x2, boxes[..., 3]], dim=-1)

@@ -3,8 +3,9 @@ renderer, so the port loads without JAX).
 
 Moving class-coded rectangles with track identities on uint8 canvases:
 ``sample_pair_params`` draws a pair's scene, ``render_frame`` draws it,
-and ``synthetic_batch`` stacks pairs into the batch dict the train step
-takes; ``sample_snippet_params`` and ``synthetic_snippet`` make the
+``synthetic_batch`` stacks pairs into the batch dict the train step
+takes and ``sample_params_batch`` stacks scenes without pixels;
+``sample_snippet_params`` and ``synthetic_snippet`` make the
 constant-velocity snippets evaluation runs on. The same numpy seed gives
 arrays equal to ``dtt``'s.
 """
@@ -153,6 +154,18 @@ def synthetic_batch(rng: np.random.RandomState, batch: int, height: int,
     if not uint8:
         out["images"] = out["images"] - np.asarray(pixel_means, np.float32)
     return out
+
+
+def sample_params_batch(rng: np.random.RandomState, batch: int, height: int,
+                        width: int, num_classes: int, max_gt: int,
+                        num_objects=None) -> dict:
+    """Stacked scene parameters of `batch` pairs, without pixels (KB
+    instead of MB): the device-render training path uploads these and
+    draws the canvases on the card (``dtt_torch.data.device_synth``)."""
+    samples = [sample_pair_params(rng, height, width, num_classes, max_gt,
+                                  num_objects=num_objects)
+               for _ in range(batch)]
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 def sample_snippet_params(rng: np.random.RandomState, num_frames: int,

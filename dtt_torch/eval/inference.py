@@ -15,11 +15,15 @@
   head, one frame per call.
 
 Both drivers keep two batches in flight: CUDA work is queued
-asynchronously and only the ``.cpu()`` of a finished batch waits.
+asynchronously and only the ``.cpu()`` of a finished batch waits. Their
+frames are an array or a ``LazyFrames``, which decodes each frame of a
+snippet on first touch and keeps a bounded cache.
 """
 
 from __future__ import annotations
 
+import time
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -41,6 +45,66 @@ class PairOutputs(NamedTuple):
     scores: torch.Tensor   # (B, C-1, M)
     valid: torch.Tensor    # (B, C-1, M)
     tracked: torch.Tensor  # (B, C-1, M, 4) predicted boxes in frame t+tau
+
+
+class LazyFrames:
+    """A snippet's frames, indexable like the (T, H, W, 3) array of
+    normalized canvases it stands for, decoded on first touch with only a
+    small LRU cache resident.
+
+    Real VID snippets run to thousands of frames at 7.9 MB a canvas (608 x
+    1088 x 3 float32), so stacking a snippet before inference can take tens
+    of GB. The snippet drivers touch frames in order with one frame of
+    overlap between chunks (the strided driver, a batch of pairs at a
+    time) and size the cache to that working set with ``ensure_cache``, so
+    every frame decodes once. ``decode_count``, ``decode_ms`` and
+    ``peak_cached`` count the decodes, their wall time and the most frames
+    held at once.
+    """
+
+    def __init__(self, paths, input_cfg, cache_frames: int = 8,
+                 prepare=None):
+        from dtt_torch.data.transforms import prepare_image
+        self.paths = list(paths)
+        self.input_cfg = input_cfg
+        self._prepare = prepare or prepare_image
+        self._cap = max(int(cache_frames), 1)
+        self._cache: OrderedDict = OrderedDict()
+        self.decode_count = 0
+        self.decode_ms = 0.0
+        self.peak_cached = 0
+
+    def ensure_cache(self, n: int) -> None:
+        """Grow the cache to hold `n` frames, the consumer's working set
+        (a chunk and its overlap, or a batch of pairs); never shrinks."""
+        self._cap = max(self._cap, int(n))
+
+    @property
+    def shape(self):
+        return (len(self.paths), self.input_cfg.canvas_height,
+                self.input_cfg.canvas_width, 3)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i) -> np.ndarray:
+        i = int(i)
+        if i < 0:
+            i += len(self.paths)
+        if not 0 <= i < len(self.paths):
+            raise IndexError(i)
+        if i in self._cache:
+            self._cache.move_to_end(i)
+            return self._cache[i]
+        t0 = time.perf_counter()
+        img, _ = self._prepare(self.paths[i], self.input_cfg)
+        self.decode_ms += (time.perf_counter() - t0) * 1e3
+        self.decode_count += 1
+        self._cache[i] = img
+        if len(self._cache) > self._cap:
+            self._cache.popitem(last=False)
+        self.peak_cached = max(self.peak_cached, len(self._cache))
+        return img
 
 
 def _transfer_dtype(cfg: Config, frames: np.ndarray) -> torch.Tensor:
@@ -195,7 +259,8 @@ def evaluate_snippet_video(cfg: Config, video_step, frames,
                            im_hw=None, scale: float = 1.0):
     """Snippet eval with per-frame feature sharing (τ=1).
 
-    `frames` is a (T, H, W, 3) array (uint8 canvases or normalized floats);
+    `frames` is a (T, H, W, 3) array (uint8 canvases or normalized floats)
+    or a LazyFrames, whose cache is sized to a chunk and its overlap;
     `im_hw` the true (h, w) extent on the canvas (default: the canvas).
     Returns numpy (C-1, T, M, 4) boxes, (C-1, T, M) scores, (C-1, T, M)
     valid and (C-1, T, M, 4) tracked boxes.
@@ -207,6 +272,8 @@ def evaluate_snippet_video(cfg: Config, video_step, frames,
     if im_hw is None:
         im_hw = (frames.shape[1], frames.shape[2])
     im_hw = torch.tensor(im_hw, dtype=torch.float32, device=video_step.device)
+    if isinstance(frames, LazyFrames):   # each frame decodes once
+        frames.ensure_cache(f + 1)
 
     outs = []
     pending: list = []  # dispatch-ahead queue: host work overlaps the device
@@ -236,7 +303,8 @@ def evaluate_snippet(cfg: Config, pair_step, frames, tau: int = 1,
     """Stride-tau pairs over a snippet, batched; stacked per-frame dets.
 
     `frames` is a (T, H, W, 3) array (uint8 canvases or normalized
-    floats). With tau=1 every frame is evaluated (the last pairs with
+    floats) or a LazyFrames, whose cache is sized to a batch of pairs.
+    With tau=1 every frame is evaluated (the last pairs with
     itself, as the reference does). With tau>1 (temporally strided
     testing, D&T paper §4) only frames 0, tau, 2tau, ... are, each paired
     with frame min(t+tau, T-1); ``interpolate_tubes`` fills the skipped
@@ -253,6 +321,8 @@ def evaluate_snippet(cfg: Config, pair_step, frames, tau: int = 1,
         im_hw = (frames.shape[1], frames.shape[2])
     im_hw = torch.tensor(im_hw, dtype=torch.float32, device=pair_step.device)
     pair_idx = [(t, min(t + tau, t_len - 1)) for t in eval_ts]
+    if isinstance(frames, LazyFrames):   # each frame decodes once
+        frames.ensure_cache(2 * batch)
 
     outs = []
     pending: list = []  # dispatch-ahead queue (see evaluate_snippet_video)

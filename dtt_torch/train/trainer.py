@@ -136,15 +136,21 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 def make_train_step(cfg: Config, model: DnT, feat_hw: tuple[int, int],
-                    device=None):
-    """``train_step(state, batch, draws) -> (state, metrics)`` on `device`
-    (CUDA unless the caller passes "cpu"), which must hold `model`.
+                    device=None, render_fn=None):
+    """``train_step(state, batch, draws, generator=None) -> (state,
+    metrics)`` on `device` (CUDA unless the caller passes "cpu"), which
+    must hold `model`.
 
     `batch` is a numpy or tensor batch dict (see ``batch_loss``), `draws`
     the sampling uniforms (``sample_draws``). The step computes the loss,
     backpropagates it and applies the optimizer; `metrics` holds the
     ``LossBreakdown`` fields as device scalars, so nothing waits for the
     device.
+
+    With `render_fn(batch, generator) -> images` (device-side synthetic
+    rendering, ``dtt_torch.data.device_synth.make_pair_render_fn``) the
+    batch carries scene parameters only and the step draws its canvases
+    on the device first, from `generator`, which it then needs.
     """
     device = resolve_device(device)
     model_device = next(model.parameters()).device
@@ -153,7 +159,13 @@ def make_train_step(cfg: Config, model: DnT, feat_hw: tuple[int, int],
     anchors = torch.from_numpy(
         grid_anchors_for(cfg.model.anchors, *feat_hw)).to(device)
 
-    def train_step(state: TrainState, batch: dict, draws: Draws):
+    def train_step(state: TrainState, batch: dict, draws: Draws,
+                   generator: torch.Generator | None = None):
+        if render_fn is not None:
+            if generator is None:
+                raise ValueError("a step with render_fn draws its canvases "
+                                 "from a generator; pass one")
+            batch = dict(batch, images=render_fn(batch, generator))
         state.optimizer.zero_grad(set_to_none=True)
         _, lb = batch_loss(cfg, state.model, anchors,
                            batch_to_device(batch, device), draws)

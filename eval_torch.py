@@ -1,21 +1,26 @@
 #!/usr/bin/env python
 """Evaluate D&T with dtt_torch on one CUDA card: detections, tube linking
-and VID mAP on the synthetic mini-VID (the PyTorch counterpart of
-``eval.py --synthetic``).
+and VID mAP (the PyTorch counterpart of ``eval.py``).
 
 Examples:
   python train_torch.py --synthetic --out runs/dtt_torch
   python eval_torch.py --synthetic --checkpoint runs/dtt_torch --link
   python eval_torch.py --synthetic --checkpoint runs/dtt_torch --tau 2 \\
       --set model.roi.eval_pool_impl=pallas_mm
+  python eval_torch.py --dataset imagenet_vid_val --data-root \\
+      /data/ILSVRC2015 --checkpoint runs/dtt_torch --link
 
 The config is the one saved in the checkpoint, or --config, with --set
-applied after either. tau=1 runs the video step over chunks of
-min(97, --synthetic-frames + 1) frames; tau>1 runs the pair step over
-4-pair batches, links tubes and interpolates them to every frame. Prints
-the wall time of each phase, then one JSON line: mAP, protocol (and with
-linking mAP_nolink and link_uplift) and the per-class APs. Needs a CUDA
-card; ``main(argv, device="cpu")`` runs the plain PyTorch path instead.
+applied after either. The snippets are the synthetic ones or those of
+--dataset under --data-root, whose frames decode as inference reaches them
+(``LazyFrames``), at the scale and extent their annotations state. tau=1
+runs the video step over chunks of one frame more than the longest
+snippet, at most 97; tau>1 runs the pair step over 4-pair batches, links
+tubes and interpolates them to every frame. Prints the wall time of each
+phase (decoding, within detection, apart), then one JSON line: mAP,
+protocol (and with linking mAP_nolink and link_uplift) and the per-class
+APs. Needs a CUDA card; ``main(argv, device="cpu")`` runs the plain
+PyTorch path instead.
 """
 
 from __future__ import annotations
@@ -35,9 +40,6 @@ import numpy as np
 _NOT_PORTED = {
     "parallel": "--parallel (multi-GPU evaluation; ROADMAP.md Queue 1 "
                 "item 12)",
-    "dataset": "--dataset (ImageNet VID loading; ROADMAP.md Queue 1 item 10)",
-    "data_root": "--data-root (ImageNet VID loading; ROADMAP.md Queue 1 "
-                 "item 10)",
 }
 
 
@@ -50,9 +52,11 @@ def parse_args(argv=None):
                    help="dotted config overrides")
     p.add_argument("--checkpoint", required=True,
                    help="run dir (uses LATEST) or a step dir with state.pt")
+    p.add_argument("--dataset", default="imagenet_vid_val")
+    p.add_argument("--data-root", default=None)
     p.add_argument("--synthetic", action="store_true",
-                   help="evaluate on generated snippets (the only data "
-                        "source the port has)")
+                   help="evaluate on generated snippets (no dataset "
+                        "required)")
     p.add_argument("--synthetic-snippets", type=int, default=4)
     p.add_argument("--synthetic-frames", type=int, default=8,
                    help="frames per synthetic snippet (also sizes the video "
@@ -79,17 +83,14 @@ def parse_args(argv=None):
                    help="devkit: size-adaptive IoU threshold (ImageNet "
                         "eval_vid rule); flat: fixed IoU 0.5")
     p.add_argument("--parallel", action="store_true")
-    p.add_argument("--dataset", default=None)
-    p.add_argument("--data-root", default=None)
     args = p.parse_args(argv)
     for name, what in _NOT_PORTED.items():
         if getattr(args, name):
             p.error(f"{what} is not ported to dtt_torch yet")
     if args.synthetic_hard:
         args.synthetic = True
-    if not args.synthetic:
-        p.error("dtt_torch evaluates --synthetic data only (ImageNet VID "
-                "loading: ROADMAP.md Queue 1 item 10)")
+    if not args.synthetic and not args.data_root:
+        p.exit(1, "--data-root required without --synthetic\n")
     if args.tau < 1:
         p.error("--tau must be at least 1")
     return args
@@ -173,6 +174,24 @@ def snippet_gt_arrays(annots, scale: float):
     return gt_boxes, gt_labels, gt_valid
 
 
+def snippet_stream_vid(cfg, snippets):
+    """(name, frames, im_hw, scale, gt) per snippet of a dataset's
+    ``Snippet`` list. `frames` is a LazyFrames, decoded as inference
+    reaches it; the scale and the true extent come from the first
+    annotation's header (a snippet's frames share their size), so nothing
+    decodes before inference."""
+    from dtt_torch.data.transforms import canvas_scale
+    from dtt_torch.eval.inference import LazyFrames
+
+    for sn in snippets:
+        ann0 = sn.annots[0]
+        scale = canvas_scale(ann0["height"], ann0["width"], cfg.input)
+        im_hw = (round(ann0["height"] * scale), round(ann0["width"] * scale))
+        yield (os.path.basename(os.path.dirname(sn.frames[0])),
+               LazyFrames(sn.frames, cfg.input), im_hw, scale,
+               snippet_gt_arrays(sn.annots, scale))
+
+
 def cap_frame_dets(scores: np.ndarray, valid: np.ndarray, max_dets: int
                    ) -> np.ndarray:
     """Per-frame detection cap across classes (cfg.eval.max_dets_per_frame,
@@ -249,7 +268,7 @@ def main(argv=None, device=None):
     from dtt_torch.core.device import resolve_device
     from dtt_torch.data.imagenet_vid import CLASS_NAMES
     from dtt_torch.data.synthetic_hard import Hardness
-    from dtt_torch.eval.inference import (evaluate_snippet,
+    from dtt_torch.eval.inference import (LazyFrames, evaluate_snippet,
                                           evaluate_snippet_video,
                                           link_snippet, make_pair_step,
                                           make_video_step)
@@ -257,13 +276,39 @@ def main(argv=None, device=None):
 
     device = resolve_device(device)
     cfg, model = load_model(args, device)
+    if args.synthetic:
+        hard = None
+        if args.synthetic_hard:
+            over = {}
+            if args.hard_visibility is not None:
+                over["visibility"] = tuple(args.hard_visibility)
+            if args.hard_distractors is not None:
+                over["distractors"] = args.hard_distractors
+            if args.hard_noise_sigma is not None:
+                over["noise_sigma"] = args.hard_noise_sigma
+            if args.hard_occlusion_prob is not None:
+                over["occlusion_prob"] = args.hard_occlusion_prob
+            hard = Hardness(**over)
+        n_snippets = args.synthetic_snippets
+        if args.max_snippets is not None:
+            n_snippets = min(n_snippets, args.max_snippets)
+        stream = snippet_stream_synthetic(cfg, n_snippets,
+                                          args.synthetic_frames, hard=hard)
+        longest = args.synthetic_frames
+    else:
+        import dtt_torch.data.imagenet_vid  # noqa: F401  (registers datasets)
+        from dtt_torch.data.imdb import get_dataset
+        snippets = get_dataset(args.dataset, root=args.data_root).snippets
+        if args.max_snippets:
+            snippets = snippets[:args.max_snippets]
+        stream = snippet_stream_vid(cfg, snippets)
+        longest = max((len(sn.frames) for sn in snippets), default=1)
     do_link = args.link or args.tau > 1   # tau>1 implies tube linking
     if args.tau > 1:
         pair_step = make_pair_step(cfg, model, 4, device)
     else:
-        video_step = make_video_step(cfg, model,
-                                     min(97, args.synthetic_frames + 1),
-                                     device)
+        # a chunk as long as the longest snippet and its identity pair
+        video_step = make_video_step(cfg, model, min(97, longest + 1), device)
     num_classes = cfg.model.num_classes
 
     all_dets = {c: [] for c in range(1, num_classes)}
@@ -273,24 +318,6 @@ def main(argv=None, device=None):
     all_gts = {c: {} for c in range(1, num_classes)}
     frame_uid, pairs = 0, 0
     clock: dict = defaultdict(float)
-
-    hard = None
-    if args.synthetic_hard:
-        over = {}
-        if args.hard_visibility is not None:
-            over["visibility"] = tuple(args.hard_visibility)
-        if args.hard_distractors is not None:
-            over["distractors"] = args.hard_distractors
-        if args.hard_noise_sigma is not None:
-            over["noise_sigma"] = args.hard_noise_sigma
-        if args.hard_occlusion_prob is not None:
-            over["occlusion_prob"] = args.hard_occlusion_prob
-        hard = Hardness(**over)
-    n_snippets = args.synthetic_snippets
-    if args.max_snippets is not None:
-        n_snippets = min(n_snippets, args.max_snippets)
-    stream = snippet_stream_synthetic(cfg, n_snippets, args.synthetic_frames,
-                                      hard=hard)
 
     for name, frames, im_hw, scale, (gt_boxes, gt_labels, gt_valid) in stream:
         t_len = frames.shape[0]
@@ -335,7 +362,11 @@ def main(argv=None, device=None):
             for t in np.nonzero(present.any(axis=1))[0]:
                 all_gts[int(c)][frame_uid + int(t)] = gt_boxes[t][present[t]]
         frame_uid += t_len
-        print(f"snippet {name}: {t_len} frames done (tau={args.tau})")
+        decoded = ""
+        if isinstance(frames, LazyFrames):
+            clock["decode_in_detect"] += frames.decode_ms
+            decoded = f", {frames.decode_count} decoded"
+        print(f"snippet {name}: {t_len} frames done (tau={args.tau}){decoded}")
 
     if args.out:
         with open(args.out, "wb") as f:

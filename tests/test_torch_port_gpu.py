@@ -636,3 +636,93 @@ def test_rfcn_head_launches_one_sat_kernel(cuda, impl):
     for x, y in zip(xs, ys):
         torch.testing.assert_close(x.grad, y.grad, rtol=0,
                                    atol=1e-5 * y.grad.abs().max().item())
+
+
+# ------------------------------------------------------------------- data
+
+def _host_batches(n, seed=0):
+    rng = np.random.RandomState(seed)
+    return [{"images": rng.randn(2, 2, 96, 128, 3).astype(np.float32) * 50,
+             "gt_boxes": rng.uniform(0, 90, (2, 2, 4, 4)).astype(np.float32),
+             "gt_labels": rng.randint(0, 31, (2, 4)).astype(np.int32),
+             "gt_valid": rng.rand(2, 2, 4) > 0.3,
+             "im_scale": np.full((2,), 0.8, np.float32)} for _ in range(n)]
+
+
+@pytest.mark.parametrize("cast", [None, {"images": torch.bfloat16}])
+def test_device_prefetch_uploads_bit_equal(cuda, cast):
+    """Every uploaded batch equals its host batch (after the host cast),
+    while the consumer's stream allocates, fills and frees big tensors
+    between batches: a copy not ordered before the consumer, or memory the
+    allocator hands back early, shows as a changed value."""
+    from dtt_torch.data.loader import device_prefetch
+    host = _host_batches(12)
+    seen = 0
+    for i, batch in enumerate(device_prefetch(iter(host), cuda, size=3,
+                                              cast=cast)):
+        for _ in range(3):   # churn the caching allocator on this stream
+            junk = torch.full((2, 2, 96, 128, 3), float(i), device=cuda)
+            junk.mul_(3.0).add_(1.0)
+            del junk
+        for k, v in host[i].items():
+            want = torch.from_numpy(v)
+            if cast and k in cast:
+                want = want.to(cast[k])
+            got = batch[k]
+            assert got.device.type == "cuda" and got.dtype == want.dtype, k
+            assert torch.equal(got.cpu(), want), (i, k)
+        seen += 1
+    assert seen == len(host)
+
+
+def test_device_prefetch_raises_iterator_errors(cuda):
+    from dtt_torch.data.loader import device_prefetch
+
+    def broken():
+        yield _host_batches(1)[0]
+        raise OSError("unreadable frame")
+
+    it = device_prefetch(broken(), cuda)
+    next(it)
+    with pytest.raises(OSError, match="unreadable frame"):
+        next(it)
+
+
+def test_render_pairs_on_the_card_equals_the_host_renderer(cuda):
+    """Pixel for pixel, at the full canvas and at a small one, with
+    overlapping, clipped, degenerate and invalid slots, on the same
+    backgrounds (the same generator seed)."""
+    from dtt_torch.data import device_synth, synthetic
+    for h, w, seed in ((608, 1088, 0), (64, 96, 1)):
+        p = synthetic.sample_params_batch(np.random.RandomState(seed), 2, h,
+                                          w, 31, 30, num_objects=(5, 30))
+        p["gt_boxes"][0, 0, 0] = [-30, -12, 40, 50]
+        p["gt_boxes"][1, 1, 1] = [8, 8, 8, 20]
+        out = device_synth.render_pairs(
+            p["gt_boxes"], p["gt_labels"], p["gt_valid"],
+            torch.Generator(device=cuda).manual_seed(seed), h, w, cuda)
+        assert out.device.type == "cuda" and out.dtype == torch.uint8
+        bg = device_synth.pair_background(
+            torch.Generator(device=cuda).manual_seed(seed), 2, h, w,
+            cuda).cpu().numpy()
+        assert bg.min() == 23 and bg.max() == 37
+        out = out.cpu().numpy()
+        for b in range(2):
+            for f in range(2):
+                want = synthetic.render_frame(
+                    bg[b, f].copy(), p["gt_boxes"][b, f], p["gt_labels"][b],
+                    p["gt_valid"][b, f])
+                np.testing.assert_array_equal(out[b, f], want)
+
+
+def test_prefetch_and_renderer_raise_without_cuda(cuda, monkeypatch):
+    from dtt_torch.data.device_synth import make_pair_render_fn, render_pairs
+    from dtt_torch.data.loader import device_prefetch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        device_prefetch(iter([]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pair_render_fn(64, 96)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render_pairs(np.zeros((1, 2, 3, 4)), np.zeros((1, 3), np.int32),
+                     np.zeros((1, 2, 3), bool), None, 64, 96)

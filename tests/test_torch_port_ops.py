@@ -557,7 +557,7 @@ def test_kernel_library_name_hashes_headers(tmp_path, monkeypatch):
 def test_import_leaves_out_jax_and_dtt():
     """Importing dtt_torch, every submodule, chip_smoke, train_torch and
     eval_torch (with their lazily imported modules) pulls in no JAX, flax,
-    dtt or eval.py module."""
+    dtt, eval.py or cv2 module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dtt_torch\n"
@@ -566,18 +566,19 @@ def test_import_leaves_out_jax_and_dtt():
         "import chip_smoke, train_torch, eval_torch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt',\n"
-        "                                    'eval'))\n"
+        "                                    'eval', 'cv2'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('dtt_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 22
+    assert int(out.stdout.split()[-1]) >= 28
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
     """Called without device="cpu" on a machine with no GPU, every entry
-    point raises instead of running on the CPU."""
+    point raises instead of running on the CPU; the prefetcher raises on
+    the CPU too."""
     from dtt_torch.eval.inference import (link_snippet, make_pair_step,
                                           make_video_step)
     from dtt_torch.models.dnt import make_model
@@ -602,12 +603,20 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         create_train_state(tiny)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(tiny, model, (38, 68))
+    from dtt_torch.data.device_synth import make_pair_render_fn, render_pairs
+    from dtt_torch.data.loader import device_prefetch
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pair_render_fn(64, 96)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render_pairs(box, np.zeros((1, 3), np.int32), box[..., 0] > 0, None,
+                     64, 96)
+    for device in (None, "cpu"):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            device_prefetch(iter([]), device)
 
 
 @pytest.mark.parametrize("flags", [
-    ["--synthetic", "--device-render"], ["--synthetic", "--pretrained", "x"],
-    ["--synthetic", "--calibrate-bn"], ["--dataset", "imagenet_vid_train"],
-    ["--synthetic", "--data-root", "/data"], []])
+    ["--synthetic", "--pretrained", "x"], ["--synthetic", "--calibrate-bn"]])
 def test_train_torch_refuses_what_is_not_ported(flags):
     """train_torch.py exits with an error naming the ROADMAP item for each
     train.py option it does not implement, instead of ignoring it."""
@@ -617,18 +626,41 @@ def test_train_torch_refuses_what_is_not_ported(flags):
     assert "ROADMAP.md Queue 1 item" in out.stderr
 
 
-@pytest.mark.parametrize("flags", [
-    ["--synthetic", "--parallel"], ["--dataset", "imagenet_vid_val"],
-    ["--synthetic", "--data-root", "/data"], []])
+@pytest.mark.parametrize("flags", [["--synthetic", "--parallel"]])
 def test_eval_torch_refuses_what_is_not_ported(flags):
     """eval_torch.py exits with an error naming the ROADMAP item for each
-    eval.py option it does not implement, and without --synthetic (real
-    datasets), instead of ignoring them."""
+    eval.py option it does not implement, instead of ignoring it."""
     out = subprocess.run([sys.executable, "eval_torch.py", "--checkpoint",
                           os.devnull, *flags], cwd=REPO,
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 2
     assert "ROADMAP.md Queue 1 item" in out.stderr
+
+
+@pytest.mark.parametrize("script,flags,rc,message", [
+    ("train_torch.py", ["--device-render"], 2,
+     "--device-render only applies to --synthetic training"),
+    ("train_torch.py", ["--dataset", "imagenet_vid_train"], 1,
+     "--data-root required without --synthetic"),
+    ("train_torch.py", ["--synthetic", "--data-root", "/data"], 1,
+     "no CUDA device"),
+    ("train_torch.py", [], 1, "--data-root required without --synthetic"),
+    ("eval_torch.py", ["--dataset", "imagenet_vid_val"], 1,
+     "--data-root required without --synthetic"),
+    ("eval_torch.py", ["--synthetic", "--data-root", "/data"], 1,
+     "no CUDA device"),
+    ("eval_torch.py", [], 1, "--data-root required without --synthetic")])
+def test_data_options_behave_as_dtt(script, flags, rc, message):
+    """The data options train.py and eval.py take are accepted: a dataset
+    needs --data-root (train.py's message, exit 1), --device-render needs
+    --synthetic (train.py's usage error, exit 2), and an accepted command
+    goes on to ask for a card."""
+    ck = ["--checkpoint", os.devnull] if script == "eval_torch.py" else []
+    out = subprocess.run([sys.executable, script, *ck, *flags], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == rc
+    assert message in out.stderr
+    assert "not ported" not in out.stderr
 
 
 def test_eval_torch_raises_without_gpu(monkeypatch, tmp_path):
