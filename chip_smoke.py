@@ -81,6 +81,7 @@ without JAX. Without a CUDA card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import itertools
 import json
@@ -1682,6 +1683,18 @@ def timed_train(cfg: Config, state, step, stream, gen, label: str,
     return state, ms
 
 
+def vid_tree_writer():
+    """``write_vid_tree`` of this checkout's ``tests/vid_tree.py``, loaded
+    by its path: the card's machine has another ``tests`` package on its
+    path, which ``import tests.vid_tree`` would find first."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "vid_tree.py")
+    spec = importlib.util.spec_from_file_location("vid_tree", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.write_vid_tree
+
+
 def phase_data(cfg: Config, tree: dict, card: str) -> None:
     """The data path at full width on a VID/DET tree written here (1280 x
     720 JPEG frames, 600/720 onto the canvas): the decode route and its
@@ -1696,13 +1709,12 @@ def phase_data(cfg: Config, tree: dict, card: str) -> None:
     from dtt_torch.data.imdb import combined_roidb
     from dtt_torch.data.loader import PairLoader, device_prefetch
     from dtt_torch.data.synthetic import render_frame, sample_params_batch
-    from dtt_torch.data.vid_tree import write_vid_tree
 
     h, w = cfg.input.canvas_height, cfg.input.canvas_width
     b, seed = cfg.train.batch_size_per_chip, cfg.train.seed
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        counts = write_vid_tree(root, seed=0)
+        counts = vid_tree_writer()(root, seed=0)
         log(f"data tree: {counts} frames of 1280x720 JPEG (PIL, quality "
             f"90) in {time.perf_counter() - t0:.1f} s")
         val = os.path.join(root, "Data", "VID", "val", "snippet_000")

@@ -14,9 +14,10 @@ The config is the one saved in the checkpoint, or --config, with --set
 applied after either. The snippets are the synthetic ones or those of
 --dataset under --data-root, whose frames decode as inference reaches them
 (``LazyFrames``), at the scale and extent their annotations state. tau=1
-runs the video step over chunks of one frame more than the longest
-snippet, at most 97; tau>1 runs the pair step over 4-pair batches, links
-tubes and interpolates them to every frame. Prints the wall time of each
+runs the video step over 97-frame chunks, or with --synthetic over
+chunks of --synthetic-frames + 1 (at most 97), as eval.py does; tau>1
+runs the pair step over 4-pair batches, links tubes and interpolates them
+to every frame. Prints the wall time of each
 phase (decoding, within detection, apart), then one JSON line: mAP,
 protocol (and with linking mAP_nolink and link_uplift) and the per-class
 APs. Needs a CUDA card; ``main(argv, device="cpu")`` runs the plain
@@ -294,7 +295,6 @@ def main(argv=None, device=None):
             n_snippets = min(n_snippets, args.max_snippets)
         stream = snippet_stream_synthetic(cfg, n_snippets,
                                           args.synthetic_frames, hard=hard)
-        longest = args.synthetic_frames
     else:
         import dtt_torch.data.imagenet_vid  # noqa: F401  (registers datasets)
         from dtt_torch.data.imdb import get_dataset
@@ -302,13 +302,13 @@ def main(argv=None, device=None):
         if args.max_snippets:
             snippets = snippets[:args.max_snippets]
         stream = snippet_stream_vid(cfg, snippets)
-        longest = max((len(sn.frames) for sn in snippets), default=1)
     do_link = args.link or args.tau > 1   # tau>1 implies tube linking
     if args.tau > 1:
         pair_step = make_pair_step(cfg, model, 4, device)
     else:
-        # a chunk as long as the longest snippet and its identity pair
-        video_step = make_video_step(cfg, model, min(97, longest + 1), device)
+        # eval.py's chunk: synthetic snippets are short and of known length
+        fpc = min(97, args.synthetic_frames + 1) if args.synthetic else 97
+        video_step = make_video_step(cfg, model, fpc, device)
     num_classes = cfg.model.num_classes
 
     all_dets = {c: [] for c in range(1, num_classes)}

@@ -3,13 +3,16 @@ scale and resize, the native JPEG pipeline, prepare_pair, the VID/DET
 roidbs, PairLoader batches, the synthetic samplers and renderers, and
 train_torch.py on a dataset tree.
 
-Every tree is written in the test (``dtt_torch.data.vid_tree``: JPEG frames
+Every tree is written in the test (``tests/vid_tree.py``: JPEG frames
 by PIL, VOC XML) and read by both packages. Tolerances: equal everywhere
 (native decode, prepare_pair, roidbs, batches, rendered pixels), except
-the resize against ``cv2.resize`` (1e-4 in pixel units) and ``dtt``'s
-``jnp`` renderer (dtt's own bound: at most 1 on a few texture pixels).
+the resize against ``cv2.resize`` (1e-4 in pixel units), the ``pil``
+route against dtt's ``cv2`` route (PIL's decode equal to ``cv2.imread``'s,
+then the resize's 1e-4) and ``dtt``'s ``jnp`` renderer (dtt's own bound:
+at most 1 on a few texture pixels).
 """
 
+import glob
 import json
 import os
 
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from dtt.core import boxes as jboxes
 from dtt.core.config import InputConfig as JInputConfig
@@ -35,12 +39,13 @@ from dtt_torch.data import device_synth, native, synthetic, transforms
 from dtt_torch.data import imagenet_vid as t_vid
 from dtt_torch.data.imdb import combined_roidb, list_datasets
 from dtt_torch.data.loader import PairLoader
-from dtt_torch.data.vid_tree import write_vid_tree
+from tests.vid_tree import write_vid_tree
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(target_short_side=96, canvas_height=96, canvas_width=128,
              max_gt_boxes=4)
 RESIZE_ATOL = 1e-4          # pixel units (0-255 scale)
+PIL_CV2_ATOL = 0.0          # pixel units: PIL's JPEG decode against cv2's
 
 
 @pytest.fixture(scope="module")
@@ -189,6 +194,63 @@ def test_frame_routes(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(transforms, "_pil", lambda: None)
     with pytest.raises(RuntimeError, match="f.JPEG.*PIL is not importable"):
         transforms.prepare_frame(jpeg, cfg)
+
+
+def _without_native(monkeypatch):
+    """Neither package's native library, as on a machine without libjpeg:
+    the port decodes JPEG by PIL, dtt by cv2.imread."""
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(j_native, "available", lambda: False)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_pil_route_matches_dtt_cv2_path(tree, tmp_path, monkeypatch, flip):
+    """The decode the card's machine runs (no libjpeg there): PIL's decode
+    and the port's resize, against dtt's own path where its native library
+    is missing, cv2.imread and cv2.resize. Every JPEG of the tree on the
+    small canvas, and one 1280 x 720 frame (VID's usual size, written by
+    PIL as the card's tree is) on the full canvas: the decode within
+    PIL_CV2_ATOL of cv2's, the canvas within that plus RESIZE_ATOL, the
+    scale equal."""
+    _without_native(monkeypatch)
+    rng = np.random.RandomState(11)
+    yy, xx = np.mgrid[0:720, 0:1280]
+    img = np.stack([120 + 80 * np.sin(yy / 50.0), 120 + 80 * np.cos(xx / 70.0),
+                    120 + 60 * np.sin((xx + yy) / 90.0)], -1)
+    img = np.clip(img + rng.randint(-20, 21, img.shape), 0, 255)
+    big = str(tmp_path / "big.JPEG")
+    Image.fromarray(img.astype(np.uint8)).save(big, format="JPEG", quality=90)
+    cases = [(p, SMALL) for p in sorted(glob.glob(
+        os.path.join(tree, "Data", "**", "*.JPEG"), recursive=True))]
+    assert len(cases) == 15
+    for path, kw in cases + [(big, {})]:
+        assert transforms.frame_route(path) == "pil"
+        np.testing.assert_allclose(transforms.load_image_bgr(path),
+                                   cv2.imread(path).astype(np.float32),
+                                   rtol=0, atol=PIL_CV2_ATOL)
+        got, gs = transforms.prepare_frame(path, InputConfig(**kw), flip)
+        want, ws = j_transforms.prepare_frame(path, JInputConfig(**kw), flip,
+                                              use_native=False)
+        assert gs == ws
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=PIL_CV2_ATOL + RESIZE_ATOL)
+
+
+def test_prepare_pair_pil_route_matches_dtt_cv2_path(tree, monkeypatch):
+    """Every sample of the VID and DET roidb, flipped and not, with neither
+    package's native library: images within PIL_CV2_ATOL + RESIZE_ATOL of
+    dtt's cv2 route; gt_boxes, labels, valid, im_scale and im_size
+    equal."""
+    _without_native(monkeypatch)
+    got_db, want_db = _roidb(tree)
+    assert any(e["flipped"] for e in want_db)
+    cfg, jcfg = InputConfig(**SMALL), JInputConfig(**SMALL)
+    for g, w in zip(got_db, want_db):
+        got = transforms.prepare_pair(g, cfg)
+        want = j_transforms.prepare_pair(w, jcfg)
+        np.testing.assert_allclose(got.pop("images"), want.pop("images"),
+                                   rtol=0, atol=PIL_CV2_ATOL + RESIZE_ATOL)
+        _assert_same_tree(got, want)
 
 
 def test_flip_image_and_boxes_matches_dtt():

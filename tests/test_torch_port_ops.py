@@ -555,15 +555,16 @@ def test_kernel_library_name_hashes_headers(tmp_path, monkeypatch):
 # ------------------------------------------------------------------ hygiene
 
 def test_import_leaves_out_jax_and_dtt():
-    """Importing dtt_torch, every submodule, chip_smoke, train_torch and
-    eval_torch (with their lazily imported modules) pulls in no JAX, flax,
-    dtt, eval.py or cv2 module."""
+    """Importing dtt_torch, every submodule, chip_smoke, train_torch,
+    eval_torch and the tree writer chip_smoke runs (with their lazily
+    imported modules) pulls in no JAX, flax, dtt, eval.py or cv2 module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dtt_torch\n"
         "for m in pkgutil.walk_packages(dtt_torch.__path__, 'dtt_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, train_torch, eval_torch\n"
+        "chip_smoke.vid_tree_writer()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt',\n"
         "                                    'eval', 'cv2'))\n"

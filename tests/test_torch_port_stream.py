@@ -4,7 +4,7 @@ snippet drivers size that cache to their working set, streamed detections
 equal stacked ones bit for bit, and ``eval_torch.py --dataset`` gives
 ``eval.py``'s detections and mAP on the same tree and weights.
 
-Trees are written in the test (``dtt_torch.data.vid_tree``). Tolerances:
+Trees are written in the test (``tests/vid_tree.py``). Tolerances:
 frames, gt arrays and streamed-vs-stacked detections equal; the end-to-end
 comparison as ``tests/test_torch_port_eval_script.py`` (scores 1e-5,
 boxes 1e-2 pixels, APs 1e-6).
@@ -29,7 +29,7 @@ from dtt.train.trainer import TrainState
 from dtt_torch.core.config import load_config
 from dtt_torch.data.imagenet_vid import ImagenetVID
 from dtt_torch.data.transforms import prepare_image
-from dtt_torch.data.vid_tree import write_vid_tree
+from tests.vid_tree import write_vid_tree
 from dtt_torch.eval.inference import (LazyFrames, PairOutputs,
                                       evaluate_snippet, evaluate_snippet_video,
                                       make_video_step)

@@ -1,6 +1,11 @@
 """Write a small ImageNet VID/DET tree of synthetic scenes, in the
-ILSVRC2015 layout ``imagenet_vid`` reads, for runs and tests of the data
-path where the real corpus is not on the machine.
+ILSVRC2015 layout ``dtt_torch.data.imagenet_vid`` reads, for the tests,
+``chip_smoke.py`` and ``tools/bench_data_torch.py`` where the real corpus
+is not on the machine. From the repository root (``tests`` on the path
+as a directory: another installed ``tests`` package may shadow
+``tests.vid_tree``)::
+
+    PYTHONPATH=tests python -c "from vid_tree import write_vid_tree as w; w('/tmp/vid')"
 
 Snippets hold class-textured rectangles (``synthetic.object_texture``)
 moving at constant velocity on a smooth noisy background, with track ids;
