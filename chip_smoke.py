@@ -68,7 +68,21 @@ Phases, in order; any failure ends the script with a non-zero exit:
    card's canvases pixel for pixel against the host renderer's first),
    each with its launches, and ``eval_torch.main --dataset ... --link``
    on the val snippet, which must decode every frame once;
-10. both correlation forwards' device time by ``torch.profiler`` at one
+10. weights and pooling modes, at full width: a torchvision-layout
+   ResNet-101 .pth with BN running statistics made here from a numpy seed,
+   ``train_torch.main --pretrained --calibrate-bn`` for 1 + 3 steps (every
+   backbone conv the .pth's bit for bit, the last calibrated affines'
+   outputs at per-channel mean 0 and std 1 within CALIB_TOL, the losses
+   finite, the train path's kernels launched), the run's
+   ``state.msgpack`` written again (the same bytes) and restored into a
+   fresh state (parameters, momentum and step bit for bit, with the write
+   and read ms and the file's size), ``eval_torch.main`` on that run dir
+   at tau=1 with --link and at tau=2 with the SAT pool, then each of the
+   pooling modes align, pool and crop: one 17-frame video chunk (pairs/s),
+   for align 1 + 3 train steps (ms/step, peak memory), and the tiny f32
+   config card against CPU for the video step and one train step, as in
+   phase 4;
+11. both correlation forwards' device time by ``torch.profiler`` at one
    pair and at 16 pairs, after the main paths, since a traced card slows
    the host's later launches.
 
@@ -96,11 +110,12 @@ import torch
 
 from dtt_torch.core.anchors import grid_anchors_for
 from dtt_torch.core.config import Config
+from dtt_torch.core.config import load_config
 from dtt_torch.data.synthetic import synthetic_batch
 from dtt_torch.eval.inference import (evaluate_snippet, evaluate_snippet_video,
                                       link_snippet, make_pair_step,
                                       make_single_frame_step, make_video_step)
-from dtt_torch.models.dnt import (Detections, cosine_prep,
+from dtt_torch.models.dnt import (DnT, Detections, cosine_prep,
                                   decode_detections_batched,
                                   decode_frame_detections, is_frozen,
                                   normalize_device_images, pool_vote_fused,
@@ -111,12 +126,15 @@ from dtt_torch.ops import _build
 from dtt_torch.ops import correlation as corr_ops
 from dtt_torch.ops import psroi as psroi_ops
 from dtt_torch.train import losses as train_losses
-from dtt_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from dtt_torch.train.checkpoint import (latest_checkpoint,
+                                        restore_checkpoint, save_checkpoint)
 from dtt_torch.train.trainer import (apply_gradients, batch_to_device,
                                      create_train_state, make_train_step)
+from dtt_torch.utils import calibrate
 from dtt_torch.utils.params import from_jax_params, init_jax_params
 
 import eval_torch
+import train_torch
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor FLOP/s and
 # float32 FLOP/s outside the tensor cores
@@ -151,6 +169,11 @@ DATA_WORKERS = 4             # PairLoader threads
 DATA_DET_FRACTION = 0.5      # DET:VID mixture of the loader's batches
 # correlation windows past the tensor-core band that dtt takes
 WIDE_WINDOWS = ((16, 4), (10, 2))
+MODE_STEPS = 3               # timed pretrained and align train steps
+# calibrated affines' outputs over the calibration batch, per channel:
+# |mean| and |std - 1|; the forward computes x * bf16(scale) + bf16(bias)
+# in bf16, so a channel whose mean is m std off zero lands ~m 2^-8 away
+CALIB_TOL = (0.1, 0.05)
 KERNELS = {"correlation": corr_ops.correlation_cuda,
            "correlation_split": corr_ops.correlation_split_cuda,
            "correlation_bwd": corr_ops.correlation_bwd_cuda,
@@ -165,7 +188,9 @@ PATH_KERNELS = {"video": ("correlation", "psroi_direct"),
                 "pair": ("correlation", "psroi_mm"),
                 "eval_video": ("correlation", "psroi_direct"),
                 "frame": ("correlation", "correlation_split", "psroi_mm",
-                          "psroi_sat_mean")}
+                          "psroi_sat_mean"),
+                "mode_video": ("correlation",),
+                "mode_train": ("correlation", "correlation_bwd")}
 
 
 def log(msg: str) -> None:
@@ -878,23 +903,29 @@ def phase_wide_windows(seed: int) -> None:
                     f"{[f'{e:.3g}' for e in errs]}")
 
 
-def tiny_config() -> Config:
+def with_mode(cfg: Config, mode: str) -> Config:
+    return cfg.replace(model=cfg.model.replace(
+        roi=cfg.model.roi.replace(pooling_mode=mode)))
+
+
+def tiny_config(mode: str = "psroi") -> Config:
     cfg = Config()
     m = cfg.model
-    return cfg.replace(
+    return with_mode(cfg.replace(
         model=m.replace(backbone="tiny", dtype="float32", frozen_stages=0,
                         reduced_channels=64, num_classes=4,
                         rpn=m.rpn.replace(channels=32, pre_nms_top_n_test=64,
                                           post_nms_top_n_test=16),
                         roi=m.roi.replace(ps_grid=3),
                         track=m.track.replace(max_displacement=2, stride=1)),
-        input=cfg.input.replace(canvas_height=64, canvas_width=96))
+        input=cfg.input.replace(canvas_height=64, canvas_width=96)), mode)
 
 
-def phase_reference() -> None:
+def phase_reference(mode: str = "psroi") -> None:
     """Tiny config, float32: kernels on the card vs plain versions on the
-    CPU, end to end. `valid` equal; values to float32 roundoff."""
-    cfg = tiny_config()
+    CPU, end to end, under pooling mode `mode`. `valid` equal; values to
+    float32 roundoff."""
+    cfg = tiny_config(mode)
     tree = init_jax_params(cfg.model, seed=3)
     frames = np.random.RandomState(5).randint(0, 256, (7, 64, 96, 3)).astype(
         np.uint8)
@@ -908,8 +939,9 @@ def phase_reference() -> None:
     np.testing.assert_allclose(gs, cs, rtol=0, atol=1e-4)
     np.testing.assert_allclose(gb, cb, rtol=0, atol=1e-2)
     np.testing.assert_allclose(gt, ct, rtol=0, atol=1e-2)
-    log(f"reference: tiny config f32, card vs CPU: {int(gv.sum())} valid "
-        f"detections equal; max |d score| {np.abs(gs - cs).max():.3g}, "
+    log(f"reference [{mode}]: tiny config f32, card vs CPU: "
+        f"{int(gv.sum())} valid detections equal; max |d score| "
+        f"{np.abs(gs - cs).max():.3g}, "
         f"max |d box| {np.abs(gb - cb).max():.3g}")
 
 
@@ -1213,11 +1245,12 @@ def phase_main_path(cfg: Config, card: str, tree: dict) -> dict:
     return launches
 
 
-def train_tiny_config() -> Config:
-    """The tiny training config of the CPU tests (tests/test_train.py)."""
+def train_tiny_config(mode: str = "psroi") -> Config:
+    """The tiny training config of the CPU tests (tests/test_train.py)
+    under pooling mode `mode`."""
     cfg = Config()
     m = cfg.model
-    return cfg.replace(
+    return with_mode(cfg.replace(
         model=m.replace(backbone="tiny", dtype="float32", frozen_stages=0,
                         reduced_channels=64, num_classes=4,
                         anchors=m.anchors.replace(scales=(1.0, 2.0, 4.0)),
@@ -1228,7 +1261,7 @@ def train_tiny_config() -> Config:
         train=cfg.train.replace(learning_rate=1e-3, ohem_top_k=16,
                                 lr_decay_steps=(10**6,)),
         input=cfg.input.replace(canvas_height=64, canvas_width=96,
-                                max_gt_boxes=4))
+                                max_gt_boxes=4)), mode)
 
 
 def worst_leaf(ratios: dict) -> tuple:
@@ -1237,14 +1270,15 @@ def worst_leaf(ratios: dict) -> tuple:
     return ratios[name], name
 
 
-def phase_train_reference() -> None:
-    """Tiny config, float32: one train step through the kernels on the
-    card against one through the plain versions on the CPU, from the same
-    weights, batch and draws. Losses within TRAIN_REF_LOSS_TOL, every
-    leaf's clipped gradient within TRAIN_REF_GRAD_REL of the leaf's
-    largest element, the updated parameters element by element within
-    TRAIN_REF_PARAM_TOL (atol, rtol)."""
-    cfg = train_tiny_config()
+def phase_train_reference(mode: str = "psroi") -> None:
+    """Tiny config, float32, pooling mode `mode`: one train step through
+    the kernels on the card against one through the plain versions on the
+    CPU, from the same weights, batch and draws. Losses within
+    TRAIN_REF_LOSS_TOL, every leaf's clipped gradient within
+    TRAIN_REF_GRAD_REL of the leaf's largest element, the updated
+    parameters element by element within TRAIN_REF_PARAM_TOL (atol,
+    rtol)."""
+    cfg = train_tiny_config(mode)
     tree = init_jax_params(cfg.model, seed=3)
     batch = synthetic_batch(np.random.RandomState(4), 2, 64, 96, 4, 4,
                             cfg.input.pixel_means, uint8=True)
@@ -1279,8 +1313,9 @@ def phase_train_reference() -> None:
             f" worst gradient leaf {grad_leaf} off by {grad_r:.3g} of its "
             f"largest element (tol {TRAIN_REF_GRAD_REL}), worst parameter "
             f"{param_r:.3g} of its tolerance ({param_leaf})")
-    log(f"train reference: tiny config f32, one step, card vs CPU: max |d "
-        f"loss| {loss_err:.3g} (tol {TRAIN_REF_LOSS_TOL}); {len(cpu_grads)} "
+    log(f"train reference [{mode}]: tiny config f32, one step, card vs "
+        f"CPU: max |d loss| {loss_err:.3g} (tol {TRAIN_REF_LOSS_TOL}); "
+        f"{len(cpu_grads)} "
         f"gradient leaves, worst off by {grad_r:.3g} of the leaf's largest "
         f"(tol {TRAIN_REF_GRAD_REL}, {grad_leaf}); updated parameters worst at "
         f"{param_r:.3g} of {TRAIN_REF_PARAM_TOL} ({param_leaf}); max |grad| "
@@ -1878,6 +1913,260 @@ def phase_data(cfg: Config, tree: dict, card: str) -> None:
             f"mAP_nolink {out['mAP_nolink']} (random weights)")
 
 
+def pth_name(key: str) -> str:
+    """The torchvision module name of the port's backbone module `key`
+    (``backbone.layer1.block0.downsample_conv`` -> ``layer1.0.downsample.0``)."""
+    parts = key.removeprefix("backbone.").split(".")
+    name = ".".join(p.removeprefix("block") if p.startswith("block") else p
+                    for p in parts)
+    return (name.replace("downsample_conv", "downsample.0")
+            .replace("downsample_bn", "downsample.1"))
+
+
+def resnet_pth_state(cfg: Config, seed: int) -> dict:
+    """A torchvision-layout state dict of `cfg`'s backbone from a numpy
+    seed: He-normal convs and BatchNorms with running statistics."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    sd = {}
+    for key, ref in DnT(cfg.model, device="meta").state_dict().items():
+        if not key.startswith("backbone."):
+            continue
+        name, leaf = key.rsplit(".", 1)
+        name, shape = pth_name(name), tuple(ref.shape)
+        if leaf == "weight":
+            std = np.sqrt(2.0 / np.prod(shape[1:]))
+            sd[f"{name}.weight"] = t(rng.standard_normal(shape) * std)
+        elif leaf == "scale":
+            sd[f"{name}.weight"] = t(rng.uniform(0.5, 1.5, shape))
+            sd[f"{name}.bias"] = t(rng.normal(0.0, 0.1, shape))
+            sd[f"{name}.running_mean"] = t(rng.normal(0.0, 0.1, shape))
+            sd[f"{name}.running_var"] = t(rng.uniform(0.5, 1.5, shape))
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def momentum_buffers(state) -> list:
+    return [state.optimizer.state[p].get("momentum_buffer")
+            for g in state.optimizer.param_groups for p in g["params"]]
+
+
+def phase_weights_train(cfg: Config, d: str, card: str):
+    """``train_torch.main --pretrained --calibrate-bn`` at full width for
+    1 + MODE_STEPS steps into run dir `d`/run, with its checks; returns
+    the final state and the train path's launches."""
+    sd = resnet_pth_state(cfg, seed=21)
+    pth = os.path.join(d, "resnet101.pth")
+    torch.save(sd, pth)
+    seen = {}
+    real = calibrate.calibrate_model_backbone
+
+    def checked_calibration(cfg_, model, imgs):
+        # called after the import, before any step: the .pth's convs
+        convs = [(k, v) for k, v in model.state_dict().items()
+                 if k.startswith("backbone.") and k.endswith(".weight")]
+        bad = [k for k, v in convs
+               if not torch.equal(v.cpu(), sd[pth_name(k[:-7]) + ".weight"])]
+        if bad or len(convs) != 1 + 3 * 33 + 4:
+            raise AssertionError(f"imported convs differ from the .pth: "
+                                 f"{bad[:4]} of {len(convs)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(cfg_, model, imgs)
+        torch.cuda.synchronize()
+        seen["calib_s"] = time.perf_counter() - t0
+        groups = calibrate.affine_groups(model.backbone)
+        stats = calibrate.affine_stats(
+            model.backbone, calibrate.backbone_input(model, imgs), groups[-1])
+        seen["mean"] = max(m.abs().max().item() for m, _ in stats.values())
+        seen["std"] = max((v.sqrt() - 1).abs().max().item()
+                          for _, v in stats.values())
+        seen["groups"], seen["convs"] = len(groups), len(convs)
+        return model
+
+    out = os.path.join(d, "run")
+    argv = ["--synthetic", "--pretrained", pth, "--calibrate-bn", "--out",
+            out, "--set", f"train.total_steps={1 + MODE_STEPS}",
+            "train.log_every=1"]
+    buf = io.StringIO()
+    calibrate.calibrate_model_backbone = checked_calibration
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            state = train_torch.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        calibrate.calibrate_model_backbone = real
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    log(f"weights train launches (1 + {MODE_STEPS} steps): {launches}")
+    check_launches("train", launches)
+    if [r["step"] for r in rows] != list(range(1, 2 + MODE_STEPS)):
+        raise AssertionError(f"train_torch logged steps "
+                             f"{[r['step'] for r in rows]}")
+    losses = [{k: v for k, v in r.items() if k not in ("step", "exp")}
+              for r in rows]
+    if not all(np.isfinite(v) for r in losses for v in r.values()):
+        raise AssertionError(f"non-finite loss: {losses}")
+    mean_tol, std_tol = CALIB_TOL
+    if not (seen.get("mean", np.inf) <= mean_tol
+            and seen.get("std", np.inf) <= std_tol):
+        raise AssertionError(f"calibrated affines off: max |mean| "
+                             f"{seen.get('mean')}, max |std - 1| "
+                             f"{seen.get('std')} (tol {CALIB_TOL})")
+    log(f"weights train: --pretrained (a torchvision-layout ResNet-101 .pth, "
+        f"{os.path.getsize(pth) / 2**20:.1f} MiB, made from a numpy seed: "
+        f"{seen['convs']} backbone convs equal to it bit for bit) "
+        f"--calibrate-bn ({seen['groups']} affine groups in "
+        f"{seen['calib_s']:.2f} s; the last group's outputs over the "
+        f"batch: max |mean| {seen['mean']:.3g}, max |std - 1| "
+        f"{seen['std']:.3g}, tol {CALIB_TOL}); {len(rows)} steps in "
+        f"{wall:.1f} s of train_torch.main; {rows[-1]['pairs_per_sec']} "
+        f"pairs/s, {1e3 / rows[-1]['pairs_per_sec']:.1f} ms/step after the "
+        f"first on {card}; last losses {json.dumps(losses[-1])}")
+    return state, launches, out
+
+
+def phase_weights(card: str) -> dict:
+    """Weights in and out and the other pooling modes at full width (see
+    the module docstring, phase 10); returns the launches of each path
+    driven."""
+    cfg = Config()
+    launches = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        state, launches["weights_train"], out = phase_weights_train(cfg, d,
+                                                                   card)
+        ck = latest_checkpoint(out)
+        raw = os.path.join(ck, "state.msgpack")
+        cfg = load_config(os.path.join(ck, "config.yml"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = save_checkpoint(os.path.join(d, "again"), state, cfg)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        with open(raw, "rb") as f, \
+                open(os.path.join(again, "state.msgpack"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("a second save of the state wrote "
+                                     "other bytes")
+        _, fresh = create_train_state(cfg, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = restore_checkpoint(ck, fresh)
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        bufs, fresh_bufs = momentum_buffers(state), momentum_buffers(fresh)
+        same = (fresh.step == state.step == 1 + MODE_STEPS
+                and all(torch.equal(v, state.model.state_dict()[k])
+                        for k, v in fresh.model.state_dict().items())
+                and len(bufs) == len(fresh_bufs) > 0
+                and all(a is not None and torch.equal(a, b)
+                        for a, b in zip(bufs, fresh_bufs)))
+        if not same:
+            raise AssertionError("the run's state.msgpack did not restore "
+                                 "bit for bit")
+        n_params = sum(v.numel() for v in state.model.state_dict().values())
+        mib = os.path.getsize(raw) / 2**20
+        log(f"weights checkpoint: state.msgpack of {mib:.1f} MiB "
+            f"({n_params / 1e6:.1f} M values and their momentum), "
+            f"written in {write_ms:.1f} ms (the same bytes again), restored "
+            f"in {read_ms:.1f} ms into a fresh state: step {fresh.step}, "
+            f"{len(bufs)} momentum buffers and every parameter bit for bit "
+            f"on {card}")
+        del state, fresh, bufs, fresh_bufs
+        for path, flags in (("eval_video", ["--link"]),
+                            ("pair", ["--tau", "2", "--set",
+                                      "model.roi.eval_pool_impl=pallas_mm"])):
+            reset_launches()
+            t0 = time.perf_counter()
+            res, _, pairs = run_eval(["--synthetic", "--checkpoint", out,
+                                      "--synthetic-snippets", "1",
+                                      "--synthetic-frames", "16", *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[f"weights_{path}"] = read_launches()
+            check_launches(path, launches[f"weights_{path}"])
+            if not all(np.isfinite(res[k]) for k in ("mAP", "mAP_nolink")):
+                raise AssertionError(f"eval of the read-back run: {res}")
+            log(f"weights eval ({' '.join(flags)}) of the read-back run: "
+                f"{pairs} pairs in {wall * 1e3:.1f} ms wall on {card}; "
+                f"launches {launches[f'weights_{path}']}; mAP {res['mAP']}")
+    for mode in ("align", "pool", "crop"):
+        launches.update(phase_mode(with_mode(Config(), mode), card))
+        phase_reference(mode)
+        phase_train_reference(mode)
+    log(f"weights and pooling modes: {time.perf_counter() - t_phase:.1f} s "
+        f"on {card}")
+    return launches
+
+
+def phase_mode(cfg: Config, card: str) -> dict:
+    """One 17-frame video chunk at full width under cfg's pooling mode
+    (pairs/s), and for align 1 + MODE_STEPS train steps (ms/step, peak
+    memory); returns their launches."""
+    mode = cfg.model.roi.pooling_mode
+    tree = init_jax_params(cfg.model, seed=0)
+    model = from_jax_params(tree, cfg.model, device="cuda")
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    frames = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (FRAMES_PER_CHUNK, h, w, 3)).astype(np.uint8))
+    im_hw = torch.tensor([h - 8, w - 48], dtype=torch.float32, device="cuda")
+    step = make_video_step(cfg, model, FRAMES_PER_CHUNK)
+    step(frames, im_hw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [x.cpu().numpy() for x in step(frames, im_hw)]
+    dt = time.perf_counter() - t0
+    launches = {f"{mode}_video": read_launches()}
+    check_launches("mode_video", launches[f"{mode}_video"])
+    if not all(np.isfinite(x).all() for x in outs) or not outs[2].any():
+        raise AssertionError(f"{mode} video chunk: non-finite or no valid "
+                             "detection")
+    log(f"{mode} video chunk: {FRAMES_PER_CHUNK - 1} pairs in "
+        f"{dt * 1e3:.1f} ms, {(FRAMES_PER_CHUNK - 1) / dt:.2f} pairs/s on "
+        f"{card}; {int(outs[2].sum())} valid detections; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches[f'{mode}_video']}")
+    del model, step
+    if mode != "align":
+        return launches
+    b = cfg.train.batch_size_per_chip
+    model, state = create_train_state(cfg, "cuda", tree=tree)
+    step = make_train_step(cfg, model, (h // 16, w // 16))
+    rng = np.random.RandomState(2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batches = [synthetic_batch(rng, b, h, w, cfg.model.num_classes,
+                               cfg.input.max_gt_boxes, cfg.input.pixel_means,
+                               uint8=True) for _ in range(1 + MODE_STEPS)]
+    state, _ = step(state, batches[0], sample_draws(cfg, b, gen, "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    history = []
+    for batch in batches[1:]:
+        state, metrics = step(state, batch, sample_draws(cfg, b, gen, "cuda"))
+        history.append(metrics)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["align_train"] = read_launches()
+    check_launches("mode_train", launches["align_train"])
+    values = [{k: v.item() for k, v in m_.items()} for m_ in history]
+    if not all(np.isfinite(v) for row in values for v in row.values()):
+        raise AssertionError(f"align train: non-finite loss: {values}")
+    log(f"align train: {MODE_STEPS} steps {dt * 1e3 / MODE_STEPS:.1f} "
+        f"ms/step on {card}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches['align_train']}; last losses "
+        f"{json.dumps({k: round(v, 4) for k, v in values[-1].items()})}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1915,6 +2204,8 @@ def main() -> int:
                 **phase_eval(cfg, tree, card),
                 "frame": phase_frame_path(cfg, tree, card)}
     phase_data(cfg, tree, card)
+    del tree
+    phase_weights(card)
     for k in kernels:
         k["launches"] = launches[k["path"]][k["name"]]
     phase_correlation_device(cfg)

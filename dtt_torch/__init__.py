@@ -1,11 +1,15 @@
 """dtt_torch: the PyTorch/CUDA port of ``dtt`` (Detect to Track) for an
 NVIDIA H100.
 
-This slice covers video-mode inference (``dtt_torch.eval.inference``):
-ResNet trunk, 3-scale cosine correlation (hand-written CUDA kernel),
-fused cls|bbox|track ps-maps, proposal layer with exact greedy NMS, one
-direct PSRoI pool (hand-written CUDA kernel) and per-class decode + NMS.
-The package imports torch and numpy only, never JAX or ``dtt``. Entry
-points run on CUDA unless the caller passes ``device="cpu"``; on CPU
-tensors every kernel wrapper uses its plain PyTorch version.
+It covers what ``dtt`` does on one device: video-mode, tau-strided and
+single-frame inference (``dtt_torch.eval``), training (``dtt_torch.train``),
+the data pipeline (``dtt_torch.data``), every pooling mode, and weights in
+and out in ``dtt``'s run-dir format (``dtt_torch.utils``). Every TPU
+kernel of ``dtt`` is a hand-written CUDA kernel (``dtt_torch.ops``). The
+package imports torch and numpy only, never JAX, flax, msgpack or
+``dtt``. Entry points run on CUDA unless the caller passes
+``device="cpu"``; on CPU tensors every kernel wrapper uses its plain
+PyTorch version.
 """
+
+__version__ = "0.1.0"

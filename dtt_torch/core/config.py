@@ -6,8 +6,11 @@ is imported only inside ``load_config``/``save_config``.
 
 Fields that steer the JAX program only are accepted and ignored here:
 ``EvalConfig.split_video_step`` works around an XLA scheduling artifact
-that eager PyTorch does not have, and ``nms_select_block``,
-``ModelConfig.remat``/``scan_blocks`` shape JAX programs.
+that eager PyTorch does not have, and ``nms_select_block`` shapes JAX
+programs. ``ModelConfig.remat`` recomputes each bottleneck in the backward
+(``torch.utils.checkpoint``); ``ModelConfig.scan_blocks`` is a parameter
+layout only (the stacked stages of ``dtt``'s trees and checkpoints), the
+model runs its blocks one by one either way.
 """
 
 from __future__ import annotations
@@ -70,8 +73,7 @@ class RoIConfig(_Replaceable):
     bbox_normalize_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
     bbox_normalize_targets_precomputed: bool = True
     ps_grid: int = 7
-    # The port implements "psroi" only; the other modes raise.
-    pooling_mode: str = "psroi"
+    pooling_mode: str = "psroi"    # "psroi" | "align" | "pool" | "crop"
     class_agnostic: bool = True
     eval_pool_impl: str = "direct"  # "direct" | "pallas_mm" | "gather"
     train_pool_impl: str = "direct"

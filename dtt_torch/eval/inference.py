@@ -14,6 +14,11 @@
 * Single-frame R-FCN detection (``make_single_frame_step``): no tracking
   head, one frame per call.
 
+The video and pair steps take the fused path under the psroi pooling mode
+(one pool of the fused ps-maps) and the unfused one under the others
+(``frame_features``, ``track_psmaps``, the batched detection and track
+pools), as ``dtt`` chooses by ``roi.pooling_mode``.
+
 Both drivers keep two batches in flight: CUDA work is queued
 asynchronously and only the ``.cpu()`` of a finished batch waits. Their
 frames are an array or a ``LazyFrames``, which decodes each frame of a
@@ -35,7 +40,8 @@ from dtt_torch.core.device import resolve_device
 from dtt_torch.eval.linking import Tubes, link_all_classes
 from dtt_torch.models.dnt import (DnT, decode_detections_batched,
                                   decode_frame_detections, detect_frame,
-                                  detect_track_fused, normalize_device_images)
+                                  detect_frames_batched, detect_track_fused,
+                                  normalize_device_images, track_rois_batched)
 
 
 class PairOutputs(NamedTuple):
@@ -156,6 +162,30 @@ def _detect_and_track_fused(cfg: Config, model: DnT, anchors, f_t, f_tau,
         ecfg.max_per_class, track_deltas=deltas))
 
 
+def _detect_and_track(cfg: Config, model: DnT, anchors, f_t, f_tau, im_hw,
+                      scale) -> PairOutputs:
+    """The unfused counterpart of `_detect_and_track_fused`: the track maps
+    of (f_t, f_tau), batched proposals, the cls/bbox pools of `f_t`
+    (``frame_features``), the track pool at its RoIs and per-class decode.
+    Any pooling mode."""
+    mcfg, ecfg = cfg.model, cfg.eval
+    track_maps = model.track_psmaps(f_t, f_tau)
+    _, det = detect_frames_batched(mcfg, f_t, anchors, im_hw[0], im_hw[1],
+                                   scale)
+    deltas = track_rois_batched(mcfg, track_maps, det.rois)
+    return PairOutputs(*decode_detections_batched(
+        mcfg, det, im_hw[0], im_hw[1], ecfg.score_thresh, ecfg.nms_thresh,
+        ecfg.max_per_class, track_deltas=deltas))
+
+
+def _trunk_and_post(cfg: Config, model: DnT):
+    """The trunk and the post-trunk stage of the video and pair steps for
+    the pooling mode: fused under psroi, else unfused."""
+    if cfg.model.roi.pooling_mode == "psroi":
+        return model.frame_trunk, _detect_and_track_fused
+    return model.frame_features, _detect_and_track
+
+
 def make_video_step(cfg: Config, model: DnT, frames_per_chunk: int = 33,
                     device=None):
     """(frames (F, H, W, 3), im_hw (2,) float32 tensor on the device, scale)
@@ -168,6 +198,7 @@ def make_video_step(cfg: Config, model: DnT, frames_per_chunk: int = 33,
     if frames_per_chunk < 2:
         raise ValueError("a chunk needs at least one frame pair")
     device, anchors = _step_setup(cfg, model, device)
+    trunk, post = _trunk_and_post(cfg, model)
 
     @torch.inference_mode()
     def step(frames: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
@@ -177,11 +208,9 @@ def make_video_step(cfg: Config, model: DnT, frames_per_chunk: int = 33,
                              f"got {tuple(frames.shape)}")
         images = normalize_device_images(_upload(frames, device), im_hw,
                                          cfg.input.pixel_means)
-        feats = model.frame_trunk(images)
-        return _detect_and_track_fused(cfg, model, anchors,
-                                       feats.slice(slice(None, -1)),
-                                       feats.slice(slice(1, None)), im_hw,
-                                       scale)
+        feats = trunk(images)
+        return post(cfg, model, anchors, feats.slice(slice(None, -1)),
+                    feats.slice(slice(1, None)), im_hw, scale)
 
     step.frames_per_chunk = frames_per_chunk
     step.device = device
@@ -201,6 +230,7 @@ def make_pair_step(cfg: Config, model: DnT, batch: int = 4, device=None):
     if batch < 1:
         raise ValueError("a pair batch needs at least one pair")
     device, anchors = _step_setup(cfg, model, device)
+    trunk, post = _trunk_and_post(cfg, model)
 
     @torch.inference_mode()
     def step(pairs: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
@@ -210,11 +240,9 @@ def make_pair_step(cfg: Config, model: DnT, batch: int = 4, device=None):
                              f"(B, 2, H, W, 3), got {tuple(pairs.shape)}")
         pairs = normalize_device_images(_upload(pairs, device), im_hw,
                                         cfg.input.pixel_means)
-        feats = model.frame_trunk(pairs.reshape(-1, *pairs.shape[2:]))
-        return _detect_and_track_fused(cfg, model, anchors,
-                                       feats.slice(slice(0, None, 2)),
-                                       feats.slice(slice(1, None, 2)), im_hw,
-                                       scale)
+        feats = trunk(pairs.reshape(-1, *pairs.shape[2:]))
+        return post(cfg, model, anchors, feats.slice(slice(0, None, 2)),
+                    feats.slice(slice(1, None, 2)), im_hw, scale)
 
     step.batch = batch
     step.device = device

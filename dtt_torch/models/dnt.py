@@ -20,6 +20,12 @@ proposals and per-frame ``psroi_pool`` votes by ``impl``; the batched
 forms ``detect_frames_batched`` and ``track_rois_batched`` pool with the
 gather form.
 
+``roi.pooling_mode`` (the reference's ``cfg.POOLING_MODE``): ``"psroi"``
+heads emit k^2 position-sensitive channel groups; ``"align"``, ``"pool"``
+and ``"crop"`` heads emit one group, pooled by ``roi_align``,
+``roi_pool`` or ``roi_crop`` and voted by the bin mean. The fused
+video-mode path is psroi only; the other modes take the unfused one.
+
 Parameters are float32 and cast to ``cfg.dtype`` at use, as the reference
 casts its float32 params. Public functions take and return NHWC tensors
 (JAX's layouts); convs run on channels-last NCHW views of the same memory.
@@ -47,6 +53,7 @@ from dtt_torch.ops.psroi import (psroi_pool, psroi_pool_batched,
                                  psroi_pool_batched_direct,
                                  psroi_pool_batched_pallas_mm,
                                  psroi_pool_maps)
+from dtt_torch.ops.roi_ops import roi_align, roi_crop, roi_pool
 
 _BACKBONES = {
     "resnet101": (3, 4, 23, 3),
@@ -138,29 +145,31 @@ def cosine_prep(x: torch.Tensor) -> torch.Tensor:
     return (x / n.to(x.dtype)) * root_c.to(x.dtype).item()
 
 
-def require_psroi(cfg: ModelConfig) -> None:
-    """Raise for the pooling modes the port does not implement."""
-    if cfg.roi.pooling_mode != "psroi":
-        raise NotImplementedError(
-            f"dtt_torch implements pooling_mode='psroi' only, got "
-            f"{cfg.roi.pooling_mode!r} (align/pool/crop: ROADMAP.md Queue 1 "
-            "item 13)")
+_ROI_POOLS = {"align": roi_align, "pool": roi_pool, "crop": roi_crop}
+
+
+def ps_groups(cfg: ModelConfig) -> int:
+    """Channel groups of a head map: k^2 under psroi, else one."""
+    return cfg.roi.ps_grid ** 2 if cfg.roi.pooling_mode == "psroi" else 1
 
 
 class DnT(nn.Module):
-    """All parameterized layers of the D&T model (psroi pooling mode)."""
+    """All parameterized layers of the D&T model."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        require_psroi(cfg)
+        if cfg.roi.pooling_mode not in ("psroi", *_ROI_POOLS):
+            raise ValueError(
+                f"unknown pooling_mode {cfg.roi.pooling_mode!r}")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)     # compute dtype
-        k2 = cfg.roi.ps_grid ** 2
+        k2 = ps_groups(cfg)
         nb = 2 if cfg.roi.class_agnostic else cfg.num_classes
         cr = cfg.reduced_channels
         corr_ch = len(cfg.track.scales) * cfg.track.num_corr_channels
         self.backbone = ResNetBackbone(_BACKBONES[cfg.backbone],
-                                       cfg.frozen_stages, device=device)
+                                       cfg.frozen_stages, cfg.remat,
+                                       device=device)
         self.rpn = RPNHead(1024, cfg.anchors.num_anchors, cfg.rpn.channels,
                            device=device)
         self.reduce = Conv2d(2048, cr, 1, device=device)
@@ -226,7 +235,7 @@ class DnT(nn.Module):
         of TF32 off for float32 matmuls.
         """
         cr = feats_t.reduced.shape[-1]
-        k2 = self.cfg.roi.ps_grid ** 2
+        k2 = ps_groups(self.cfg)
         ck, bk, tk = (m.kernel for m in
                       (self.cls_maps, self.bbox_maps, self.track_maps))
         dc, db, dt = (x.shape[-1] // k2 for x in (ck, bk, tk))
@@ -277,8 +286,14 @@ def pool_vote_batched(cfg: ModelConfig, maps: torch.Tensor,
       is the pool-backward kernel), then averages in float32;
     * ``"gather"`` pools the maps as they are (float32 on the train path)
       from their SAT, with autograd's scatter-add backward.
+
+    Under the other pooling modes, (B, H, W, D) maps are pooled as they
+    are by the mode's op over the whole batch, whatever `impl`.
     """
     k = cfg.roi.ps_grid
+    if cfg.roi.pooling_mode != "psroi":
+        return _ROI_POOLS[cfg.roi.pooling_mode](
+            maps, rois, spatial_scale, k).mean(dim=(2, 3))
     if impl == "direct":
         pooled = psroi_pool_batched_direct(
             maps.to(getattr(torch, cfg.dtype)).contiguous(), rois,
@@ -312,8 +327,12 @@ def detect_track_fused(cfg: ModelConfig, feats: FrameFeats,
                        im_height, im_width, im_scale: float
                        ) -> tuple[Proposals, Detections, torch.Tensor]:
     """Batched proposals + ONE PSRoI pool of the fused maps
-    (`pool_vote_fused`) -> detections + track deltas. Pooling is linear per channel, so
-    splitting the pooled vote equals three separate pools."""
+    (`pool_vote_fused`) -> detections + track deltas. Pooling is linear per
+    channel, so splitting the pooled vote equals three separate pools.
+    psroi pooling mode only."""
+    if cfg.roi.pooling_mode != "psroi":
+        raise ValueError("detect_track_fused pools psroi maps; pooling_mode "
+                         f"{cfg.roi.pooling_mode!r} takes the unfused path")
     props = proposal_layer(feats.rpn_cls, feats.rpn_bbox, anchors,
                            im_height, im_width, im_scale, cfg.rpn)
     pooled = pool_vote_fused(cfg, fused_maps, props.rois)
@@ -362,10 +381,14 @@ def decode_detections_batched(cfg: ModelConfig, det: Detections,
 def pool_vote(cfg: ModelConfig, maps: torch.Tensor, rois: torch.Tensor,
               spatial_scale: float, impl: str = "auto") -> torch.Tensor:
     """(H, W, k*k*D) maps, (N, 4) RoIs -> (N, D) votes: the mean over the
-    k*k bins of ``psroi_pool(impl)``, in the maps' dtype."""
-    require_psroi(cfg)
-    return psroi_pool(maps, rois, spatial_scale, cfg.roi.ps_grid,
-                      impl).mean(dim=(1, 2))
+    k*k bins of ``psroi_pool(impl)``, in the maps' dtype. Under the other
+    pooling modes, (H, W, D) maps are pooled by the mode's op, whatever
+    `impl`."""
+    k = cfg.roi.ps_grid
+    mode = cfg.roi.pooling_mode
+    if mode != "psroi":
+        return _ROI_POOLS[mode](maps, rois, spatial_scale, k).mean(dim=(1, 2))
+    return psroi_pool(maps, rois, spatial_scale, k, impl).mean(dim=(1, 2))
 
 
 def rfcn_head(cfg: ModelConfig, cls_maps: torch.Tensor,
@@ -374,7 +397,9 @@ def rfcn_head(cfg: ModelConfig, cls_maps: torch.Tensor,
     """One frame's per-RoI class scores (N, C) and box deltas (N, 4*nb):
     ``pool_vote`` of each map, the two pools in one kernel launch under
     ``"pallas_mm"`` and ``"pallas"`` (``psroi_pool_maps``)."""
-    require_psroi(cfg)
+    if cfg.roi.pooling_mode != "psroi":
+        return tuple(pool_vote(cfg, m, rois, spatial_scale)
+                     for m in (cls_maps, bbox_maps))
     return tuple(p.mean(dim=(1, 2)) for p in psroi_pool_maps(
         (cls_maps, bbox_maps), rois, spatial_scale, cfg.roi.ps_grid, impl))
 

@@ -12,6 +12,9 @@
 * Paddings are the reference's: ``d*(k//2)`` per conv, 3 on the 7x7/2
   stem, and a 3x3/2 max-pool with padding 1.
 * Modules take NCHW tensors; the model keeps them channels-last in memory.
+* ``remat`` runs each bottleneck under ``torch.utils.checkpoint``
+  (``use_reentrant=False``) when gradients are recorded: its activations
+  are recomputed in the backward instead of kept, as ``nn.remat`` does.
 
 Returns c3 (stride 8), c4 (stride 16) and c5 (stride 16, dilated).
 """
@@ -23,6 +26,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 class Conv2d(nn.Conv2d):
@@ -81,29 +85,42 @@ class Bottleneck(nn.Module):
 
 class ResNetStage(nn.Sequential):
     def __init__(self, inplanes: int, planes: int, blocks: int,
-                 stride: int = 1, dilation: int = 1, **factory):
+                 stride: int = 1, dilation: int = 1, remat: bool = False,
+                 **factory):
         super().__init__()
+        self.remat = remat
         self.add_module("block0", Bottleneck(inplanes, planes, stride, dilation,
                                              downsample=True, **factory))
         for i in range(1, blocks):
             self.add_module(f"block{i}", Bottleneck(planes * 4, planes, 1,
                                                     dilation, **factory))
 
+    def forward(self, x):
+        for block in self:
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
+        return x
+
 
 class ResNetBackbone(nn.Module):
     """Dilated ResNet returning (c3, c4, c5)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 23, 3),
-                 frozen_stages: int = 2, **factory):
+                 frozen_stages: int = 2, remat: bool = False, **factory):
         super().__init__()
         self.frozen_stages = frozen_stages
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
                             **factory)
         self.bn1 = FrozenAffine(64, **factory)
-        self.layer1 = ResNetStage(64, 64, layers[0], **factory)
-        self.layer2 = ResNetStage(256, 128, layers[1], stride=2, **factory)
-        self.layer3 = ResNetStage(512, 256, layers[2], stride=2, **factory)
-        self.layer4 = ResNetStage(1024, 512, layers[3], dilation=2, **factory)
+        self.layer1 = ResNetStage(64, 64, layers[0], remat=remat, **factory)
+        self.layer2 = ResNetStage(256, 128, layers[1], stride=2, remat=remat,
+                                  **factory)
+        self.layer3 = ResNetStage(512, 256, layers[2], stride=2, remat=remat,
+                                  **factory)
+        self.layer4 = ResNetStage(1024, 512, layers[3], dilation=2,
+                                  remat=remat, **factory)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

@@ -13,7 +13,13 @@ decisions as ``dtt``'s per-frame calls.
 The step splits into three stages a profile can time one by one:
 `forward_heads` (trunk, heads, correlation, track maps), `assign_targets`
 (anchor targets, detached proposals, RoI targets) and `head_losses`
-(pools and losses); `batch_loss` runs them in order.
+(pools and losses); `batch_loss` runs them in order. The pools follow
+``roi.pooling_mode`` (``pool_vote_batched``).
+
+`pair_loss` and `batch_loss_vmapped` are ``dtt``'s formulation oracles:
+one pair, frame by frame, with the per-frame pools (``rfcn_head``,
+``track_rois``), and their mean over a batch of pairs. They take the same
+`Draws` as `batch_loss` and give its losses.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 
 from dtt_torch.core.config import Config
 from dtt_torch.models.dnt import (DnT, FrameFeats, normalize_device_images,
-                                  pool_vote_batched)
+                                  pool_vote_batched, rfcn_head, track_rois)
 from dtt_torch.models.rpn import Proposals, proposal_layer, rpn_loss, smooth_l1
 from dtt_torch.models.targets import (AnchorTargets, Draws, RoITargets,
                                       _top_k_idx, anchor_target,
@@ -211,4 +217,87 @@ def batch_loss(cfg: Config, model: DnT, anchors: torch.Tensor, batch: dict,
     feats, track_maps = forward_heads(cfg, model, batch)
     assignment = assign_targets(cfg, feats, anchors, batch, draws)
     lb = head_losses(cfg, feats, track_maps, assignment)
+    return lb.total, lb
+
+
+def pair_loss(cfg: Config, model: DnT, anchors: torch.Tensor,
+              images: torch.Tensor,      # (2, H, W, 3)
+              gt_boxes: torch.Tensor,    # (2, G, 4) track-aligned
+              gt_labels: torch.Tensor,   # (G,) int64
+              gt_valid: torch.Tensor,    # (2, G)
+              im_scale: torch.Tensor,    # ()
+              im_size: torch.Tensor,     # (2,) true (h, w) on the canvas
+              draws: Draws) -> LossBreakdown:
+    """The D&T loss of one frame pair, frame by frame (``dtt``'s
+    ``pair_loss``): each frame's anchor targets, RPN loss, proposals, RoI
+    targets and per-frame ``rfcn_head`` pools, and the track loss of
+    frame t through ``track_rois``. `draws` holds this pair's uniforms,
+    each (2, n) (frame, candidate)."""
+    mcfg = cfg.model
+    images = normalize_device_images(images, im_size, cfg.input.pixel_means)
+    feats = model.frame_features(images)
+    frames = [feats.slice(slice(0, 1)), feats.slice(slice(1, 2))]
+    track_maps = model.track_psmaps(*frames)
+    h, w, scale = im_size[:1], im_size[1:], im_scale.reshape(1)
+    spatial_scale = 1.0 / mcfg.anchors.feat_stride
+    terms = {k: 0.0 for k in ("rpn_cls", "rpn_box", "rfcn_cls", "rfcn_box",
+                              "num_fg", "fg_ce")}
+    track_loss = torch.zeros((), device=images.device)
+    for f, feats_f in enumerate(frames):
+        o = 1 - f
+        mine = slice(f, f + 1)
+        at = anchor_target(anchors, gt_boxes[mine], gt_valid[mine], h, w,
+                           draws.anchor_pos[mine], draws.anchor_neg[mine],
+                           mcfg.rpn)
+        l_cls, l_box = rpn_loss(feats_f.rpn_cls, feats_f.rpn_bbox, at.labels,
+                                at.bbox_targets, at.bbox_weights, sigma=3.0,
+                                inside_weight=mcfg.rpn.bbox_inside_weight)
+        props = proposal_layer(feats_f.rpn_cls, feats_f.rpn_bbox, anchors,
+                               h, w, scale, mcfg.rpn, train=True)
+        track_cfg = mcfg.track if f == 0 else None
+        if cfg.train.ohem:
+            tgts = label_all_rois(props.rois, props.valid, gt_boxes[mine],
+                                  gt_labels[None], gt_valid[mine],
+                                  gt_boxes[o:o + 1], gt_valid[o:o + 1],
+                                  mcfg.roi, track_cfg)
+        else:
+            tgts = proposal_target(props.rois, props.valid, gt_boxes[mine],
+                                   gt_labels[None], gt_valid[mine],
+                                   gt_boxes[o:o + 1], gt_valid[o:o + 1],
+                                   draws.roi_fg[mine], draws.roi_slot[mine],
+                                   mcfg.roi, track_cfg)
+        cls_score, bbox_pred = rfcn_head(mcfg, feats_f.cls_maps[0],
+                                         feats_f.bbox_maps[0], tgts.rois[0],
+                                         spatial_scale)
+        l_rcls, l_rbox, l_fg_ce, _ = _rfcn_losses(
+            cfg, cls_score[None], bbox_pred[None], tgts)
+        for k, v in (("rpn_cls", l_cls), ("rpn_box", l_box),
+                     ("rfcn_cls", l_rcls), ("rfcn_box", l_rbox),
+                     ("fg_ce", 0.5 * l_fg_ce),
+                     ("num_fg", tgts.bbox_weights.sum(-1))):
+            terms[k] = terms[k] + v[0]
+        if f == 0:  # frame-t RoIs regressed to the frame-t+1 ground truth
+            trk_pred = track_rois(mcfg, track_maps, tgts.rois[0])
+            tw = tgts.track_weights[0]
+            tl = smooth_l1(trk_pred, tgts.track_targets[0],
+                           sigma=1.0).sum(-1) * tw
+            track_loss = tl.sum() / tw.sum().clamp(min=1.0)
+    total = (terms["rpn_cls"] + terms["rpn_box"] + terms["rfcn_cls"]
+             + terms["rfcn_box"] + track_loss)
+    return LossBreakdown(total=total, track=track_loss, **terms)
+
+
+def batch_loss_vmapped(cfg: Config, model: DnT, anchors: torch.Tensor,
+                       batch: dict, draws: Draws
+                       ) -> tuple[torch.Tensor, LossBreakdown]:
+    """The mean of `pair_loss` over the B pairs of `batch` (``dtt``'s
+    ``batch_loss_vmapped``), each pair with its slice of `draws`: the
+    oracle `batch_loss` is held against."""
+    per_pair = [pair_loss(cfg, model, anchors, batch["images"][b],
+                          batch["gt_boxes"][b], batch["gt_labels"][b],
+                          batch["gt_valid"][b], batch["im_scale"][b],
+                          batch["im_size"][b],
+                          Draws(*(d[b] for d in draws)))
+                for b in range(batch["images"].shape[0])]
+    lb = LossBreakdown(*(torch.stack(v).mean() for v in zip(*per_pair)))
     return lb.total, lb

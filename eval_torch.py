@@ -10,8 +10,10 @@ Examples:
   python eval_torch.py --dataset imagenet_vid_val --data-root \\
       /data/ILSVRC2015 --checkpoint runs/dtt_torch --link
 
-The config is the one saved in the checkpoint, or --config, with --set
-applied after either. The snippets are the synthetic ones or those of
+The checkpoint is a run dir (its LATEST) or a step dir that either
+package wrote (``state.msgpack``, ``config.yml``). The config is the one
+saved in the checkpoint, or --config, with --set applied after either.
+The snippets are the synthetic ones or those of
 --dataset under --data-root, whose frames decode as inference reaches them
 (``LazyFrames``), at the scale and extent their annotations state. tau=1
 runs the video step over 97-frame chunks, or with --synthetic over
@@ -52,7 +54,8 @@ def parse_args(argv=None):
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VAL",
                    help="dotted config overrides")
     p.add_argument("--checkpoint", required=True,
-                   help="run dir (uses LATEST) or a step dir with state.pt")
+                   help="run dir (uses LATEST) or a step dir with "
+                        "state.msgpack, written by either package")
     p.add_argument("--dataset", default="imagenet_vid_val")
     p.add_argument("--data-root", default=None)
     p.add_argument("--synthetic", action="store_true",
@@ -110,17 +113,18 @@ def load_model(args, device):
     ck = args.checkpoint
     if os.path.exists(os.path.join(ck, "LATEST")):
         ck = latest_checkpoint(ck)
-    if ck is None or not os.path.exists(os.path.join(ck, "state.pt")):
+    # fail fast, before the model is built
+    if ck is None or not os.path.exists(os.path.join(ck, "state.msgpack")):
         raise SystemExit(
             f"error: no checkpoint at {args.checkpoint!r} (expected a run dir "
-            f"with LATEST or a step dir with state.pt)")
+            f"with LATEST or a step dir with state.msgpack)")
     if args.config:
         cfg = load_config(args.config, args.set)
     else:
         cfg = apply_overrides(config_from_dict(checkpoint_config(ck)),
                               args.set)
     model = make_model(cfg.model, device)
-    _, step = restore_params_only(ck, model)
+    step = restore_params_only(ck, model)
     print(f"loaded {ck} (step {step})")
     return cfg, model
 

@@ -305,11 +305,22 @@ def test_rfcn_head_and_track_rois_match_dtt(setup, impl):
 
 
 def test_pool_vote_refuses_other_pooling_modes(setup):
+    """An unknown pooling mode is refused; align, pool and crop pool a
+    frame's maps as dtt's pool_vote does (eager), to 1e-5."""
     cfg = setup["tcfg"].model
-    cfg = cfg.replace(roi=cfg.roi.replace(pooling_mode="align"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdnt.pool_vote(cfg, _t(setup["feats"].cls_maps[0]),
-                       _t(setup["rois"][0]), 1 / 16)
+    with pytest.raises(ValueError, match="pooling_mode"):
+        tdnt.make_model(cfg.replace(roi=cfg.roi.replace(pooling_mode="x")),
+                        device="cpu")
+    maps = setup["feats"].cls_maps[0]
+    for mode in ("align", "pool", "crop"):
+        tc = cfg.replace(roi=cfg.roi.replace(pooling_mode=mode))
+        jc = setup["cfg"].model.replace(
+            roi=setup["cfg"].model.roi.replace(pooling_mode=mode))
+        want = jdnt.pool_vote(jc, maps, jnp.asarray(setup["rois"][0]), 1 / 16)
+        got = tdnt.pool_vote(tc, _t(maps), _t(setup["rois"][0]), 1 / 16)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5, err_msg=mode)
 
 
 def _assert_detections(tprops, tdet, jprops, jdet):

@@ -726,3 +726,96 @@ def test_prefetch_and_renderer_raise_without_cuda(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         render_pairs(np.zeros((1, 2, 3, 4)), np.zeros((1, 3), np.int32),
                      np.zeros((1, 2, 3), bool), None, 64, 96)
+
+
+# The pooling modes other than PSRoI (plain PyTorch on both devices): a
+# train step's cls, bbox and track maps at 330 RoIs (roi_pool's row stage
+# in several chunks at D = 31) and small maps with RoIs past the map,
+# degenerate ones, and RoIs whose integer width is a multiple of k, where a
+# bin edge lies on an integer only under a true division by k (a multiply
+# by the rounded 1/k, what ``tensor / k`` is on CUDA, lands below it)
+ROI_SHAPES = [(2, 38, 68, 31, 330), (1, 38, 68, 8, 330), (2, 9, 13, 5, 40)]
+
+
+def _roi_case(shape, k):
+    b, h, w, d, n = shape
+    rng = np.random.RandomState(n + d)
+    maps = torch.from_numpy(rng.randn(b, h, w, d).astype(np.float32))
+    xy = rng.uniform(-40, 16 * w + 40, (b, n, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(0, 600, (b, n, 2))], -1)
+    for i in range(1, 6):          # integer widths k * i: edges on integers
+        rois[:, i] = [0, 16 * 2, 16 * (k * i - 1), 16 * (k * i + 1)]
+    rois[:, 6] = [40, 40, 40, 40]
+    rois[:, 7] = [90, 60, 20, 10]
+    return maps, torch.from_numpy(rois.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", ROI_SHAPES)
+@pytest.mark.parametrize("name,kw", [("roi_align", {}),
+                                     ("roi_align", {"aligned": True}),
+                                     ("roi_pool", {}), ("roi_crop", {})])
+def test_roi_ops_match_the_cpu(cuda, shape, name, kw):
+    """roi_pool bit for bit (its bin edges divide by a tensor), roi_align
+    and roi_crop to 1e-5, at k = 7 and 3."""
+    from dtt_torch.ops import roi_ops
+    for k in (7, 3):
+        maps, rois = _roi_case(shape, k)
+        want = getattr(roi_ops, name)(maps, rois, 1 / 16, k, **kw)
+        got = getattr(roi_ops, name)(maps.to(cuda), rois.to(cuda), 1 / 16,
+                                     k, **kw)
+        tol = (dict(rtol=0, atol=0) if name == "roi_pool"
+               else dict(rtol=0, atol=1e-5))
+        torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+def test_remat_gradients_match_on_the_card(cuda):
+    """A tiny float32 model's train loss and gradients with model.remat
+    equal those without it on the card (deterministic cuDNN), to 1e-6 of
+    float32 roundoff."""
+    from dtt_torch.core.anchors import grid_anchors_for
+    from dtt_torch.core.config import Config
+    from dtt_torch.data.synthetic import synthetic_batch
+    from dtt_torch.models.targets import sample_draws
+    from dtt_torch.train.losses import batch_loss
+    from dtt_torch.train.trainer import batch_to_device
+    from dtt_torch.utils.params import from_jax_params, init_jax_params
+    cfg = Config()
+    m = cfg.model
+    cfg = cfg.replace(
+        model=m.replace(backbone="tiny", dtype="float32", frozen_stages=0,
+                        reduced_channels=64, num_classes=4,
+                        anchors=m.anchors.replace(scales=(1.0, 2.0, 4.0)),
+                        rpn=m.rpn.replace(channels=32,
+                                          pre_nms_top_n_train=128,
+                                          post_nms_top_n_train=32),
+                        roi=m.roi.replace(ps_grid=3),
+                        track=m.track.replace(max_displacement=2, stride=1)),
+        input=cfg.input.replace(canvas_height=64, canvas_width=96,
+                                max_gt_boxes=4))
+    tree = init_jax_params(cfg.model, seed=2)
+    batch = batch_to_device(synthetic_batch(np.random.RandomState(4), 2, 64,
+                                            96, 4, 4, uint8=True), cuda)
+    anchors = torch.from_numpy(grid_anchors_for(cfg.model.anchors, 4,
+                                                6)).to(cuda)
+    out = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            c = cfg.replace(model=cfg.model.replace(remat=remat))
+            model = from_jax_params(tree, c.model, cuda).train()
+            draws = sample_draws(c, 2, torch.Generator(cuda).manual_seed(0),
+                                 cuda)
+            loss, _ = batch_loss(c, model, anchors, batch, draws)
+            loss.backward()
+            out.append((loss.detach(), {k: p.grad for k, p in
+                                        model.named_parameters()
+                                        if p.grad is not None}))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l0, g0), (l1, g1) = out
+    torch.testing.assert_close(l1, l0, rtol=0, atol=1e-6)
+    assert g0.keys() == g1.keys() and len(g0) > 20
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=1e-6, atol=1e-6,
+                                   msg=k)

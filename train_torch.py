@@ -9,37 +9,34 @@ Examples:
   python train_torch.py --synthetic --device-render --out runs/dtt_torch
   # ImageNet VID + DET, mixed 1:1 per batch slot:
   python train_torch.py --dataset imagenet_vid_train+imagenet_det_train \\
-      --data-root /data/ILSVRC2015 --set input.det_fraction=0.5 --out runs/dnt
+      --data-root /data/ILSVRC2015 --set input.det_fraction=0.5 \\
+      --pretrained resnet101.pth --out runs/dnt
 
-Trains from flax-layout random weights drawn from ``train.seed`` on one of
-three sources: the synthetic mini-VID (uint8 pairs, normalized on the
-card), the same scenes drawn on the card (``--device-render``), or the
+Like train.py, the flagship config assumes an ImageNet-pretrained backbone
+(--pretrained, a torchvision-layout ResNet .pth); --calibrate-bn instead
+estimates the frozen-BN affines from one batch (LSUV), for training from
+scratch. Trains from flax-layout random weights drawn from ``train.seed``
+(then --pretrained, then --calibrate-bn, then --resume, in train.py's
+order) on one of three sources: the synthetic mini-VID (uint8 pairs,
+normalized on the card), the same scenes drawn on the card
+(``--device-render``), or the
 '+'-joined datasets under --data-root read by ``PairLoader``
 (``input.use_flipped``, ``input.det_fraction``; bf16 images for a bf16
 model). Every batch reaches the card through ``device_prefetch``. Logs one
 JSON line every ``train.log_every`` steps (and after the first) with
 pairs/s and the losses, checkpoints every ``train.checkpoint_every`` steps
-and at the end, and resumes from the latest checkpoint in --out with
---resume. Needs a CUDA card; ``main(argv, device="cpu")`` runs the plain
+and at the end in dtt's run-dir format (``state.msgpack``), and resumes
+from the latest checkpoint in --out with --resume, whichever package
+wrote it. Needs a CUDA card; ``main(argv, device="cpu")`` runs the plain
 PyTorch path on host batches instead.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import time
-
-# options of train.py the port does not implement yet, and where ROADMAP.md
-# queues them
-_NOT_PORTED = {
-    "pretrained": "--pretrained (reference .pth import; ROADMAP.md Queue 1 "
-                  "item 13)",
-    "calibrate_bn": "--calibrate-bn (LSUV BN calibration; ROADMAP.md Queue 1 "
-                    "item 13)",
-}
 
 
 def parse_args(argv=None):
@@ -59,14 +56,15 @@ def parse_args(argv=None):
     p.add_argument("--out", default="runs/dtt_torch")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --out")
-    p.add_argument("--pretrained", default=None, metavar="PTH")
-    p.add_argument("--calibrate-bn", action="store_true")
+    p.add_argument("--pretrained", default=None, metavar="PTH",
+                   help="torchvision/caffe-style ResNet .pth for the backbone")
+    p.add_argument("--calibrate-bn", action="store_true",
+                   help="estimate the frozen-BN affines from one data batch "
+                        "(LSUV-style); substitute for pretrained running "
+                        "stats when training from scratch")
     p.add_argument("--num-workers", type=int, default=8,
                    help="threads preparing the frame pairs of --dataset")
     args = p.parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name):
-            p.error(f"{what} is not ported to dtt_torch yet")
     if args.device_render and not args.synthetic:
         p.error("--device-render only applies to --synthetic training "
                 "(real datasets upload decoded frames)")
@@ -112,12 +110,37 @@ def batch_stream(args, cfg, batch: int):
     return batches(), None
 
 
+def calibration_images(args, cfg, stream, batch: int):
+    """The mean-subtracted (B, 2, H, W, 3) float32 pairs --calibrate-bn
+    measures: the stream's first batch, or with --device-render (whose
+    batches hold no pixels) one batch drawn on the host from
+    ``RandomState(seed + 7)``, as train.py does."""
+    import numpy as np
+
+    from dtt_torch.data.synthetic import synthetic_batch
+    if args.device_render:
+        calib = synthetic_batch(np.random.RandomState(cfg.train.seed + 7),
+                                batch, cfg.input.canvas_height,
+                                cfg.input.canvas_width,
+                                cfg.model.num_classes, cfg.input.max_gt_boxes,
+                                cfg.input.pixel_means, uint8=True,
+                                num_objects=cfg.input.synthetic_objects)
+    else:
+        calib = next(stream)
+    imgs = np.asarray(calib["images"])
+    if imgs.dtype == np.uint8:
+        imgs = imgs.astype(np.float32) - np.asarray(cfg.input.pixel_means,
+                                                    np.float32)
+    return imgs
+
+
 def main(argv=None, device=None):
-    """Train (on CUDA unless `device` is "cpu")."""
+    """Train (on CUDA unless `device` is "cpu"); returns the final
+    state."""
     args = parse_args(argv)
     import torch
 
-    from dtt_torch.core.config import load_config
+    from dtt_torch.core.config import load_config, save_config
     from dtt_torch.core.device import resolve_device
     from dtt_torch.data.device_synth import make_pair_render_fn
     from dtt_torch.data.loader import device_prefetch
@@ -126,13 +149,14 @@ def main(argv=None, device=None):
                                             restore_checkpoint,
                                             save_checkpoint)
     from dtt_torch.train.trainer import create_train_state, make_train_step
+    from dtt_torch.utils.calibrate import calibrate_model_backbone
     from dtt_torch.utils.logging import MetricLogger
+    from dtt_torch.utils.torch_import import import_pretrained_backbone
 
     device = resolve_device(device)
     cfg = load_config(args.config, args.set)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    save_config(cfg, os.path.join(args.out, "config.yml"))
 
     batch = cfg.train.batch_size_per_chip
     h, w = cfg.input.canvas_height, cfg.input.canvas_width
@@ -145,6 +169,14 @@ def main(argv=None, device=None):
     generator = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
 
     model, state = create_train_state(cfg, device)
+    if args.pretrained:
+        import_pretrained_backbone(args.pretrained, model)
+        print(f"loaded pretrained backbone from {args.pretrained}")
+    if args.calibrate_bn:
+        imgs = calibration_images(args, cfg, stream, batch)
+        calibrate_model_backbone(cfg, model, imgs)
+        print("calibrated frozen-BN affines from one batch "
+              f"({imgs.shape[0] * 2} frames)")
     if args.resume:
         ck = latest_checkpoint(args.out)
         if ck:
