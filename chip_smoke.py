@@ -1,5 +1,6 @@
 """Drive dtt_torch's video-mode inference, training, evaluation,
-single-frame detection and data path on one CUDA card and check them.
+single-frame detection, data parallelism and data path on one CUDA card
+and check them.
 
 Run from the repository root, with one card visible:
 
@@ -58,7 +59,17 @@ Phases, in order; any failure ends the script with a non-zero exit:
    SAT kernel launch a call for both maps under ``pallas_mm`` and
    ``pallas``) and ``correlation`` under both kernel forms at one pair's
    three scales, each checked, its launches counted and timed;
-9. the data path: a VID/DET tree of 1280x720 JPEG frames written here
+9. data parallelism, at full width on the same weights: (a) one NCCL
+   rank in this process, the parallel train step for 1 + PAR_STEPS steps
+   against the serial step from the same state, batches and draws
+   (losses, every parameter), with ms/step beside the serial step's, the
+   all-reduce's ms and bytes and peak memory, the parallel video step on
+   one 17-frame chunk and the parallel pair step on one pair batch
+   against the serial steps, each with its launches; (b) PAR_WORLD gloo
+   ranks spawned on the one card (NCCL refuses two ranks on a device):
+   one parallel video chunk and one parallel train step on a global batch
+   against one process on it, the ranks' replicas equal;
+10. the data path: a VID/DET tree of 1280x720 JPEG frames written here
    (two train snippets of 10 frames, one val snippet of 17, four DET
    images), the decode route and its host ms per frame, ``PairLoader``'s
    rate alone, then at full width with the same weights 1 + 6 train steps
@@ -68,7 +79,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    card's canvases pixel for pixel against the host renderer's first),
    each with its launches, and ``eval_torch.main --dataset ... --link``
    on the val snippet, which must decode every frame once;
-10. weights and pooling modes, at full width: a torchvision-layout
+11. weights and pooling modes, at full width: a torchvision-layout
    ResNet-101 .pth with BN running statistics made here from a numpy seed,
    ``train_torch.main --pretrained --calibrate-bn`` for 1 + 3 steps (every
    backbone conv the .pth's bit for bit, the last calibrated affines'
@@ -82,7 +93,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    for align 1 + 3 train steps (ms/step, peak memory), and the tiny f32
    config card against CPU for the video step and one train step, as in
    phase 4;
-11. both correlation forwards' device time by ``torch.profiler`` at one
+12. both correlation forwards' device time by ``torch.profiler`` at one
    pair and at 16 pairs, after the main paths, since a traced card slows
    the host's later launches.
 
@@ -170,6 +181,29 @@ DATA_DET_FRACTION = 0.5      # DET:VID mixture of the loader's batches
 # correlation windows past the tensor-core band that dtt takes
 WIDE_WINDOWS = ((16, 4), (10, 2))
 MODE_STEPS = 3               # timed pretrained and align train steps
+PAR_STEPS = 2                # parallel phase: timed steps after 1 warm-up
+PAR_WORLD = 2                # gloo ranks sharing the one card
+PAR_FPD = 8                  # frames a rank in the two-rank video chunk
+# parallel phase (a), one NCCL rank against the one-process step from the
+# same state, batches and draws: the same arithmetic, so the losses to
+# float32 roundoff and each parameter within TRAIN_REF_PARAM_TOL (cuDNN's
+# weight gradients need not be deterministic)
+PAR_LOSS_RTOL = 1e-5
+# ... the video and pair steps on the same chunk or batch against the
+# serial steps: `valid` equal, scores and boxes (pixels) within these
+PAR_EVAL_TOL = {"scores": 1e-3, "boxes": 0.5, "tracked": 0.5}
+# (b), two gloo ranks against the same work emulated rank by rank in one
+# process: the same shapes, so PAR_LOSS_RTOL, TRAIN_REF_PARAM_TOL and equal
+# outputs; against one process on the whole batch (both pairs) or chunk:
+# bf16 convolutions over another batch shape take other algorithms, and
+# the proposals and the OHEM selection over random weights' near-tied
+# scores follow them, so the losses within this share of their value,
+# each leaf's update within this share of the leaf's largest update, and
+# at most this share of the chunk's `valid` entries flipped (on an H100
+# 80GB HBM3 at 700 W: 0.048, 0.049 and 3 of 9,000)
+PAR2_LOSS_RTOL = 0.1
+PAR2_UPDATE_REL = 0.1
+PAR2_VALID_FLIPS = 1e-3
 # calibrated affines' outputs over the calibration batch, per channel:
 # |mean| and |std - 1|; the forward computes x * bf16(scale) + bf16(bias)
 # in bf16, so a channel whose mean is m std off zero lands ~m 2^-8 away
@@ -190,7 +224,11 @@ PATH_KERNELS = {"video": ("correlation", "psroi_direct"),
                 "frame": ("correlation", "correlation_split", "psroi_mm",
                           "psroi_sat_mean"),
                 "mode_video": ("correlation",),
-                "mode_train": ("correlation", "correlation_bwd")}
+                "mode_train": ("correlation", "correlation_bwd"),
+                "parallel_train": ("correlation", "correlation_bwd",
+                                   "psroi_direct", "psroi_direct_bwd"),
+                "parallel_video": ("correlation", "psroi_direct"),
+                "parallel_pair": ("correlation", "psroi_mm")}
 
 
 def log(msg: str) -> None:
@@ -390,9 +428,10 @@ def pool_cases(cfg: Config, path: str) -> list:
     m = cfg.model
     dc = m.num_classes
     db = 8 if m.roi.class_agnostic else 4 * dc
-    if path == "video":
-        return [(FRAMES_PER_CHUNK - 1, m.rpn.post_nms_top_n_test,
-                 dc + db + 4)]
+    if path in ("video", "parallel_video"):
+        # the parallel chunk's one rank also pools its wrapped last pair
+        pairs = FRAMES_PER_CHUNK - (path == "video")
+        return [(pairs, m.rpn.post_nms_top_n_test, dc + db + 4)]
     b = cfg.train.batch_size_per_chip
     n = (m.rpn.post_nms_top_n_train + cfg.input.max_gt_boxes
          if cfg.train.ohem else m.roi.batch_size)
@@ -2167,6 +2206,434 @@ def phase_mode(cfg: Config, card: str) -> dict:
     return launches
 
 
+def eval_errors(got, want, n: int) -> dict:
+    """Per PairOutputs field of the first `n` pairs: max |got - want|, and
+    for `valid` the count of entries that differ."""
+    out = {}
+    for name, g, w in zip(("boxes", "scores", "valid", "tracked"), got,
+                          want):
+        g, w = g[:n].cpu(), w[:n].cpu()
+        out[name] = (int((g != w).sum()) if name == "valid"
+                     else (g.float() - w.float()).abs().max().item())
+    return out
+
+
+def check_eval_errors(errs: dict, what: str) -> None:
+    bad = [k for k, v in errs.items()
+           if (v != 0 if k == "valid" else v > PAR_EVAL_TOL[k])]
+    if bad:
+        raise AssertionError(f"{what}: {bad} past the tolerance: {errs} "
+                             f"(tol {PAR_EVAL_TOL}, valid equal)")
+
+
+def par_train_run(cfg: Config, tree: dict, make_step, batches: list,
+                  draws: list) -> tuple:
+    """1 warm-up + PAR_STEPS timed steps of `make_step(model)` from the
+    tree, alone on the card: losses per step, ms/step, the state after
+    (on the host), the launches and peak memory of the timed steps and
+    the bytes a parallel step all-reduces (None for a serial step)."""
+    model, state = create_train_state(cfg, "cuda", tree=tree)
+    step = make_step(model)
+    losses = []
+    state, m = step(state, batches[0], draws[0])
+    losses.append({k: v.item() for k, v in m.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    history = []
+    for batch, d in zip(batches[1:], draws[1:]):
+        state, m = step(state, batch, d)
+        history.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / PAR_STEPS
+    launches = read_launches()
+    losses += [{k: v.item() for k, v in m.items()} for m in history]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = {k: v.cpu() for k, v in model.state_dict().items()}
+    nbytes = (step.allreduce_bytes(state) if hasattr(step, "allreduce_bytes")
+              else None)
+    del model, state, step, history, m
+    torch.cuda.empty_cache()
+    return losses, ms, after, launches, peak, nbytes
+
+
+def phase_parallel_nccl(cfg: Config, tree: dict, card: str) -> dict:
+    """(a) One NCCL rank in this process at full width: the parallel
+    train, video and pair steps against the serial ones from the same
+    state and inputs, each with its launches (returned per path)."""
+    import torch.distributed as dist
+
+    from dtt_torch.eval.inference import (make_pair_step_parallel,
+                                          make_video_step_parallel)
+    from dtt_torch.parallel import (all_reduce_mean_, data_mesh,
+                                    initialize_distributed)
+    from dtt_torch.train.trainer import make_parallel_train_step
+
+    initialize_distributed(store=dist.HashStore(), world_size=1, rank=0,
+                           device="cuda:0")
+    mesh = data_mesh("cuda:0")
+    log(f"parallel (a): {mesh.size} rank, backend {mesh.backend}, NCCL "
+        f"{torch.cuda.nccl.version()}")
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    b = cfg.train.batch_size_per_chip
+    rng = np.random.RandomState(31)
+    batches = [synthetic_batch(rng, b, h, w, cfg.model.num_classes,
+                               cfg.input.max_gt_boxes, cfg.input.pixel_means,
+                               uint8=True) for _ in range(1 + PAR_STEPS)]
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    draws = [sample_draws(cfg, b, gen, "cuda") for _ in range(1 + PAR_STEPS)]
+    fhw = (h // 16, w // 16)
+    s_loss, s_ms, s_after, _, s_peak, _ = par_train_run(
+        cfg, tree, lambda m: make_train_step(cfg, m, fhw), batches, draws)
+    p_loss, p_ms, p_after, t_launches, p_peak, nbytes = par_train_run(
+        cfg, tree, lambda m: make_parallel_train_step(cfg, m, fhw, mesh),
+        batches, draws)
+    check_launches("parallel_train", t_launches)
+    loss_err = max(abs(p[k] - q[k]) / max(abs(q[k]), 1e-12)
+                   for p, q in zip(p_loss, s_loss) for k in q)
+    atol, rtol = TRAIN_REF_PARAM_TOL
+    param_r, param_leaf = worst_leaf({
+        k: ((p_after[k].double() - v.double()).abs()
+            / (atol + rtol * v.double().abs())).max().item()
+        for k, v in s_after.items()})
+    if not (loss_err <= PAR_LOSS_RTOL and param_r <= 1):
+        raise AssertionError(
+            f"parallel train (1 NCCL rank) vs one process: losses off by "
+            f"{loss_err:.3g} of their value (tol {PAR_LOSS_RTOL}), worst "
+            f"parameter at {param_r:.3g} of {TRAIN_REF_PARAM_TOL} "
+            f"({param_leaf})")
+    buf = torch.zeros(nbytes // 4, dtype=torch.float32, device="cuda")
+    ar_ms = time_ms(lambda: all_reduce_mean_(buf, mesh), iters=10)
+    log(f"parallel train (1 NCCL rank): {1 + PAR_STEPS} steps against "
+        f"make_train_step from the same state, batches and draws: losses "
+        f"off by {loss_err:.3g} of their value (tol {PAR_LOSS_RTOL}), "
+        f"parameters worst at {param_r:.3g} of {TRAIN_REF_PARAM_TOL} "
+        f"({param_leaf}); {p_ms:.1f} ms/step parallel, {s_ms:.1f} ms/step "
+        f"serial; all-reduce of {nbytes} bytes ({nbytes / 4:.0f} trainable "
+        f"float32) {ar_ms:.3f} ms; peak device memory {p_peak:.2f} GiB "
+        f"parallel, {s_peak:.2f} GiB serial; launches {t_launches} on "
+        f"{card}")
+    del s_after, p_after, buf
+
+    model = from_jax_params(tree, cfg.model, device="cuda")
+    frames = torch.from_numpy(np.random.RandomState(33).randint(
+        0, 256, (FRAMES_PER_CHUNK, h, w, 3)).astype(np.uint8))
+    im_hw = torch.tensor([h - 8, w - 48], dtype=torch.float32, device="cuda")
+    vpar = make_video_step_parallel(cfg, model, mesh, FRAMES_PER_CHUNK)
+    vser = make_video_step(cfg, model, FRAMES_PER_CHUNK)
+    vpar(frames, im_hw), vser(frames, im_hw)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = vpar(frames, im_hw)
+    torch.cuda.synchronize()
+    v_par_ms = (time.perf_counter() - t0) * 1e3
+    v_launches = read_launches()
+    check_launches("parallel_video", v_launches)
+    t0 = time.perf_counter()
+    want = vser(frames, im_hw)
+    torch.cuda.synchronize()
+    v_ser_ms = (time.perf_counter() - t0) * 1e3
+    if got[0].shape[0] != FRAMES_PER_CHUNK:
+        raise AssertionError(f"parallel video chunk gave {got[0].shape[0]} "
+                             f"pairs, want {FRAMES_PER_CHUNK}")
+    v_err = eval_errors(got, want, FRAMES_PER_CHUNK - 1)
+    check_eval_errors(v_err, "parallel video chunk (1 NCCL rank)")
+    log(f"parallel video (1 NCCL rank, frames_per_device "
+        f"{FRAMES_PER_CHUNK}): {FRAMES_PER_CHUNK - 1} pairs against "
+        f"make_video_step's: {v_err} (tol {PAR_EVAL_TOL}, valid equal); "
+        f"chunk {v_par_ms:.1f} ms parallel, {v_ser_ms:.1f} ms serial; "
+        f"launches {v_launches}")
+
+    pcfg = cfg.replace(model=cfg.model.replace(roi=cfg.model.roi.replace(
+        eval_pool_impl="pallas_mm")))
+    pairs = torch.from_numpy(np.random.RandomState(34).randint(
+        0, 256, (PAIR_BATCH, 2, h, w, 3)).astype(np.uint8))
+    ppar = make_pair_step_parallel(pcfg, model, mesh, PAIR_BATCH)
+    pser = make_pair_step(pcfg, model, PAIR_BATCH)
+    ppar(pairs, im_hw), pser(pairs, im_hw)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = ppar(pairs, im_hw)
+    torch.cuda.synchronize()
+    p_launches = read_launches()
+    check_launches("parallel_pair", p_launches)
+    p_err = eval_errors(got, pser(pairs, im_hw), PAIR_BATCH)
+    check_eval_errors(p_err, "parallel pair batch (1 NCCL rank)")
+    log(f"parallel pair (1 NCCL rank, {PAIR_BATCH} pairs, pallas_mm): "
+        f"against make_pair_step's: {p_err} (tol {PAR_EVAL_TOL}, valid "
+        f"equal); launches {p_launches}")
+    dist.destroy_process_group()
+    return {"parallel_train": t_launches, "parallel_video": v_launches,
+            "parallel_pair": p_launches}
+
+
+def parallel_rank(rank: int, world: int, store: str, out: str) -> None:
+    """(b) One gloo rank on the card: one parallel video chunk of world x
+    PAR_FPD frames, then one parallel train step on its rows of a global
+    batch of world x batch_size_per_chip pairs; rank 0 saves what the
+    parent compares."""
+    from dtt_torch.eval.inference import make_video_step_parallel
+    from dtt_torch.parallel import (data_mesh, exchange_halo,
+                                    initialize_distributed)
+    from dtt_torch.train.trainer import (make_parallel_train_step,
+                                         replicate_tree, shard_batch,
+                                         shard_draws)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    initialize_distributed(init_method=f"file://{store}", world_size=world,
+                           rank=rank, device="cuda:0", backend="gloo")
+    mesh = data_mesh("cuda:0")
+    cfg = Config()
+    tree = init_jax_params(cfg.model, seed=0)
+    batch, draws = par2_inputs(cfg, world)
+    model, state = create_train_state(cfg, mesh.device, tree=tree)
+    state = replicate_tree(state, mesh)
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    frames, im_hw = par2_frames(cfg, world)
+    vstep = make_video_step_parallel(cfg, model, mesh, PAR_FPD)
+    reset_launches()
+    t0 = time.perf_counter()
+    vout = [x.cpu() for x in vstep(frames, im_hw.cuda())]
+    video_ms = (time.perf_counter() - t0) * 1e3
+    v_launches = read_launches()
+    # the halo alone: this rank's first-frame features out, the next
+    # rank's in, for the parent to hold against each other
+    with torch.inference_mode():
+        feats = par2_trunk(cfg, model, frames[mesh.rows(len(frames))],
+                           im_hw)
+        sent = [x[:1] for x in feats]
+        got = exchange_halo(sent, mesh)
+    step = make_parallel_train_step(cfg, model, (h // 16, w // 16), mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = step(state, shard_batch(batch, mesh),
+                          shard_draws(draws, mesh))
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    t_launches = read_launches()
+    res = {"metrics": {k: v.item() for k, v in metrics.items()},
+           "launches": {"train": t_launches, "video": v_launches},
+           "ms": {"train": train_ms, "video": video_ms},
+           "checksum": sum(p.double().sum().item()
+                           for p in model.state_dict().values()),
+           "halo": {"sent": [x.cpu() for x in sent],
+                    "got": [x.cpu() for x in got]},
+           "backend": mesh.backend}
+    if rank == 0:
+        res["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
+        res["video"] = vout
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def par2_inputs(cfg: Config, world: int) -> tuple:
+    """The global batch and draws of phase (b), alike in every process."""
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    b = world * cfg.train.batch_size_per_chip
+    batch = synthetic_batch(np.random.RandomState(41), b, h, w,
+                            cfg.model.num_classes, cfg.input.max_gt_boxes,
+                            cfg.input.pixel_means, uint8=True)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    return batch, sample_draws(cfg, b, gen, "cuda")
+
+
+def par2_frames(cfg: Config, world: int) -> tuple:
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    frames = torch.from_numpy(np.random.RandomState(43).randint(
+        0, 256, (world * PAR_FPD, h, w, 3)).astype(np.uint8))
+    return frames, torch.tensor([h - 8, w - 48], dtype=torch.float32)
+
+
+def par2_trunk(cfg: Config, model, frames: torch.Tensor, im_hw) -> list:
+    """The features of `frames` that the video step's halo carries: the
+    reduced c5 and each correlation input, in that order."""
+    from dtt_torch.eval.inference import _trunk_and_post
+    trunk, _ = _trunk_and_post(cfg, model)
+    feats = trunk(normalize_device_images(frames.cuda(), im_hw.cuda(),
+                                          cfg.input.pixel_means))
+    return [feats.reduced] + [feats.corr_feats[k]
+                              for k in sorted(feats.corr_feats)]
+
+
+def par2_emulate_video(cfg: Config, model, frames, im_hw, world: int):
+    """The parallel video chunk's ranks one after another in this process
+    (the same shapes a rank computes on): each rank's trunk, its frame
+    t+1 side extended by the next rank's first frame, its heads; the
+    outputs in rank order."""
+    from dtt_torch.eval.inference import _trunk_and_post
+    from dtt_torch.models.dnt import FrameFeats
+    trunk, post = _trunk_and_post(cfg, model)
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    anchors = torch.from_numpy(grid_anchors_for(
+        cfg.model.anchors, h // 16, w // 16)).cuda()
+    hw = im_hw.cuda()
+    with torch.inference_mode():
+        feats = [trunk(normalize_device_images(
+            frames[r * PAR_FPD:(r + 1) * PAR_FPD].cuda(), hw,
+            cfg.input.pixel_means)) for r in range(world)]
+        outs = []
+        for r, f in enumerate(feats):
+            nxt = feats[(r + 1) % world]
+            ext = lambda a, b: torch.cat([a[1:], b[:1]])
+            f_tau = FrameFeats(None, None, ext(f.reduced, nxt.reduced),
+                               {k: ext(v, nxt.corr_feats[k])
+                                for k, v in f.corr_feats.items()})
+            outs.append(post(cfg, model, anchors, f, f_tau, hw, 1.0))
+        return [torch.cat([o[i] for o in outs]) for i in range(4)]
+
+
+def par2_emulate_train(cfg: Config, tree: dict, batch: dict, draws,
+                       world: int) -> tuple:
+    """The parallel train step's ranks one after another in this process:
+    each rank's loss and gradients from its rows, summed and halved as the
+    all-reduce does, then the update. Returns the averaged losses and the
+    state after (on the host)."""
+    from dtt_torch.parallel import DataMesh
+    from dtt_torch.train.trainer import shard_batch, shard_draws
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    anchors = torch.from_numpy(grid_anchors_for(
+        cfg.model.anchors, h // 16, w // 16)).cuda()
+    model, state = create_train_state(cfg, "cuda", tree=tree)
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    grads, losses = None, None
+    for r in range(world):
+        mesh = DataMesh(r, world, torch.device("cuda", 0))
+        state.optimizer.zero_grad(set_to_none=True)
+        _, lb = train_losses.batch_loss(
+            cfg, model, anchors,
+            batch_to_device(shard_batch(batch, mesh), torch.device("cuda")),
+            shard_draws(draws, mesh))
+        lb.total.backward()
+        g = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        m = torch.stack(lb).detach()
+        losses = m if losses is None else losses + m
+    for p, g in zip(params, grads):
+        p.grad = g.div_(world)
+    apply_gradients(cfg, state)
+    out = (dict(zip(train_losses.LossBreakdown._fields,
+                    losses.div_(world).tolist())),
+           {k: v.cpu() for k, v in model.state_dict().items()})
+    del model, state, params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel_gloo(cfg: Config, tree: dict, card: str) -> None:
+    """(b) PAR_WORLD gloo ranks on the one card (NCCL refuses two ranks on
+    one device), spawned: one full-width parallel video chunk and one
+    parallel train step on a global batch. Each is held against the ranks'
+    work emulated one after another in this process (the same shapes, so
+    the same arithmetic: the collectives, the halo and the gather exactly)
+    and against one process on the whole chunk or batch (other shapes in
+    bf16, at PAR2's tolerances). A check of the collectives and the halo
+    on CUDA tensors, not a scaling figure."""
+    import torch.multiprocessing as mp
+
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    f = PAR_WORLD * PAR_FPD
+    batch, draws = par2_inputs(cfg, PAR_WORLD)
+    frames, im_hw = par2_frames(cfg, PAR_WORLD)
+    model, state = create_train_state(cfg, "cuda", tree=tree)
+    serial_video = [x.cpu() for x in make_video_step(cfg, model, f)(
+        frames, im_hw.cuda())]
+    emul_video = [x.cpu() for x in par2_emulate_video(cfg, model, frames,
+                                                      im_hw, PAR_WORLD)]
+    halo_want = par2_trunk(cfg, model, frames[:PAR_FPD], im_hw)
+    before = {k: v.cpu() for k, v in model.state_dict().items()}
+    step = make_train_step(cfg, model, (h // 16, w // 16))
+    state, metrics = step(state, batch, draws)
+    one_loss = {k: v.item() for k, v in metrics.items()}
+    one_state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, state, step, metrics
+    torch.cuda.empty_cache()
+    emul_loss, emul_state = par2_emulate_train(cfg, tree, batch, draws,
+                                               PAR_WORLD)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(parallel_rank, args=(PAR_WORLD, os.path.join(
+            d, "store"), d), nprocs=PAR_WORLD, start_method="spawn")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                            weights_only=False) for r in range(PAR_WORLD)]
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    if len({r["checksum"] for r in ranks}) != 1:
+        raise AssertionError(f"the ranks' replicas differ after the step: "
+                             f"{[r['checksum'] for r in ranks]}")
+    for r in ranks:
+        for path, names in (("train", PATH_KERNELS["train"]),
+                            ("video", PATH_KERNELS["video"])):
+            if any(r["launches"][path][n] < 1 for n in names):
+                raise AssertionError(f"a gloo rank launched no {names} on "
+                                     f"its {path} path: {r['launches']}")
+    # the halo: rank r got rank r+1's first frame, bit for bit, and rank
+    # 0's first frame is the one computed here
+    halo_ok = all(
+        torch.equal(a, b) for i, r in enumerate(ranks)
+        for a, b in zip(r["halo"]["got"],
+                        ranks[(i + 1) % PAR_WORLD]["halo"]["sent"])) and \
+        all(torch.equal(a, b.cpu()[:1]) for a, b in
+            zip(r0["halo"]["sent"], halo_want))
+    v_exact = eval_errors(r0["video"], emul_video, f)
+    v_serial = eval_errors(r0["video"], serial_video, f - 1)
+    flips = v_serial["valid"] / serial_video[2][:f - 1].numel()
+    atol, rtol = TRAIN_REF_PARAM_TOL
+    exact_loss = max(abs(r0["metrics"][k] - v) / max(abs(v), 1e-12)
+                     for k, v in emul_loss.items())
+    exact_r, exact_leaf = worst_leaf({
+        k: ((r0["state"][k].double() - v.double()).abs()
+            / (atol + rtol * v.double().abs())).max().item()
+        for k, v in emul_state.items()})
+    one_loss_err = max(abs(r0["metrics"][k] - v) / max(abs(v), 1e-12)
+                       for k, v in one_loss.items())
+    upd_r, upd_leaf = worst_leaf({
+        k: ((r0["state"][k] - one_state[k]).abs().max()
+            / (one_state[k] - v).abs().max().clamp(min=1e-30)).item()
+        for k, v in before.items() if not torch.equal(one_state[k], v)})
+    log(f"parallel (b): {PAR_WORLD} gloo ranks on one card, "
+        f"{r0['backend']} (the halo through the host), {wall:.1f} s "
+        f"with start-up; halo bit for bit: {halo_ok}; video chunk of {f} "
+        f"frames ({PAR_FPD} a rank) against the ranks emulated here: "
+        f"{v_exact} (equal), against the serial chunk: {v_serial}, "
+        f"{flips:.2e} of `valid` flipped (tol {PAR2_VALID_FLIPS}); train "
+        f"step on {PAR_WORLD} x {cfg.train.batch_size_per_chip} pair(s) "
+        f"against the ranks emulated here: losses off by {exact_loss:.3g} "
+        f"(tol {PAR_LOSS_RTOL}), worst parameter at {exact_r:.3g} of "
+        f"{TRAIN_REF_PARAM_TOL} ({exact_leaf}); against one process on the "
+        f"global batch: losses off by {one_loss_err:.3g} of their value "
+        f"(tol {PAR2_LOSS_RTOL}), worst leaf update off by {upd_r:.3g} of "
+        f"its largest (tol {PAR2_UPDATE_REL}, {upd_leaf}); ranks' replicas "
+        f"equal; rank ms {[r['ms'] for r in ranks]} (gloo, not a scaling "
+        f"figure); launches "
+        f"{[r['launches'] for r in ranks]}")
+    if not halo_ok or any(v_exact.values()):
+        raise AssertionError("parallel (b): the video chunk is off the "
+                             "ranks emulated in one process")
+    if not (exact_loss <= PAR_LOSS_RTOL and exact_r <= 1):
+        raise AssertionError("parallel (b): the train step is off the ranks "
+                             "emulated in one process")
+    if not (one_loss_err <= PAR2_LOSS_RTOL and upd_r <= PAR2_UPDATE_REL
+            and flips <= PAR2_VALID_FLIPS):
+        raise AssertionError("parallel (b): the two ranks are off one "
+                             "process on the whole batch or chunk")
+
+
+def phase_parallel(cfg: Config, tree: dict, card: str) -> dict:
+    """The data-parallel paths: (a) one NCCL rank, (b) two gloo ranks on
+    the card; returns (a)'s launches per path."""
+    t0 = time.perf_counter()
+    launches = phase_parallel_nccl(cfg, tree, card)
+    phase_parallel_gloo(cfg, tree, card)
+    log(f"parallel phase: {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2188,7 +2655,15 @@ def main() -> int:
                phase_correlation(cfg, "pair", PAIR_BATCH, seed=7),
                phase_psroi_mm(cfg, seed=8),
                *phase_frame_pools(cfg, seed=9),
-               *phase_correlation_forms(cfg, 1, seed=10)]
+               *phase_correlation_forms(cfg, 1, seed=10),
+               phase_correlation(cfg, "parallel_video", FRAMES_PER_CHUNK,
+                                 seed=13),
+               phase_psroi(cfg, "parallel_video", seed=14)]
+    # the parallel train and pair paths give each kernel the shapes of the
+    # serial ones (one rank: the same batch), so their entries are the
+    # serial ones' times, marked with the path they were measured at
+    kernels += [dict(k, path="parallel_" + k["path"], measured_as=k["path"])
+                for k in kernels if k["path"] in ("train", "pair")]
     phase_correlation_forms(cfg, FRAMES_PER_CHUNK - 1, seed=1)
     phase_wide_windows(seed=12)
     phase_reference()
@@ -2202,7 +2677,8 @@ def main() -> int:
     launches = {"video": phase_main_path(cfg, card, tree),
                 "train": phase_train(cfg, tree, card),
                 **phase_eval(cfg, tree, card),
-                "frame": phase_frame_path(cfg, tree, card)}
+                "frame": phase_frame_path(cfg, tree, card),
+                **phase_parallel(cfg, tree, card)}
     phase_data(cfg, tree, card)
     del tree
     phase_weights(card)

@@ -40,15 +40,26 @@ class PairLoader:
     permutation per epoch, or with ``det_fraction`` a DET-or-VID draw per
     batch slot. Worker threads prepare a batch's pairs and ``map`` keeps
     their order, so a seed gives the same batches as ``dtt``'s loader.
+
+    Data parallel: with ``world_size`` > 1, `batch_size` is the global
+    batch and the loader of rank `rank` yields its rows [r*b, (r+1)*b) of
+    each global batch the one-process loader yields at the same seed
+    (``shard_batch``'s rows), preparing only those.
     """
 
     def __init__(self, roidb: Sequence[dict], cfg: InputConfig,
                  batch_size: int, seed: int = 0, num_workers: int = 4,
                  prefetch: int = 2, prepare_fn: Callable | None = None,
                  drop_last: bool = True, loop: bool = True,
-                 det_fraction: float | None = None):
+                 det_fraction: float | None = None, rank: int = 0,
+                 world_size: int = 1):
         if not roidb:
             raise ValueError("empty roidb")
+        if batch_size % world_size or not 0 <= rank < world_size:
+            raise ValueError(f"a global batch of {batch_size} does not "
+                             f"divide over {world_size} ranks (rank {rank})")
+        local = batch_size // world_size
+        self._rows = slice(rank * local, (rank + 1) * local)
         self.roidb = list(roidb)
         self.cfg = cfg
         self.batch_size = batch_size
@@ -102,7 +113,7 @@ class PairLoader:
                     return
                 samples = self._pool.map(
                     lambda i: self.prepare_fn(self.roidb[i], self.cfg),
-                    idx_batch)
+                    idx_batch[self._rows])
                 batch = {k: np.stack([s[k] for s in samples])
                          for k in samples[0]}
                 if not _put(self._batch_q, batch, self._stop):

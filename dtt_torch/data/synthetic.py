@@ -18,8 +18,11 @@ import numpy as np
 def _background(rng: np.random.RandomState, shape) -> np.ndarray:
     """uint8-native background, uniform integers in [23, 37] (~mean 30):
     no full-canvas float pass on the generator's critical path."""
-    gen = np.random.default_rng(rng.randint(1 << 31))
-    return gen.integers(23, 38, shape, dtype=np.uint8)
+    return _background_of(rng.randint(1 << 31), shape)
+
+
+def _background_of(seed: int, shape) -> np.ndarray:
+    return np.random.default_rng(seed).integers(23, 38, shape, dtype=np.uint8)
 
 
 def object_texture(cls: int, yy: np.ndarray, xx: np.ndarray) -> np.ndarray:
@@ -127,7 +130,14 @@ def synthetic_pair(rng: np.random.RandomState, height: int, width: int,
     """
     params = sample_pair_params(rng, height, width, num_classes, max_gt,
                                 num_objects, max_shift)
-    images = _background(rng, (2, height, width, 3))
+    return _render_pair(params, rng.randint(1 << 31), height, width, uint8)
+
+
+def _render_pair(params: dict, seed: int, height: int, width: int,
+                 uint8: bool) -> dict:
+    """`synthetic_pair`'s pixels: the scene `params` drawn on the
+    background of `seed`."""
+    images = _background_of(seed, (2, height, width, 3))
     for f in range(2):
         render_frame(images[f], params["gt_boxes"][f], params["gt_labels"],
                      params["gt_valid"][f])
@@ -139,17 +149,23 @@ def synthetic_pair(rng: np.random.RandomState, height: int, width: int,
 def synthetic_batch(rng: np.random.RandomState, batch: int, height: int,
                     width: int, num_classes: int, max_gt: int,
                     pixel_means=(102.98, 115.95, 122.77), uint8: bool = False,
-                    num_objects=None):
+                    num_objects=None, rows: slice | None = None):
     """Stacked batch dict for the train step.
 
     uint8=True ships the quantized un-normalized canvases natively — 4x
     fewer H2D bytes; the train step normalizes on device
     (normalize_device_images). Default emits host-mean-subtracted float32
     of the SAME canvases (the reference semantics).
+
+    With `rows` (a data-parallel rank's share) every pair's scene is
+    drawn, so `rng` moves as for the whole batch, but only those pairs
+    are rendered and returned: the same rows of the whole batch.
     """
-    samples = [synthetic_pair(rng, height, width, num_classes, max_gt,
-                              num_objects=num_objects, uint8=uint8)
-               for _ in range(batch)]
+    scenes = [(sample_pair_params(rng, height, width, num_classes, max_gt,
+                                  num_objects), rng.randint(1 << 31))
+              for _ in range(batch)]
+    samples = [_render_pair(params, seed, height, width, uint8)
+               for params, seed in (scenes if rows is None else scenes[rows])]
     out = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
     if not uint8:
         out["images"] = out["images"] - np.asarray(pixel_means, np.float32)

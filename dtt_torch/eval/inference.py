@@ -13,6 +13,12 @@
 * ``link_snippet``: tube linking + rescoring on the device.
 * Single-frame R-FCN detection (``make_single_frame_step``): no tracking
   head, one frame per call.
+* Data parallel (``make_video_step_parallel``, ``make_pair_step_parallel``;
+  one process per device, ``dtt_torch.parallel``): a rank runs its rows of
+  the chunk or the pair batch and the ranks' padded outputs are gathered
+  in rank order, so the drivers see the serial step's arrays. The video
+  step's ranks pass their first frame's features to the rank before them,
+  the halo of the frame pair across a shard boundary.
 
 The video and pair steps take the fused path under the psroi pooling mode
 (one pool of the fused ps-maps) and the unfused one under the others
@@ -38,10 +44,12 @@ from dtt_torch.core.anchors import grid_anchors_for
 from dtt_torch.core.config import Config
 from dtt_torch.core.device import resolve_device
 from dtt_torch.eval.linking import Tubes, link_all_classes
-from dtt_torch.models.dnt import (DnT, decode_detections_batched,
+from dtt_torch.models.dnt import (DnT, FrameFeats,
+                                  decode_detections_batched,
                                   decode_frame_detections, detect_frame,
                                   detect_frames_batched, detect_track_fused,
                                   normalize_device_images, track_rois_batched)
+from dtt_torch.parallel.mesh import DataMesh, all_gather_cat, exchange_halo
 
 
 class PairOutputs(NamedTuple):
@@ -230,7 +238,7 @@ def make_pair_step(cfg: Config, model: DnT, batch: int = 4, device=None):
     if batch < 1:
         raise ValueError("a pair batch needs at least one pair")
     device, anchors = _step_setup(cfg, model, device)
-    trunk, post = _trunk_and_post(cfg, model)
+    forward = _pair_forward(cfg, model, device, anchors)
 
     @torch.inference_mode()
     def step(pairs: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
@@ -238,13 +246,134 @@ def make_pair_step(cfg: Config, model: DnT, batch: int = 4, device=None):
         if pairs.shape[:2] != (batch, 2):
             raise ValueError(f"expected batches of {batch} pairs "
                              f"(B, 2, H, W, 3), got {tuple(pairs.shape)}")
+        return forward(pairs, im_hw, scale)
+
+    step.batch = batch
+    step.device = device
+    return step
+
+
+def _pair_forward(cfg: Config, model: DnT, device, anchors):
+    """The pair step's body: one trunk pass over the 2B frames, then
+    frames 0::2 and 1::2 as the pair halves (``dtt``'s ``_pair_forward``)."""
+    trunk, post = _trunk_and_post(cfg, model)
+
+    def forward(pairs, im_hw, scale):
         pairs = normalize_device_images(_upload(pairs, device), im_hw,
                                         cfg.input.pixel_means)
         feats = trunk(pairs.reshape(-1, *pairs.shape[2:]))
         return post(cfg, model, anchors, feats.slice(slice(0, None, 2)),
                     feats.slice(slice(1, None, 2)), im_hw, scale)
 
+    return forward
+
+
+def _mesh_setup(cfg: Config, model: DnT, mesh: DataMesh) -> tuple:
+    """`_step_setup` on the rank's device, which must hold `model`."""
+    device, anchors = _step_setup(cfg, model, mesh.device)
+    model_device = next(model.parameters()).device
+    if model_device != mesh.device:
+        raise ValueError(f"model is on {model_device}, mesh holds "
+                         f"{mesh.device}")
+    return device, anchors
+
+
+def _local_rows(x: torch.Tensor, mesh: DataMesh, local: int, what: str
+                ) -> torch.Tensor:
+    """This rank's rows of the global `x` (world * local rows), or `x`
+    itself when it holds just the rank's `local` rows."""
+    n = mesh.size * local
+    if x.shape[0] == n:
+        return x[mesh.rows(n)]
+    if x.shape[0] == local:
+        return x
+    raise ValueError(f"expected {n} {what} (or this rank's {local}), got "
+                     f"{tuple(x.shape)}")
+
+
+def _gather_outputs(out: PairOutputs, mesh: DataMesh) -> PairOutputs:
+    """Every rank's padded outputs in rank order, on every rank (`valid`
+    travels as uint8: not every backend carries bool)."""
+    if not mesh.distributed:
+        return out
+    boxes, scores, valid, tracked = (all_gather_cat(x, mesh) for x in (
+        out.boxes, out.scores, out.valid.to(torch.uint8), out.tracked))
+    return PairOutputs(boxes, scores, valid.bool(), tracked)
+
+
+def make_pair_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
+                            pairs_per_device: int = 2):
+    """Data-parallel tau-strided pair step over the ranks of `mesh`: pairs
+    are independent, so the batch shards with no halo. The same call and
+    outputs as `make_pair_step` with ``batch = mesh.size *
+    pairs_per_device`` (``step.batch``, which ``evaluate_snippet`` reads):
+    each rank runs its `pairs_per_device` rows (``step.rows``; a rank may
+    be given only those) on ``mesh.device`` and every rank returns the
+    whole batch's outputs, gathered in rank order."""
+    if pairs_per_device < 1:
+        raise ValueError("a pair batch needs at least one pair a rank")
+    device, anchors = _mesh_setup(cfg, model, mesh)
+    forward = _pair_forward(cfg, model, device, anchors)
+    batch = mesh.size * pairs_per_device
+
+    @torch.inference_mode()
+    def step(pairs: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
+             ) -> PairOutputs:
+        if pairs.shape[1] != 2:
+            raise ValueError(f"expected pairs (B, 2, H, W, 3), got "
+                             f"{tuple(pairs.shape)}")
+        local = _local_rows(pairs, mesh, pairs_per_device, "pairs")
+        return _gather_outputs(forward(local, im_hw, scale), mesh)
+
     step.batch = batch
+    step.rows = mesh.rows(batch)
+    step.device = device
+    return step
+
+
+def make_video_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
+                             frames_per_device: int = 4):
+    """Data-parallel video step over the ranks of `mesh`: a chunk of
+    ``mesh.size * frames_per_device`` frames (``step.frames_per_chunk``)
+    shards by rank (``step.rows``; a rank may be given only its frames).
+    Each rank runs the trunk on its frames and sends the features of its
+    first frame that frame t+1's side of the heads reads (the reduced c5
+    and the correlation inputs) to the rank before it, so its last frame
+    pairs with the next rank's first.
+
+    Returns that many pairs, gathered in rank order on every rank. The
+    last pair wraps around (rank n-1's last frame with rank 0's first) and
+    ``evaluate_snippet_video``'s `real` accounting always trims it, so
+    callers see the serial step's contract (F-1 usable pairs, chunks that
+    overlap by one frame)."""
+    if frames_per_device < 1:
+        raise ValueError("a rank needs at least one frame")
+    device, anchors = _mesh_setup(cfg, model, mesh)
+    trunk, post = _trunk_and_post(cfg, model)
+    frames_per_chunk = mesh.size * frames_per_device
+
+    @torch.inference_mode()
+    def step(frames: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
+             ) -> PairOutputs:
+        local = _local_rows(frames, mesh, frames_per_device, "frames")
+        images = normalize_device_images(_upload(local, device), im_hw,
+                                         cfg.input.pixel_means)
+        feats = trunk(images)
+        keys = sorted(feats.corr_feats)
+        halo = exchange_halo([feats.reduced[:1]]
+                             + [feats.corr_feats[k][:1] for k in keys], mesh)
+        ext = lambda x, h: torch.cat([x[1:], h])
+        # frame t+1's side of the heads reads only these fields
+        f_tau = FrameFeats(
+            rpn_cls=None, rpn_bbox=None,
+            reduced=ext(feats.reduced, halo[0]),
+            corr_feats={k: ext(feats.corr_feats[k], h)
+                        for k, h in zip(keys, halo[1:])})
+        out = post(cfg, model, anchors, feats, f_tau, im_hw, scale)
+        return _gather_outputs(out, mesh)
+
+    step.frames_per_chunk = frames_per_chunk
+    step.rows = mesh.rows(frames_per_chunk)
     step.device = device
     return step
 
@@ -302,6 +431,8 @@ def evaluate_snippet_video(cfg: Config, video_step, frames,
     im_hw = torch.tensor(im_hw, dtype=torch.float32, device=video_step.device)
     if isinstance(frames, LazyFrames):   # each frame decodes once
         frames.ensure_cache(f + 1)
+    # a parallel step's rank reads (and decodes) only its own frames
+    rows = getattr(video_step, "rows", slice(None))
 
     outs = []
     pending: list = []  # dispatch-ahead queue: host work overlaps the device
@@ -315,7 +446,7 @@ def evaluate_snippet_video(cfg: Config, video_step, frames,
         # index min(i, T-1): duplicates the last frame both for the final
         # identity pair and as tail padding (trimmed via `real`)
         idxs = [min(i, t_len - 1) for i in range(start, start + f)]
-        chunk = _gather_chunk(cfg, frames, idxs)
+        chunk = _gather_chunk(cfg, frames, idxs[rows])
         real = min(f - 1, t_len - start)  # pairs produced by this chunk
         pending.append((video_step(chunk, im_hw, scale), real))
         if len(pending) > 2:      # keep 2 chunks in flight
@@ -351,6 +482,7 @@ def evaluate_snippet(cfg: Config, pair_step, frames, tau: int = 1,
     pair_idx = [(t, min(t + tau, t_len - 1)) for t in eval_ts]
     if isinstance(frames, LazyFrames):   # each frame decodes once
         frames.ensure_cache(2 * batch)
+    rows = getattr(pair_step, "rows", slice(None))   # see the video driver
 
     outs = []
     pending: list = []  # dispatch-ahead queue (see evaluate_snippet_video)
@@ -363,9 +495,10 @@ def evaluate_snippet(cfg: Config, pair_step, frames, tau: int = 1,
         chunk = pair_idx[i:i + batch]
         real = len(chunk)
         chunk += [chunk[-1]] * (batch - real)   # tail padding, trimmed
-        g = _gather_chunk(cfg, frames, [t for ab in chunk for t in ab])
-        pending.append((pair_step(g.reshape(batch, 2, *g.shape[1:]), im_hw,
-                                  scale), real))
+        mine = chunk[rows]
+        g = _gather_chunk(cfg, frames, [t for ab in mine for t in ab])
+        pending.append((pair_step(g.reshape(len(mine), 2, *g.shape[1:]),
+                                  im_hw, scale), real))
         if len(pending) > 2:      # keep 2 batches in flight
             outs.append(fetch(pending.pop(0)))
     outs.extend(fetch(e) for e in pending)

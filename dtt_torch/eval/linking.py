@@ -136,3 +136,18 @@ def link_all_classes(boxes: torch.Tensor,    # (C, T, N, 4)
                  tube_valid=torch.stack(oks, dim=1),
                  tube_score=torch.stack(mscores, dim=1),
                  rescored=rescored, det_in_tube=in_tube)
+
+
+def link_tubes(boxes: torch.Tensor,    # (T, N, 4)
+               scores: torch.Tensor,   # (T, N)
+               tracked: torch.Tensor,  # (T, N, 4) box propagated t -> t+1
+               valid: torch.Tensor,    # (T, N)
+               max_tubes: int = 20, link_iou_weight: float = 1.0,
+               score_boost: str = "mean_top_half") -> Tubes:
+    """Greedy repeated-Viterbi tube extraction for one class: the
+    one-class case of `link_all_classes`, with its fields' class axis
+    dropped ((max_tubes, T) paths, (T, N) scores)."""
+    tubes = link_all_classes(boxes[None], scores[None], tracked[None],
+                             valid[None], max_tubes, link_iou_weight,
+                             score_boost)
+    return Tubes(*(x[0] for x in tubes))

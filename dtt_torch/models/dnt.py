@@ -277,10 +277,11 @@ def normalize_device_images(images: torch.Tensor, im_size: torch.Tensor,
 
 def pool_vote_batched(cfg: ModelConfig, maps: torch.Tensor,
                       rois: torch.Tensor, spatial_scale: float,
-                      impl: str = "direct") -> torch.Tensor:
+                      impl: str = "gather") -> torch.Tensor:
     """(B, H, W, k*k*D) maps, (B, N, 4) RoIs -> (B, N, D) votes, the mean
     over the k*k bins of a differentiable PSRoI pool (the RoIs take no
-    gradient), as ``dtt``'s ``pool_vote_batched``:
+    gradient), as ``dtt``'s ``pool_vote_batched``, whose default `impl`
+    it shares:
 
     * ``"direct"`` pools the maps cast to the compute dtype (its backward
       is the pool-backward kernel), then averages in float32;

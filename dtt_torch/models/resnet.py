@@ -136,3 +136,16 @@ class ResNetBackbone(nn.Module):
         c4 = self.layer3(c3)
         c5 = self.layer4(c4)
         return c3, c4, c5
+
+
+def resnet101(frozen_stages: int = 2, **factory) -> ResNetBackbone:
+    return ResNetBackbone((3, 4, 23, 3), frozen_stages, **factory)
+
+
+def resnet50(frozen_stages: int = 2, **factory) -> ResNetBackbone:
+    return ResNetBackbone((3, 4, 6, 3), frozen_stages, **factory)
+
+
+def tiny_resnet(**factory) -> ResNetBackbone:
+    """Miniature backbone for tests and synthetic integration runs."""
+    return ResNetBackbone((1, 1, 1, 1), frozen_stages=0, **factory)

@@ -15,6 +15,12 @@ The optimizer is ``dtt``'s optax chain, step for step:
 
 Steps 2-4 are ``torch.optim.SGD`` with one group for weights and one for
 biases; the clip and the schedule are done here.
+
+Data parallelism (``make_parallel_train_step``) is one process per device,
+as ``torchrun`` starts them: each rank takes its rows of the global batch
+(``shard_batch``, ``shard_draws``) and the ranks' gradients are averaged
+by one all-reduce over a flat buffer before the clip, so the update is the
+one a single process makes on the whole batch.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from dtt_torch.core.config import Config
 from dtt_torch.core.device import resolve_device
 from dtt_torch.models.dnt import DnT, is_frozen
 from dtt_torch.models.targets import Draws
+from dtt_torch.parallel.mesh import (DataMesh, all_reduce_mean_, broadcast_,
+                                     data_mesh)
 from dtt_torch.train.losses import batch_loss
 from dtt_torch.utils.params import from_jax_params, init_jax_params
 
@@ -91,13 +99,17 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def _trainable(state: TrainState) -> list:
+    return [p for g in state.optimizer.param_groups for p in g["params"]]
+
+
 def apply_gradients(cfg: Config, state: TrainState) -> TrainState:
     """One optimizer update from the parameters' ``.grad``: clip, then the
     SGD step at ``learning_rate(cfg, state.step)``. A trainable parameter
     without a gradient counts as a zero gradient (weight decay and momentum
     still move it, as in optax)."""
     opt = state.optimizer
-    params = [p for g in opt.param_groups for p in g["params"]]
+    params = _trainable(state)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -173,4 +185,133 @@ def make_train_step(cfg: Config, model: DnT, feat_hw: tuple[int, int],
         state = apply_gradients(cfg, state)
         return state, {k: v.detach() for k, v in lb._asdict().items()}
 
+    return train_step
+
+
+def make_data_mesh(device=None) -> DataMesh:
+    """The 1-D data mesh of this rank (``dtt_torch.parallel.data_mesh``):
+    one process per device, the counterpart of ``dtt``'s mesh over all
+    chips."""
+    return data_mesh(device)
+
+
+def shard_batch(batch: dict, mesh: DataMesh) -> dict:
+    """This rank's rows [r*b, (r+1)*b) of every array of a global host
+    batch of B = world * b pairs; raises unless B divides by the world
+    size, as ``dtt``'s sharding does."""
+    rows = mesh.rows(len(next(iter(batch.values()))))
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def shard_draws(draws: Draws, mesh: DataMesh) -> Draws:
+    """This rank's rows of the `Draws` of the global batch. Every rank
+    draws the global batch's uniforms from a generator seeded alike
+    (``sample_draws(cfg, B, generator)``) and keeps its own pairs, as
+    ``dtt`` splits its key over the global batch."""
+    rows = mesh.rows(draws.anchor_pos.shape[0])
+    return Draws(*(x[rows] for x in draws))
+
+
+def replicate_tree(state, mesh: DataMesh):
+    """Make every rank's replica rank 0's: the parameters and buffers
+    (frozen-BN affines) of a `TrainState`'s model or of a module, the
+    optimizer's momentum buffers and the step. Ranks that built their
+    state alike are left as they were; one that read other weights by
+    itself takes rank 0's. Returns the state."""
+    model = state.model if isinstance(state, TrainState) else state
+    tensors = list(model.state_dict().values())
+    if isinstance(state, TrainState):
+        tensors += [s["momentum_buffer"]
+                    for s in state.optimizer.state.values()
+                    if s.get("momentum_buffer") is not None]
+    with torch.no_grad():
+        broadcast_(tensors, mesh)
+    if isinstance(state, TrainState) and mesh.distributed:
+        step = torch.tensor([state.step], dtype=torch.int64,
+                            device=mesh.device)
+        broadcast_([step], mesh)
+        state = state._replace(step=int(step.item()))
+    return state
+
+
+class _FlatGrads:
+    """One preallocated float32 buffer holding the trainable parameters'
+    gradients: each ``.grad`` is a view of it with its parameter's strides
+    (channels-last convs included, autograd's layout contract), so
+    backward accumulates into the buffer in place and one all-reduce
+    averages all of them."""
+
+    def __init__(self, params: list):
+        self.params = params
+        self.numel = sum(p.numel() for p in params)
+        self.buffer = torch.zeros(self.numel, dtype=torch.float32,
+                                  device=params[0].device)
+        self.views, off = [], 0
+        for p in params:
+            if not (p.is_contiguous() or (p.dim() == 4 and p.is_contiguous(
+                    memory_format=torch.channels_last))):
+                raise ValueError(f"a parameter of shape {tuple(p.shape)} "
+                                 f"and strides {p.stride()} is not dense")
+            self.views.append(self.buffer.as_strided(p.shape, p.stride(),
+                                                     off))
+            off += p.numel()
+
+    def bind(self) -> None:
+        """Zero the buffer and make it every parameter's ``.grad``."""
+        self.buffer.zero_()
+        for p, v in zip(self.params, self.views):
+            p.grad = v
+
+
+def make_parallel_train_step(cfg: Config, model: DnT,
+                             feat_hw: tuple[int, int], mesh: DataMesh,
+                             render_fn=None):
+    """Data-parallel ``train_step(state, batch, draws, generator=None) ->
+    (state, metrics)`` on ``mesh.device``, which must hold `model`: this
+    rank's replica takes this rank's rows of the global batch and of its
+    draws (``shard_batch``, ``shard_draws``) and every rank makes the
+    update one process makes on the whole global batch.
+
+    The loss is the mean over the pairs (``batch_loss``), so the global
+    gradient is the mean of the ranks' gradients: they are averaged by one
+    all-reduce over a flat float32 buffer of the trainable gradients,
+    after the backward and before ``apply_gradients``' global-norm clip.
+    A trainable parameter the loss does not reach holds zeros in the
+    buffer on every rank alike. The metrics are averaged too, so every
+    rank returns the global ``LossBreakdown`` (device scalars).
+
+    DDP is not used: it syncs only inside its module's ``forward``, and
+    the loss runs the model's other methods. `render_fn` as in
+    ``make_train_step``: each rank draws its canvases on its own device.
+    """
+    device = mesh.device
+    model_device = next(model.parameters()).device
+    if model_device != device:
+        raise ValueError(f"model is on {model_device}, mesh holds {device}")
+    anchors = torch.from_numpy(
+        grid_anchors_for(cfg.model.anchors, *feat_hw)).to(device)
+    flat: dict = {}
+
+    def train_step(state: TrainState, batch: dict, draws: Draws,
+                   generator: torch.Generator | None = None):
+        if render_fn is not None:
+            if generator is None:
+                raise ValueError("a step with render_fn draws its canvases "
+                                 "from a generator; pass one")
+            batch = dict(batch, images=render_fn(batch, generator))
+        grads = flat.get(id(state.optimizer))
+        if grads is None:
+            flat.clear()
+            grads = flat[id(state.optimizer)] = _FlatGrads(_trainable(state))
+        grads.bind()
+        _, lb = batch_loss(cfg, state.model, anchors,
+                           batch_to_device(batch, device), draws)
+        lb.total.backward()
+        all_reduce_mean_(grads.buffer, mesh)
+        state = apply_gradients(cfg, state)
+        metrics = all_reduce_mean_(torch.stack(lb).detach(), mesh)
+        return state, dict(zip(lb._fields, metrics.unbind()))
+
+    train_step.allreduce_bytes = lambda state: 4 * sum(
+        p.numel() for p in _trainable(state))
     return train_step

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Evaluate D&T with dtt_torch on one CUDA card: detections, tube linking
+"""Evaluate D&T with dtt_torch on CUDA cards: detections, tube linking
 and VID mAP (the PyTorch counterpart of ``eval.py``).
 
 Examples:
@@ -9,6 +9,8 @@ Examples:
       --set model.roi.eval_pool_impl=pallas_mm
   python eval_torch.py --dataset imagenet_vid_val --data-root \\
       /data/ILSVRC2015 --checkpoint runs/dtt_torch --link
+  torchrun --nproc_per_node=8 eval_torch.py --synthetic --parallel \\
+      --checkpoint runs/dtt_torch --link
 
 The checkpoint is a run dir (its LATEST) or a step dir that either
 package wrote (``state.msgpack``, ``config.yml``). The config is the one
@@ -24,6 +26,14 @@ phase (decoding, within detection, apart), then one JSON line: mAP,
 protocol (and with linking mAP_nolink and link_uplift) and the per-class
 APs. Needs a CUDA card; ``main(argv, device="cpu")`` runs the plain
 PyTorch path instead.
+
+--parallel shards the work over the ranks of ``torchrun`` (one process a
+card; without ``torchrun``, a group of one rank): tau=1 runs
+``make_video_step_parallel`` over chunks of ranks x frames a rank (the
+synthetic snippet's length + 1 over the ranks, else 96 over the ranks,
+as eval.py sizes them), tau>1 ``make_pair_step_parallel`` over batches of
+2 pairs a rank. Every rank runs the steps and sees every output; rank 0
+alone links, interpolates, scores mAP, prints and writes --out.
 """
 
 from __future__ import annotations
@@ -37,13 +47,6 @@ from collections import defaultdict
 from contextlib import contextmanager
 
 import numpy as np
-
-# options of eval.py the port does not implement yet, and where ROADMAP.md
-# queues them
-_NOT_PORTED = {
-    "parallel": "--parallel (multi-GPU evaluation; ROADMAP.md Queue 1 "
-                "item 12)",
-}
 
 
 def parse_args(argv=None):
@@ -86,11 +89,10 @@ def parse_args(argv=None):
                    default="devkit",
                    help="devkit: size-adaptive IoU threshold (ImageNet "
                         "eval_vid rule); flat: fixed IoU 0.5")
-    p.add_argument("--parallel", action="store_true")
+    p.add_argument("--parallel", action="store_true",
+                   help="shard the frames (tau=1) or the pairs (tau>1) "
+                        "over the ranks of torchrun, one card each")
     args = p.parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name):
-            p.error(f"{what} is not ported to dtt_torch yet")
     if args.synthetic_hard:
         args.synthetic = True
     if not args.synthetic and not args.data_root:
@@ -265,10 +267,29 @@ def process_strided_snippet(cfg, num_classes, frame_uid, t_len, eval_ts,
             all_dets[c].append((frame_uid + t_u[km], s_u[km], b_u[km]))
 
 
+def join_group(device):
+    """--parallel: join ``torchrun``'s group, or without ``WORLD_SIZE``
+    make one of a single rank (an in-process store), unless the caller
+    joined one. Returns the rank's device and whether this call made the
+    group (and so leaves it)."""
+    import torch.distributed as dist
+
+    from dtt_torch.parallel import initialize_distributed, local_device
+    if dist.is_initialized():
+        return local_device(device), False
+    if "WORLD_SIZE" in os.environ:
+        initialize_distributed(device=device)
+    else:
+        initialize_distributed(store=dist.HashStore(), world_size=1, rank=0,
+                               device=device)
+    return local_device(device), True
+
+
 def main(argv=None, device=None):
     """Run the evaluation (on CUDA unless `device` is "cpu"); prints and
     returns the result dict, and returns the wall ms per phase and the
-    number of frame pairs the steps ran."""
+    number of frame pairs the steps ran. With --parallel, ranks other
+    than 0 return None for the result."""
     args = parse_args(argv)
     from dtt_torch.core.device import resolve_device
     from dtt_torch.data.imagenet_vid import CLASS_NAMES
@@ -276,10 +297,19 @@ def main(argv=None, device=None):
     from dtt_torch.eval.inference import (LazyFrames, evaluate_snippet,
                                           evaluate_snippet_video,
                                           link_snippet, make_pair_step,
-                                          make_video_step)
+                                          make_pair_step_parallel,
+                                          make_video_step,
+                                          make_video_step_parallel)
     from dtt_torch.eval.vid_eval import eval_detections
+    from dtt_torch.parallel import data_mesh
 
-    device = resolve_device(device)
+    owns_group, lead = False, True
+    if args.parallel:
+        device, owns_group = join_group(device)
+        mesh = data_mesh(device)
+        lead = mesh.rank == 0
+    else:
+        device = resolve_device(device)
     cfg, model = load_model(args, device)
     if args.synthetic:
         hard = None
@@ -307,8 +337,23 @@ def main(argv=None, device=None):
             snippets = snippets[:args.max_snippets]
         stream = snippet_stream_vid(cfg, snippets)
     do_link = args.link or args.tau > 1   # tau>1 implies tube linking
-    if args.tau > 1:
+    if args.tau > 1 and args.parallel:
+        pair_step = make_pair_step_parallel(cfg, model, mesh)
+        if lead:
+            print(f"parallel strided eval: {mesh.size} rank(s) "
+                  f"({mesh.backend}), {pair_step.batch}-pair batches")
+    elif args.tau > 1:
         pair_step = make_pair_step(cfg, model, 4, device)
+    elif args.parallel:
+        # eval.py's parallel chunk: the synthetic snippet (+1) or 96
+        # frames, over the ranks
+        n = mesh.size
+        fpd = (max(1, (args.synthetic_frames + n) // n) if args.synthetic
+               else max(1, 96 // n))
+        video_step = make_video_step_parallel(cfg, model, mesh, fpd)
+        if lead:
+            print(f"parallel eval: {n} rank(s) ({mesh.backend}), "
+                  f"{video_step.frames_per_chunk}-frame chunks")
     else:
         # eval.py's chunk: synthetic snippets are short and of known length
         fpc = min(97, args.synthetic_frames + 1) if args.synthetic else 97
@@ -331,6 +376,8 @@ def main(argv=None, device=None):
                     cfg, pair_step, frames, tau=args.tau, im_hw=im_hw,
                     scale=scale)
             pairs += len(eval_ts)
+            if not lead:
+                continue
             process_strided_snippet(cfg, num_classes, frame_uid, t_len,
                                     eval_ts, boxes, scores, valid, tracked,
                                     all_dets, raw_dets, device, clock)
@@ -339,6 +386,8 @@ def main(argv=None, device=None):
                 boxes, scores, valid, tracked = evaluate_snippet_video(
                     cfg, video_step, frames, im_hw=im_hw, scale=scale)
             pairs += t_len
+            if not lead:
+                continue
             valid = cap_frame_dets(scores, valid, cfg.eval.max_dets_per_frame)
             raw_scores = scores
             if args.link:
@@ -372,6 +421,11 @@ def main(argv=None, device=None):
             decoded = f", {frames.decode_count} decoded"
         print(f"snippet {name}: {t_len} frames done (tau={args.tau}){decoded}")
 
+    if owns_group:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    if not lead:
+        return None, dict(clock), pairs
     if args.out:
         with open(args.out, "wb") as f:
             pickle.dump({"dets": all_dets, "gts": all_gts}, f)

@@ -153,7 +153,8 @@ def _torch_decisions(cfg, feats, asg):
     and the OHEM selection of ``_rfcn_losses`` on the pooled votes."""
     tgts = asg.rois
     with torch.no_grad():
-        cls, bbox = (tdnt.pool_vote_batched(cfg.model, m, tgts.rois, 1 / 16)
+        cls, bbox = (tdnt.pool_vote_batched(cfg.model, m, tgts.rois, 1 / 16,
+                                            "direct")
                      for m in (feats.cls_maps, feats.bbox_maps))
         sel = tlosses._rfcn_losses(cfg, cls, bbox, tgts)[3]
     return dict(anchor_labels=asg.anchors.labels,
