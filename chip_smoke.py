@@ -26,7 +26,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    scale and three runs bit for bit) at one pair and beside the unsplit
    one at a video chunk's 16 pairs; then correlation windows past the
    tensor-core band (d=16/s=4, d=10/s=2) in bf16 and f32 under every
-   kernel form, forward and backward, against the plain versions;
+   kernel form, forward and backward, against the plain versions; the NMS
+   kernel at every NMS of a video chunk, a train step, a pair batch, a
+   frame and the parallel chunk (proposals, per-class or OHEM) and on the
+   crafted cases of tests/nms_cases.py at select_block 1, 16, 32 and 48,
+   bit for bit against both plain forms, with its dependent steps;
 4. small references: the tiny test config in float32 through the kernels
    on the card against the plain versions on the CPU, for the video path,
    for one train step (same weights, same injected draws; losses, every
@@ -68,7 +72,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    against the serial steps, each with its launches; (b) PAR_WORLD gloo
    ranks spawned on the one card (NCCL refuses two ranks on a device):
    one parallel video chunk and one parallel train step on a global batch
-   against one process on it, the ranks' replicas equal;
+   against one process on it, the ranks' replicas equal; then
+   ``bench_torch.py``'s measurement at its defaults (its JSON line);
 10. the data path: a VID/DET tree of 1280x720 JPEG frames written here
    (two train snippets of 10 frames, one val snippet of 17, four DET
    images), the decode route and its host ms per frame, ``PairLoader``'s
@@ -135,6 +140,7 @@ from dtt_torch.models.rpn import Proposals, proposal_layer, softmax
 from dtt_torch.models.targets import sample_draws
 from dtt_torch.ops import _build
 from dtt_torch.ops import correlation as corr_ops
+from dtt_torch.ops import nms as nms_ops
 from dtt_torch.ops import psroi as psroi_ops
 from dtt_torch.train import losses as train_losses
 from dtt_torch.train.checkpoint import (latest_checkpoint,
@@ -144,6 +150,7 @@ from dtt_torch.train.trainer import (apply_gradients, batch_to_device,
 from dtt_torch.utils import calibrate
 from dtt_torch.utils.params import from_jax_params, init_jax_params
 
+import bench_torch
 import eval_torch
 import train_torch
 
@@ -214,21 +221,25 @@ KERNELS = {"correlation": corr_ops.correlation_cuda,
            "psroi_direct": psroi_ops.psroi_sums_cuda,
            "psroi_direct_bwd": psroi_ops.psroi_bwd_cuda,
            "psroi_mm": psroi_ops.psroi_mm_sums_cuda,
-           "psroi_sat_mean": psroi_ops.psroi_sat_means_cuda}
-# the kernels each driven path must launch
-PATH_KERNELS = {"video": ("correlation", "psroi_direct"),
+           "psroi_sat_mean": psroi_ops.psroi_sat_means_cuda,
+           "nms": nms_ops.nms_cuda}
+# the kernels each driven path must launch (every path runs a proposal NMS)
+PATH_KERNELS = {"video": ("correlation", "psroi_direct", "nms"),
                 "train": ("correlation", "correlation_bwd", "psroi_direct",
-                          "psroi_direct_bwd"),
-                "pair": ("correlation", "psroi_mm"),
-                "eval_video": ("correlation", "psroi_direct"),
+                          "psroi_direct_bwd", "nms"),
+                "pair": ("correlation", "psroi_mm", "nms"),
+                "eval_video": ("correlation", "psroi_direct", "nms"),
                 "frame": ("correlation", "correlation_split", "psroi_mm",
-                          "psroi_sat_mean"),
-                "mode_video": ("correlation",),
-                "mode_train": ("correlation", "correlation_bwd"),
+                          "psroi_sat_mean", "nms"),
+                "mode_video": ("correlation", "nms"),
+                "mode_train": ("correlation", "correlation_bwd", "nms"),
                 "parallel_train": ("correlation", "correlation_bwd",
-                                   "psroi_direct", "psroi_direct_bwd"),
-                "parallel_video": ("correlation", "psroi_direct"),
-                "parallel_pair": ("correlation", "psroi_mm")}
+                                   "psroi_direct", "psroi_direct_bwd", "nms"),
+                "parallel_video": ("correlation", "psroi_direct", "nms"),
+                "parallel_pair": ("correlation", "psroi_mm", "nms")}
+# select_block widths the NMS kernel is held at on the crafted cases (48:
+# wider than one of its steps)
+NMS_BLOCKS = (1, 16, 32, 48)
 
 
 def log(msg: str) -> None:
@@ -942,6 +953,126 @@ def phase_wide_windows(seed: int) -> None:
                     f"{[f'{e:.3g}' for e in errs]}")
 
 
+def nms_calls(cfg: Config, path: str) -> list:
+    """(name, P, K, M, IoU threshold, score threshold) of each NMS of one
+    call of `path`: the proposal layer of a video chunk's 16 frames (17 on
+    the parallel chunk's one rank), a train step's 2 frames a pair, a pair
+    batch's 4 or one frame, then the per-class NMS of those frames (30
+    classes at the test proposals), or OHEM's on the train step's frames
+    (the train proposals and the gt slots)."""
+    r, e, m = cfg.model.rpn, cfg.eval, cfg.model
+    if path == "train":
+        frames = 2 * cfg.train.batch_size_per_chip
+        t = cfg.train
+        return [("proposals", frames, r.pre_nms_top_n_train,
+                 r.post_nms_top_n_train, r.nms_thresh, -0.5),
+                ("ohem", frames, r.post_nms_top_n_train
+                 + cfg.input.max_gt_boxes, t.ohem_top_k, t.ohem_nms_thresh,
+                 -0.5)]
+    frames = {"video": FRAMES_PER_CHUNK - 1, "pair": PAIR_BATCH, "frame": 1,
+              "parallel_video": FRAMES_PER_CHUNK}[path]
+    return [("proposals", frames, r.pre_nms_top_n_test, r.post_nms_top_n_test,
+             r.nms_thresh, -0.5),
+            ("per_class", frames * (m.num_classes - 1), r.post_nms_top_n_test,
+             e.max_per_class, e.nms_thresh, e.score_thresh)]
+
+
+def nms_inputs(problem: dict) -> tuple:
+    return (torch.from_numpy(problem["boxes"]).cuda(),
+            torch.from_numpy(problem["scores"]).cuda(), problem["iou"],
+            problem["m"], torch.from_numpy(problem["valid"]).cuda(),
+            problem["score"])
+
+
+def nms_exact(args: tuple, block: int, what: str) -> torch.Tensor:
+    """The kernel's (keep_idx, keep_valid) on `args` at width `block`
+    against both plain forms, bit for bit; returns its steps."""
+    *got, steps = nms_ops.nms_cuda(*args, select_block=block,
+                                   return_steps=True)
+    torch.cuda.synchronize()
+    for form, want in (
+            ("nms_padded_fast",
+             nms_ops.nms_padded_fast_plain(*args, select_block=block)),
+            ("nms_padded", nms_ops.nms_padded_plain(*args))):
+        for name, x, y in zip(("keep_idx", "keep_valid"), got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"nms kernel vs plain {form} ({what}, select_block "
+                    f"{block}): {name} differs in {int((x != y).sum())} of "
+                    f"{x.numel()} slots")
+    return steps
+
+
+def phase_nms(cfg: Config, path: str, seed: int) -> dict:
+    """The NMS kernel's calls of one call of `path` (at the config's
+    select_block), each bit for bit against both plain forms, with its
+    dependent steps; times for all of the calls by CUDA events: the
+    kernel, the plain one-at-a-time loop and the plain block loop."""
+    cases = load_test_helper("nms_cases")
+    calls = []
+    for i, (name, p, k, m, iou, score) in enumerate(nms_calls(cfg, path)):
+        block = (cfg.model.rpn.nms_select_block if name == "proposals"
+                 else cfg.eval.nms_select_block if name == "per_class"
+                 else nms_ops.KERNEL_BLOCK)         # OHEM: nms_padded
+        args = nms_inputs(cases.path_problem(name, p, k, m, iou, score,
+                                             seed + i))
+        steps = nms_exact(args, block, f"{path} {name} P={p} K={k} M={m}")
+        calls.append((name, args, block, steps))
+    ms = time_ms(lambda: [nms_ops.nms_cuda(*a, select_block=b)
+                          for _, a, b, _ in calls], iters=20)
+    plain_ms = time_ms(lambda: [nms_ops.nms_padded_plain(*a)
+                                for _, a, _, _ in calls], iters=3, warmup=1)
+    fast_ms = time_ms(lambda: [nms_ops.nms_padded_fast_plain(
+        *a, select_block=b) for _, a, b, _ in calls], iters=3, warmup=1)
+    # each box (16 B), score (4) and valid flag (1) read once; each slot
+    # (8 + 1) and each problem's step count (4) written once
+    nbytes = sum(a[1].numel() * 21 + a[1].shape[0] * (a[3] * 9 + 4)
+                 for _, a, _, _ in calls)
+    bound_ms, bound_by = bound(nbytes, 0)
+    desc = "; ".join(
+        f"{n} P={a[1].shape[0]} K={a[1].shape[1]} M={a[3]} block {b}: "
+        f"dependent steps max {int(s.max())}, mean {s.float().mean():.1f}"
+        for n, a, b, s in calls)
+    log(f"nms [{path}]: {desc}; bit-equal to both plain forms; kernel "
+        f"{ms:.4f} ms, plain nms_padded {plain_ms:.4f} ms, plain "
+        f"nms_padded_fast {fast_ms:.4f} ms, library: none (no PyTorch call "
+        f"computes padded greedy NMS), bound_us {bound_ms * 1e3:.2f} "
+        f"({bound_by}, {nbytes / 1e6:.2f} MB), {bound_ms / ms:.2%} of the "
+        f"bound")
+    return {"name": "nms", "path": path, "route": "cuda",
+            "source": "dtt_torch/ops/csrc/nms.cu",
+            "replaces": "dtt/ops/nms.py:75 (nms_padded_fast, XLA's "
+                        "lax.while_loop; no TPU kernel)",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "plain_fast_ms": fast_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "steps": {n: int(s.max()) for n, _, _, s in calls}}
+
+
+def phase_nms_crafted() -> None:
+    """The NMS kernel on the crafted cases (ties, IoU at the threshold,
+    the budget filling inside a step, no valid box, thresholds >= 1, a NaN
+    score) at every width of NMS_BLOCKS, bit for bit against both plain
+    forms."""
+    cases = load_test_helper("nms_cases").crafted_cases()
+    for c in cases:
+        for block in NMS_BLOCKS:
+            nms_exact(nms_inputs(c), block, c["name"])
+    log(f"nms crafted cases: {len(cases)} cases x select_block "
+        f"{list(NMS_BLOCKS)} bit-equal to both plain forms "
+        f"({', '.join(c['name'] for c in cases)})")
+
+
+def phase_bench(card: str) -> None:
+    """``bench_torch.py``'s measurement at its defaults (its JSON line and
+    its statistics)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = bench_torch.main([])
+    log(f"bench_torch (defaults): {json.dumps(out)} on {card}, "
+        f"{time.perf_counter() - t0:.1f} s with set-up")
+
+
 def with_mode(cfg: Config, mode: str) -> Config:
     return cfg.replace(model=cfg.model.replace(
         roi=cfg.model.roi.replace(pooling_mode=mode)))
@@ -1163,7 +1294,8 @@ def phase_stages(cfg: Config, model, frames: np.ndarray, path: str) -> None:
             stage("decode+nms", lambda: decode_detections_batched(
                 mcfg, det, im_hw[0], im_hw[1], ecfg.score_thresh,
                 ecfg.nms_thresh, ecfg.max_per_class,
-                track_deltas=pooled[..., dc + db:]))
+                track_deltas=pooled[..., dc + db:],
+                select_block=ecfg.nms_select_block))
     log_stages(what, times)
     if path == "video":
         phase_pool_split(mcfg, fused, props.rois, pooled)
@@ -1757,16 +1889,21 @@ def timed_train(cfg: Config, state, step, stream, gen, label: str,
     return state, ms
 
 
-def vid_tree_writer():
-    """``write_vid_tree`` of this checkout's ``tests/vid_tree.py``, loaded
-    by its path: the card's machine has another ``tests`` package on its
-    path, which ``import tests.vid_tree`` would find first."""
+def load_test_helper(name: str):
+    """This checkout's ``tests/<name>.py``, loaded by its path: the card's
+    machine has another ``tests`` package on its path, which ``import
+    tests.<name>`` would find first."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "vid_tree.py")
-    spec = importlib.util.spec_from_file_location("vid_tree", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.write_vid_tree
+    return module
+
+
+def vid_tree_writer():
+    """``write_vid_tree`` of this checkout's ``tests/vid_tree.py``."""
+    return load_test_helper("vid_tree").write_vid_tree
 
 
 def phase_data(cfg: Config, tree: dict, card: str) -> None:
@@ -2658,12 +2795,16 @@ def main() -> int:
                *phase_correlation_forms(cfg, 1, seed=10),
                phase_correlation(cfg, "parallel_video", FRAMES_PER_CHUNK,
                                  seed=13),
-               phase_psroi(cfg, "parallel_video", seed=14)]
+               phase_psroi(cfg, "parallel_video", seed=14),
+               *(phase_nms(cfg, path, seed=20 + 2 * i) for i, path in
+                 enumerate(("video", "train", "pair", "frame",
+                            "parallel_video")))]
     # the parallel train and pair paths give each kernel the shapes of the
     # serial ones (one rank: the same batch), so their entries are the
     # serial ones' times, marked with the path they were measured at
     kernels += [dict(k, path="parallel_" + k["path"], measured_as=k["path"])
                 for k in kernels if k["path"] in ("train", "pair")]
+    phase_nms_crafted()
     phase_correlation_forms(cfg, FRAMES_PER_CHUNK - 1, seed=1)
     phase_wide_windows(seed=12)
     phase_reference()
@@ -2679,6 +2820,7 @@ def main() -> int:
                 **phase_eval(cfg, tree, card),
                 "frame": phase_frame_path(cfg, tree, card),
                 **phase_parallel(cfg, tree, card)}
+    phase_bench(card)
     phase_data(cfg, tree, card)
     del tree
     phase_weights(card)

@@ -4,10 +4,11 @@ A JAX-free copy of ``dtt.core.config``: the same frozen dataclasses, fields,
 defaults and YAML keys, so one YAML file configures both packages. ``yaml``
 is imported only inside ``load_config``/``save_config``.
 
-Fields that steer the JAX program only are accepted and ignored here:
-``EvalConfig.split_video_step`` works around an XLA scheduling artifact
-that eager PyTorch does not have, and ``nms_select_block`` shapes JAX
-programs. ``ModelConfig.remat`` recomputes each bottleneck in the backward
+``EvalConfig.split_video_step`` steers the JAX program only and is
+accepted and ignored here: it works around an XLA scheduling artifact that
+eager PyTorch does not have. Both ``nms_select_block`` fields set the
+candidates a step of the multi-select NMS (``nms_padded_fast``), as in
+``dtt``. ``ModelConfig.remat`` recomputes each bottleneck in the backward
 (``torch.utils.checkpoint``); ``ModelConfig.scan_blocks`` is a parameter
 layout only (the stacked stages of ``dtt``'s trees and checkpoints), the
 model runs its blocks one by one either way.

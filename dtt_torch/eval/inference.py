@@ -167,7 +167,8 @@ def _detect_and_track_fused(cfg: Config, model: DnT, anchors, f_t, f_tau,
                                         im_hw[0], im_hw[1], scale)
     return PairOutputs(*decode_detections_batched(
         mcfg, det, im_hw[0], im_hw[1], ecfg.score_thresh, ecfg.nms_thresh,
-        ecfg.max_per_class, track_deltas=deltas))
+        ecfg.max_per_class, track_deltas=deltas,
+        select_block=ecfg.nms_select_block))
 
 
 def _detect_and_track(cfg: Config, model: DnT, anchors, f_t, f_tau, im_hw,
@@ -183,7 +184,8 @@ def _detect_and_track(cfg: Config, model: DnT, anchors, f_t, f_tau, im_hw,
     deltas = track_rois_batched(mcfg, track_maps, det.rois)
     return PairOutputs(*decode_detections_batched(
         mcfg, det, im_hw[0], im_hw[1], ecfg.score_thresh, ecfg.nms_thresh,
-        ecfg.max_per_class, track_deltas=deltas))
+        ecfg.max_per_class, track_deltas=deltas,
+        select_block=ecfg.nms_select_block))
 
 
 def _trunk_and_post(cfg: Config, model: DnT):

@@ -348,8 +348,10 @@ def detect_track_fused(cfg: ModelConfig, feats: FrameFeats,
 def decode_detections_batched(cfg: ModelConfig, det: Detections,
                               im_height, im_width, score_thresh, nms_thresh,
                               max_per_class: int,
-                              track_deltas: Optional[torch.Tensor] = None):
-    """Per-class box decode + NMS over the frame batch.
+                              track_deltas: Optional[torch.Tensor] = None,
+                              select_block: int = 16):
+    """Per-class box decode + NMS over the frame batch (the multi-select
+    NMS, `select_block` candidates a step).
 
     Returns boxes (B, C-1, M, 4), scores (B, C-1, M), valid (B, C-1, M)
     [and, with `track_deltas`, each kept detection's tracked box in frame
@@ -367,7 +369,7 @@ def decode_detections_batched(cfg: ModelConfig, det: Detections,
     det_boxes, det_scores, det_valid, det_idx = multiclass_nms(
         boxes, det.cls_prob[..., 1:], nms_thresh, max_per_class,
         score_threshold=score_thresh, valid=det.roi_valid,
-        per_class_boxes=not agnostic)
+        per_class_boxes=not agnostic, select_block=select_block)
     if track_deltas is None:
         return det_boxes, det_scores, det_valid
     tracked = box_ops.decode_boxes(det.rois, track_deltas,
@@ -459,14 +461,15 @@ def track_rois(cfg: ModelConfig, track_maps: torch.Tensor, rois: torch.Tensor,
 def decode_frame_detections(cfg: ModelConfig, det: Detections, im_height,
                             im_width, score_thresh=None, nms_thresh=None,
                             max_per_class: int = 20,
-                            track_deltas: Optional[torch.Tensor] = None):
+                            track_deltas: Optional[torch.Tensor] = None,
+                            select_block: int = 16):
     """One frame's per-class decode + NMS: `decode_detections_batched` at
     B=1. Returns boxes (C-1, M, 4), scores (C-1, M), valid (C-1, M) [and,
     with `track_deltas` (N, 4), each kept detection's tracked box]."""
     out = decode_detections_batched(
         cfg, Detections(*(x[None] for x in det)), im_height, im_width,
         score_thresh, nms_thresh, max_per_class,
-        None if track_deltas is None else track_deltas[None])
+        None if track_deltas is None else track_deltas[None], select_block)
     return tuple(x[0] for x in out)
 
 

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from dtt_torch.core import boxes as box_ops
 from dtt_torch.core.config import RPNConfig
 from dtt_torch.models.resnet import Conv2d
-from dtt_torch.ops.nms import nms_padded, take_along
+from dtt_torch.ops.nms import nms_padded_fast, take_along
 
 
 class RPNHead(nn.Module):
@@ -67,7 +67,8 @@ def proposal_layer(rpn_cls: torch.Tensor,     # (B, H, W, 2A)
     tensors or per-frame (B,) tensors. In train mode the inputs are
     detached: proposals carry no gradient, as in the reference. The top-K
     is a stable descending sort, so tied scores keep the lower index
-    first, as ``lax.top_k`` does."""
+    first, as ``lax.top_k`` does. The NMS is the multi-select form in both
+    modes (`cfg.nms_select_block` candidates a step), as in ``dtt``."""
     if train:
         rpn_cls, rpn_bbox = rpn_cls.detach(), rpn_bbox.detach()
     b = rpn_cls.shape[0]
@@ -92,9 +93,10 @@ def proposal_layer(rpn_cls: torch.Tensor,     # (B, H, W, 2A)
                                      stable=True)
     top_scores, top_idx = top_scores[:, :k_pre], top_idx[:, :k_pre]
     top_boxes = take_along(proposals, top_idx)
-    keep_idx, keep_valid = nms_padded(
+    keep_idx, keep_valid = nms_padded_fast(
         top_boxes, top_scores, cfg.nms_thresh, k_post,
-        valid=top_scores >= 0.0, score_threshold=-0.5)
+        valid=top_scores >= 0.0, score_threshold=-0.5,
+        select_block=cfg.nms_select_block)
     rois = take_along(top_boxes, keep_idx) * keep_valid[..., None]
     out_scores = torch.where(keep_valid, torch.gather(top_scores, -1, keep_idx),
                              torch.zeros_like(top_scores[:, :1]))

@@ -7,7 +7,8 @@ in its module ``dtt_torch.ops.correlation``, whose name it would shadow
 here.
 """
 
-from dtt_torch.ops.nms import multiclass_nms, nms_gather, nms_padded
+from dtt_torch.ops.nms import (multiclass_nms, nms_gather, nms_padded,
+                               nms_padded_fast)
 from dtt_torch.ops.psroi import psroi_pool, psroi_pool_pallas, psroi_pool_xla
 from dtt_torch.ops.correlation import (correlation_pallas, correlation_xla,
                                        num_corr_channels)
@@ -15,7 +16,7 @@ from dtt_torch.ops.roi_ops import (bilinear_sample, roi_align, roi_crop,
                                    roi_pool)
 
 __all__ = [
-    "multiclass_nms", "nms_gather", "nms_padded",
+    "multiclass_nms", "nms_gather", "nms_padded", "nms_padded_fast",
     "psroi_pool", "psroi_pool_pallas", "psroi_pool_xla",
     "correlation_pallas", "correlation_xla", "num_corr_channels",
     "bilinear_sample", "roi_align", "roi_crop", "roi_pool",

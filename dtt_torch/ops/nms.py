@@ -1,22 +1,45 @@
 """Static-shape greedy NMS on torch tensors (counterpart of
 ``dtt.ops.nms``), batched over any leading dims (frames, classes).
 
-A fixed trip count of `max_outputs` steps, each selecting the current best
-score and masking every box whose IoU with it is strictly greater than the
-threshold: the decisions of ``nms_padded``, and of ``nms_padded_fast``'s
-multi-select form. Ties go to the lower index, as ``argmax`` and
-``lax.top_k`` take them (``torch.max`` returns the first maximal index).
-No step reads a value back to the host, so the loop queues its work on the
-device without waiting.
+A box is suppressed iff its IoU with a kept, higher-ranked box is strictly
+greater than the threshold; a selection is live iff its score is strictly
+greater than `score_threshold`; ties go to the lower index, as ``argmax``
+and ``lax.top_k`` take them; empty slots hold index 0 and are not valid.
+
+* `nms_padded_plain` — ``dtt``'s ``nms_padded``: a fixed trip count of
+  `max_outputs` steps, each selecting the current best score (``torch.max``
+  returns the first maximal index) and masking every box it overlaps. No
+  step reads a value back to the host.
+* `nms_padded_fast_plain` — ``dtt``'s ``nms_padded_fast``: each step takes
+  the top `select_block` live scores (a stable descending sort), resolves
+  them among themselves greedily over their IoU panel, commits the
+  survivors and masks what they overlap, until the budget is full or no
+  live score is left. The same decisions in fewer steps; its loop test is
+  a host read a step, which costs nothing on the CPU.
+* `nms_cuda` — the hand-written kernel ``dtt_nms_select``
+  (``csrc/nms.cu``): the multi-select loop of every problem of a batch in
+  one launch, a thread block per problem, no host read. It replaces the
+  device loop ``dtt`` leaves to XLA (``nms_padded_fast``'s
+  ``lax.while_loop``; there is no Pallas kernel).
+* `nms_padded` / `nms_padded_fast` — the dispatchers: each runs its plain
+  form on CPU tensors and launches the kernel on CUDA tensors (their
+  decisions are the same), or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
 
 from dtt_torch.core import boxes as box_ops
+from dtt_torch.ops import _build
 
 _NEG = -1e10
+# the kernel's candidates a step at most: one warp resolves them
+KERNEL_BLOCK = 32
 
 
 def take_along(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -27,26 +50,18 @@ def take_along(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, nb, ix)
 
 
-def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
-               max_outputs: int, valid: torch.Tensor | None = None,
-               score_threshold=_NEG / 2):
-    """Greedy NMS over K padded boxes per batch entry.
-
-    Args:
-      boxes: (..., K, 4) in (x1, y1, x2, y2).
-      scores: (..., K).
-      iou_threshold: suppress iff IoU > threshold.
-      max_outputs: number of kept slots (padded).
-      valid: optional (..., K) bool mask of real inputs.
-      score_threshold: selections with score <= this are marked invalid.
-
-    Returns:
-      keep_idx: (..., max_outputs) int64 indices into K (0 where invalid).
-      keep_valid: (..., max_outputs) bool.
-    """
+def _masked_scores(scores: torch.Tensor, valid) -> torch.Tensor:
     s = scores.float()
-    if valid is not None:
-        s = s.masked_fill(~valid, _NEG)
+    return s if valid is None else s.masked_fill(~valid, _NEG)
+
+
+def nms_padded_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                     iou_threshold, max_outputs: int,
+                     valid: torch.Tensor | None = None,
+                     score_threshold=_NEG / 2):
+    """Greedy NMS over K padded boxes per batch entry, one selection a
+    step (the plain form of `nms_padded`)."""
+    s = _masked_scores(scores, valid)
     batch = s.shape[:-1]
     area = box_ops.box_area(boxes)
     keep_idx = torch.zeros((*batch, max_outputs), dtype=torch.int64,
@@ -74,6 +89,183 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
     return keep_idx, keep_valid
 
 
+def nms_padded_fast_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                          iou_threshold, max_outputs: int,
+                          valid: torch.Tensor | None = None,
+                          score_threshold=_NEG / 2, select_block: int = 16):
+    """Greedy NMS with multi-selection (the plain form of
+    `nms_padded_fast`): ``dtt``'s block loop, batched, each batch entry
+    stepping until its own budget is full or its scores are spent."""
+    s = _masked_scores(scores, valid)
+    batch, k = s.shape[:-1], s.shape[-1]
+    s = s.reshape(-1, k)
+    bx = boxes.reshape(-1, k, 4)
+    p = s.shape[0]
+    m = min(select_block, max_outputs, k)
+    # one column past the budget takes the slots that do not fit
+    idx = torch.zeros((p, max_outputs + 1), dtype=torch.int64,
+                      device=s.device)
+    val = torch.zeros((p, max_outputs + 1), dtype=torch.bool,
+                      device=s.device)
+    count = torch.zeros((p,), dtype=torch.int64, device=s.device)
+    while True:
+        live = (count < max_outputs) & (s.max(dim=-1).values > score_threshold)
+        if not bool(live.any()):
+            break
+        top_s, top_i = torch.sort(s, dim=-1, descending=True, stable=True)
+        top_s, top_i = top_s[:, :m], top_i[:, :m]
+        kb = take_along(bx, top_i)                         # (P, m, 4)
+        over = box_ops.pairwise_iou(kb, kb) > iou_threshold
+        ok = (top_s > score_threshold) & live[:, None]
+        keep = torch.zeros_like(ok)
+        for j in range(m):
+            sup = (keep[:, :j] & over[:, :j, j]).any(-1)
+            keep[:, j] = ok[:, j] & ~sup
+        # budget: only the first (max_outputs - count) survivors fit
+        pos = count[:, None] + keep.cumsum(-1) - keep.long()
+        keep &= pos < max_outputs
+        slot = torch.where(keep, pos, max_outputs)
+        idx.scatter_(-1, slot, top_i)
+        val.scatter_(-1, slot, keep)
+        # suppress everything the committed boxes overlap (themselves too)
+        sup_all = (keep[:, :, None]
+                   & (box_ops.pairwise_iou(kb, bx) > iou_threshold)).any(1)
+        s = s.masked_fill(sup_all, _NEG)
+        # retire committed boxes even at iou_threshold >= 1
+        s = s.scatter(-1, top_i, torch.where(keep, _NEG,
+                                             torch.gather(s, -1, top_i)))
+        count += keep.sum(-1)
+    return (idx[:, :max_outputs].reshape(*batch, max_outputs),
+            val[:, :max_outputs].reshape(*batch, max_outputs))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    lib = _build.load("nms")
+    fn = lib.dtt_nms_select
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.dtt_nms_max_boxes.restype = ctypes.c_int
+    return fn, lib.dtt_nms_max_boxes()
+
+
+def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+             max_outputs: int, valid: torch.Tensor | None = None,
+             score_threshold: float = _NEG / 2, select_block: int = 16,
+             return_steps: bool = False):
+    """Greedy NMS by the CUDA kernel ``dtt_nms_select``, one launch for
+    every problem of the batch.
+
+    boxes (..., K, 4) float32, scores (..., K) (compared as float32), valid
+    (..., K) bool or None, on one CUDA device; the thresholds are numbers
+    (compared as float32). Returns keep_idx (..., max_outputs) int64 and
+    keep_valid (..., max_outputs) bool, and with `return_steps` the
+    dependent steps each problem ran, (...,) int32. Launches on the current
+    stream and never reads back to the host; counts its launches in
+    ``nms_cuda.launches``.
+    """
+    if not boxes.is_cuda or scores.device != boxes.device or (
+            valid is not None and valid.device != boxes.device):
+        raise ValueError("nms_cuda: boxes, scores and valid must be on one "
+                         "CUDA device")
+    if boxes.dtype != torch.float32 or boxes.dim() < 2 or boxes.shape[-1] != 4:
+        raise TypeError("nms_cuda: boxes must be (..., K, 4) float32, got "
+                        f"{tuple(boxes.shape)} {boxes.dtype}")
+    if scores.shape != boxes.shape[:-1] or not scores.is_floating_point():
+        raise ValueError(f"nms_cuda: scores must be floating (..., K) = "
+                         f"{tuple(boxes.shape[:-1])}, got "
+                         f"{tuple(scores.shape)} {scores.dtype}")
+    if valid is not None and (valid.shape != scores.shape
+                              or valid.dtype != torch.bool):
+        raise ValueError("nms_cuda: valid must be bool of the scores' shape, "
+                         f"got {tuple(valid.shape)} {valid.dtype}")
+    if any(isinstance(t, torch.Tensor)
+           for t in (iou_threshold, score_threshold)):
+        raise TypeError("nms_cuda: the thresholds must be numbers (a tensor "
+                        "would be read back to the host)")
+    if max_outputs < 1 or select_block < 1:
+        raise ValueError(f"nms_cuda: max_outputs {max_outputs} and "
+                         f"select_block {select_block} must be >= 1")
+    batch, k = scores.shape[:-1], scores.shape[-1]
+    fn, max_k = _entry()
+    if k > max_k:
+        raise ValueError(f"nms_cuda: {k} boxes a problem; the kernel takes at "
+                         f"most {max_k} (its scores fill shared memory)")
+    p = math.prod(batch)
+    dev = boxes.device
+    keep_idx = torch.empty((*batch, max_outputs), dtype=torch.int64,
+                           device=dev)
+    keep_valid = torch.empty((*batch, max_outputs), dtype=torch.bool,
+                             device=dev)
+    steps = torch.empty(batch, dtype=torch.int32, device=dev)
+    if p == 0 or k == 0:
+        keep_idx.zero_()
+        keep_valid.zero_()
+        steps.zero_()
+        return (keep_idx, keep_valid, steps) if return_steps else (
+            keep_idx, keep_valid)
+    if p >= 2 ** 31:
+        raise ValueError(f"nms_cuda: {p} problems exceed the grid")
+    bx = boxes.reshape(p, k, 4).contiguous()
+    sc = scores.reshape(p, k).float().contiguous()
+    va = None if valid is None else valid.reshape(p, k).contiguous()
+    err = fn(bx.data_ptr(), sc.data_ptr(),
+             None if va is None else va.data_ptr(), keep_idx.data_ptr(),
+             keep_valid.data_ptr(), steps.data_ptr(), p, k, max_outputs,
+             select_block, float(iou_threshold), float(score_threshold),
+             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"nms kernel launch failed: cudaError {err}")
+    nms_cuda.launches += 1
+    return (keep_idx, keep_valid, steps) if return_steps else (
+        keep_idx, keep_valid)
+
+
+nms_cuda.launches = 0
+
+
+def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
+               max_outputs: int, valid: torch.Tensor | None = None,
+               score_threshold=_NEG / 2):
+    """Greedy NMS over K padded boxes per batch entry.
+
+    Args:
+      boxes: (..., K, 4) in (x1, y1, x2, y2).
+      scores: (..., K).
+      iou_threshold: suppress iff IoU > threshold.
+      max_outputs: number of kept slots (padded).
+      valid: optional (..., K) bool mask of real inputs.
+      score_threshold: selections with score <= this are marked invalid.
+
+    Returns:
+      keep_idx: (..., max_outputs) int64 indices into K (0 where invalid).
+      keep_valid: (..., max_outputs) bool.
+
+    The plain form on CPU tensors; otherwise the kernel, at its widest step
+    (the decisions do not depend on the width).
+    """
+    if boxes.device.type == "cpu":
+        return nms_padded_plain(boxes, scores, iou_threshold, max_outputs,
+                                valid, score_threshold)
+    return nms_cuda(boxes, scores, iou_threshold, max_outputs, valid,
+                    score_threshold, KERNEL_BLOCK)
+
+
+def nms_padded_fast(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
+                    max_outputs: int, valid: torch.Tensor | None = None,
+                    score_threshold=_NEG / 2, select_block: int = 16):
+    """`nms_padded`'s decisions taking `select_block` candidates a step
+    (``dtt``'s ``nms_padded_fast``): the plain block loop on CPU tensors,
+    otherwise the kernel."""
+    if boxes.device.type == "cpu":
+        return nms_padded_fast_plain(boxes, scores, iou_threshold,
+                                     max_outputs, valid, score_threshold,
+                                     select_block)
+    return nms_cuda(boxes, scores, iou_threshold, max_outputs, valid,
+                    score_threshold, select_block)
+
+
 def nms_gather(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
                max_outputs: int, valid: torch.Tensor | None = None,
                score_threshold=_NEG / 2):
@@ -91,14 +283,16 @@ def nms_gather(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
                    max_per_class: int, score_threshold=0.0,
                    valid: torch.Tensor | None = None,
-                   per_class_boxes: bool = False):
-    """Per-class NMS for the eval path, batched over leading dims.
+                   per_class_boxes: bool = False, select_block: int = 16):
+    """Per-class NMS for the eval path, batched over leading dims, by
+    `nms_padded_fast`.
 
     Args:
       boxes: (..., K, 4) shared boxes, or (..., K, C, 4) per-class boxes if
         `per_class_boxes`.
       scores: (..., K, C) class scores (background already dropped).
       valid: optional (..., K) bool.
+      select_block: candidates a step of the multi-select loop.
 
     Returns:
       det_boxes (..., C, M, 4), det_scores (..., C, M),
@@ -110,8 +304,9 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
     else:
         boxes_t = boxes.unsqueeze(-3).expand(*scores_t.shape, 4)
     valid_t = None if valid is None else valid.unsqueeze(-2).expand_as(scores_t)
-    idx, keep = nms_padded(boxes_t, scores_t, iou_threshold, max_per_class,
-                           valid_t, score_threshold)
+    idx, keep = nms_padded_fast(boxes_t, scores_t, iou_threshold,
+                                max_per_class, valid_t, score_threshold,
+                                select_block)
     kept_boxes = take_along(boxes_t, idx) * keep[..., None].to(boxes.dtype)
     kept_scores = torch.where(keep, torch.gather(scores_t, -1, idx),
                               torch.zeros((), dtype=scores.dtype,

@@ -557,19 +557,20 @@ def test_kernel_library_name_hashes_headers(tmp_path, monkeypatch):
 def test_import_leaves_out_jax_and_dtt():
     """Importing dtt_torch, every submodule (the data-parallel
     ``dtt_torch.parallel`` and the timing helpers of ``dtt_torch.utils``
-    among them), chip_smoke, train_torch, eval_torch, demo_torch and the
-    tree writer chip_smoke runs (with their lazily imported modules) pulls
-    in no JAX, flax, dtt, eval.py, demo.py, cv2 or msgpack module."""
+    among them), chip_smoke, train_torch, eval_torch, demo_torch,
+    bench_torch and the tree writer chip_smoke runs (with their lazily
+    imported modules) pulls in no JAX, flax, dtt, eval.py, demo.py,
+    bench.py, cv2 or msgpack module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dtt_torch\n"
         "for m in pkgutil.walk_packages(dtt_torch.__path__, 'dtt_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, train_torch, eval_torch, demo_torch\n"
+        "import chip_smoke, train_torch, eval_torch, demo_torch, bench_torch\n"
         "chip_smoke.vid_tree_writer()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt',\n"
-        "                                    'eval', 'demo', 'cv2',\n"
+        "                                    'eval', 'demo', 'bench', 'cv2',\n"
         "                                    'msgpack'))\n"
         "assert not bad, bad\n"
         "assert {'dtt_torch.parallel.mesh', 'dtt_torch.utils.timing',\n"
