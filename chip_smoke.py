@@ -29,8 +29,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    kernel form, forward and backward, against the plain versions; the NMS
    kernel at every NMS of a video chunk, a train step, a pair batch, a
    frame and the parallel chunk (proposals, per-class or OHEM) and on the
-   crafted cases of tests/nms_cases.py at select_block 1, 16, 32 and 48,
-   bit for bit against both plain forms, with its dependent steps;
+   crafted cases of tests/nms_cases.py (+0.0 tied with -0.0 and walks
+   past 1,024 positions among them) at select_block 1, 16, 32 and 48, bit
+   for bit against both plain forms,
+   with its dependent steps, each call's layout and its ms a dependent
+   step; below a score threshold of -1e10 against the block loop at the
+   kernel's widths; unsorted proposals and the scratch layout (12,000 and
+   49,152 boxes a problem);
 4. small references: the tiny test config in float32 through the kernels
    on the card against the plain versions on the CPU, for the video path,
    for one train step (same weights, same injected draws; losses, every
@@ -1020,6 +1025,12 @@ def phase_nms(cfg: Config, path: str, seed: int) -> dict:
         calls.append((name, args, block, steps))
     ms = time_ms(lambda: [nms_ops.nms_cuda(*a, select_block=b)
                           for _, a, b, _ in calls], iters=20)
+    # each call alone, and its ms a dependent step
+    per_call = {}
+    for n, a, b, s in calls:
+        one = time_ms(lambda: nms_ops.nms_cuda(*a, select_block=b), iters=20)
+        per_call[n] = {"ms": one, "steps": int(s.max()),
+                       "ms_per_step": one / max(int(s.max()), 1)}
     plain_ms = time_ms(lambda: [nms_ops.nms_padded_plain(*a)
                                 for _, a, _, _ in calls], iters=3, warmup=1)
     fast_ms = time_ms(lambda: [nms_ops.nms_padded_fast_plain(
@@ -1031,7 +1042,10 @@ def phase_nms(cfg: Config, path: str, seed: int) -> dict:
     bound_ms, bound_by = bound(nbytes, 0)
     desc = "; ".join(
         f"{n} P={a[1].shape[0]} K={a[1].shape[1]} M={a[3]} block {b}: "
-        f"dependent steps max {int(s.max())}, mean {s.float().mean():.1f}"
+        f"dependent steps max {int(s.max())}, mean {s.float().mean():.1f}, "
+        f"layout {nms_ops.nms_layout(a[1].shape[1])}, "
+        f"{per_call[n]['ms']:.4f} ms alone, "
+        f"{per_call[n]['ms_per_step'] * 1e3:.2f} us a dependent step"
         for n, a, b, s in calls)
     log(f"nms [{path}]: {desc}; bit-equal to both plain forms; kernel "
         f"{ms:.4f} ms, plain nms_padded {plain_ms:.4f} ms, plain "
@@ -1046,21 +1060,70 @@ def phase_nms(cfg: Config, path: str, seed: int) -> dict:
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "plain_fast_ms": fast_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "steps": {n: int(s.max()) for n, _, _, s in calls}}
+            "steps": {n: int(s.max()) for n, _, _, s in calls},
+            "calls": per_call}
 
 
 def phase_nms_crafted() -> None:
     """The NMS kernel on the crafted cases (ties, IoU at the threshold,
     the budget filling inside a step, no valid box, thresholds >= 1, a NaN
-    score) at every width of NMS_BLOCKS, bit for bit against both plain
-    forms."""
-    cases = load_test_helper("nms_cases").crafted_cases()
+    score, a masked box selected below -1e10), +0.0 tied with -0.0 and
+    walks past 1,024 positions at every width of NMS_BLOCKS, bit for bit
+    against both plain forms; below -1e10 against the block loop at the
+    kernel's widths; unsorted proposals, 12,000 boxes and the most the
+    kernel takes (the scratch layout), sorted and not."""
+    helper = load_test_helper("nms_cases")
+    cases = [*helper.crafted_cases(), helper.signed_zero_problem()]
     for c in cases:
         for block in NMS_BLOCKS:
             nms_exact(nms_inputs(c), block, c["name"])
     log(f"nms crafted cases: {len(cases)} cases x select_block "
         f"{list(NMS_BLOCKS)} bit-equal to both plain forms "
         f"({', '.join(c['name'] for c in cases)})")
+    # walks past the first 1,024 positions (more than a block's threads)
+    walks = []
+    for c in helper.long_walk_problems():
+        args = nms_inputs(c)
+        steps = {b: int(nms_exact(args, b, c["name"]).max())
+                 for b in NMS_BLOCKS}
+        idx, val = nms_ops.nms_padded_plain(*args)
+        end = min(helper.walk_end(c, idx.cpu().numpy(), val.cpu().numpy()))
+        if end <= 1024:
+            raise AssertionError(f"nms {c['name']}: the walk ends at "
+                                 f"position {end}, not past 1,024")
+        walks.append(f"{c['name']} (walk through >= {end} positions, steps "
+                     f"max by select_block {steps})")
+    log(f"nms long walks bit-equal to both plain forms at select_block "
+        f"{list(NMS_BLOCKS)}: {'; '.join(walks)}")
+    # below -1e10 the width decides: the block loop at the kernel's width,
+    # and nms_padded on the card against the one-at-a-time loop
+    args = nms_inputs(helper.below_masked_problem())
+    for block in (1, 4, 16, 32):
+        got = nms_ops.nms_cuda(*args, select_block=block)
+        want = nms_ops.nms_padded_fast_plain(*args, select_block=block)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"nms kernel vs plain nms_padded_fast below "
+                                 f"-1e10 at select_block {block}")
+    if not all(torch.equal(x, y) for x, y in zip(
+            nms_ops.nms_padded(*args), nms_ops.nms_padded_plain(*args))):
+        raise AssertionError("nms_padded on the card vs plain below -1e10")
+    # unsorted proposals and the scratch layout, sorted and not
+    big = []
+    for name, p, k, seed in (("video_proposals", 16, 6000, 30),
+                             ("train_proposals", 2, 12000, 31),
+                             ("train_proposals", 1, nms_ops._entry()[1], 32)):
+        c = helper.path_problem(name, p, k, 300, 0.7, -0.5, seed=seed)
+        for form, prob in (("sorted", c),
+                           ("unsorted", helper.permuted(c, seed)[0])):
+            if form == "sorted" and k == 6000:
+                continue                            # phase_nms's shape
+            what = f"{form} P={p} K={k}"
+            steps = nms_exact(nms_inputs(prob), 32, what)
+            big.append(f"{what} ({nms_ops.nms_layout(k).body}, steps max "
+                       f"{int(steps.max())})")
+    log(f"nms below -1e10 bit-equal to the block loop at widths 1/4/16/32 "
+        f"and nms_padded to the one-at-a-time loop; bit-equal to both "
+        f"plain forms at select_block 32: {'; '.join(big)}")
 
 
 def phase_bench(card: str) -> None:

@@ -18,8 +18,10 @@ and ``lax.top_k`` take them; empty slots hold index 0 and are not valid.
   a host read a step, which costs nothing on the CPU.
 * `nms_cuda` — the hand-written kernel ``dtt_nms_select``
   (``csrc/nms.cu``): the multi-select loop of every problem of a batch in
-  one launch, a thread block per problem, no host read. It replaces the
-  device loop ``dtt`` leaves to XLA (``nms_padded_fast``'s
+  one launch, a thread block per problem, no host read. Each problem
+  orders its live boxes once, then walks that order a step of candidates
+  at a time; `nms_layout` says where the ordered boxes sit. It replaces
+  the device loop ``dtt`` leaves to XLA (``nms_padded_fast``'s
   ``lax.while_loop``; there is no Pallas kernel).
 * `nms_padded` / `nms_padded_fast` — the dispatchers: each runs its plain
   form on CPU tensors and launches the kernel on CUDA tensors (their
@@ -31,7 +33,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from dtt_torch.core import boxes as box_ops
@@ -40,6 +44,31 @@ from dtt_torch.ops import _build
 _NEG = -1e10
 # the kernel's candidates a step at most: one warp resolves them
 KERNEL_BLOCK = 32
+# a block's shared memory on the card (227 KB), and what the kernel's
+# static part may take of it (``kStaticSmem`` in ``csrc/nms.cu``)
+SMEM_LIMIT = 232_448
+_STATIC_SMEM = 1_024
+
+
+class NmsLayout(NamedTuple):
+    body: str        # "shared" or "scratch": where the ordered boxes sit
+    smem: int        # dynamic shared memory a block, bytes
+    scratch: int     # scratch a problem, bytes (0 for "shared")
+
+
+def nms_layout(k: int) -> NmsLayout:
+    """Where ``dtt_nms_select`` keeps a problem of `k` boxes. It stages
+    the boxes in score order with their areas and indices, 24 bytes a box
+    (K rounded up to 32); three bit words a 32 boxes (alive positions, the
+    -1e10 tier, the compaction's prefix) stay in shared memory. The staged
+    boxes join them in shared memory while both fit a block's 227 KB
+    beside the kernel's static 1 KB (K <= 9,472); past that they sit in a
+    scratch buffer of the wrapper's, one slice a problem."""
+    kp = 32 * -(-k // 32)
+    staged, bits = 24 * kp, 12 * (kp // 32)
+    if staged + bits + _STATIC_SMEM <= SMEM_LIMIT:
+        return NmsLayout("shared", staged + bits, 0)
+    return NmsLayout("scratch", bits, staged)
 
 
 def take_along(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -144,7 +173,9 @@ def _entry():
     lib = _build.load("nms")
     fn = lib.dtt_nms_select
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.dtt_nms_max_boxes.restype = ctypes.c_int
     return fn, lib.dtt_nms_max_boxes()
@@ -163,7 +194,11 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     keep_valid (..., max_outputs) bool, and with `return_steps` the
     dependent steps each problem ran, (...,) int32. Launches on the current
     stream and never reads back to the host; counts its launches in
-    ``nms_cuda.launches``.
+    ``nms_cuda.launches``. Past K = 9,472 boxes (`nms_layout`) it allocates
+    a scratch buffer of 24 bytes a box a problem. Below a score_threshold
+    of -1e10, where masked boxes are selected again, a step's width
+    changes the decisions, and the kernel decides as ``dtt`` at
+    min(select_block, 32).
     """
     if not boxes.is_cuda or scores.device != boxes.device or (
             valid is not None and valid.device != boxes.device):
@@ -191,7 +226,7 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     fn, max_k = _entry()
     if k > max_k:
         raise ValueError(f"nms_cuda: {k} boxes a problem; the kernel takes at "
-                         f"most {max_k} (its scores fill shared memory)")
+                         f"most {max_k}")
     p = math.prod(batch)
     dev = boxes.device
     keep_idx = torch.empty((*batch, max_outputs), dtype=torch.int64,
@@ -210,11 +245,16 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     bx = boxes.reshape(p, k, 4).contiguous()
     sc = scores.reshape(p, k).float().contiguous()
     va = None if valid is None else valid.reshape(p, k).contiguous()
+    layout = nms_layout(k)
+    scratch = (torch.empty(p * layout.scratch, dtype=torch.uint8, device=dev)
+               if layout.scratch else None)
     err = fn(bx.data_ptr(), sc.data_ptr(),
              None if va is None else va.data_ptr(), keep_idx.data_ptr(),
              keep_valid.data_ptr(), steps.data_ptr(), p, k, max_outputs,
              select_block, float(iou_threshold), float(score_threshold),
-             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+             layout.smem, layout.scratch,
+             None if scratch is None else scratch.data_ptr(), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"nms kernel launch failed: cudaError {err}")
     nms_cuda.launches += 1
@@ -243,13 +283,17 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
       keep_valid: (..., max_outputs) bool.
 
     The plain form on CPU tensors; otherwise the kernel, at its widest step
-    (the decisions do not depend on the width).
+    (the decisions do not depend on the width), or one box a step below a
+    score_threshold of -1e10, where they do.
     """
     if boxes.device.type == "cpu":
         return nms_padded_plain(boxes, scores, iou_threshold, max_outputs,
                                 valid, score_threshold)
+    score_threshold = float(score_threshold)      # the kernel's float32
+    width = (1 if np.float32(score_threshold) < np.float32(_NEG)
+             else KERNEL_BLOCK)
     return nms_cuda(boxes, scores, iou_threshold, max_outputs, valid,
-                    score_threshold, KERNEL_BLOCK)
+                    score_threshold, width)
 
 
 def nms_padded_fast(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,

@@ -67,6 +67,89 @@ def path_problem(name, p, k, m, iou, score, seed):
                 valid=valid, iou=iou, score=score, m=m)
 
 
+def permuted(problem, seed):
+    """`problem` with each row's boxes in another order (scores and
+    validity travel with their boxes), and the permutations (P, K): row
+    position i holds the original box perm[i]."""
+    rng = np.random.RandomState(seed)
+    p, k = problem["scores"].shape
+    perm = np.stack([rng.permutation(k) for _ in range(p)])
+    moved = {key: np.take_along_axis(
+        problem[key], perm.reshape(perm.shape + (1,) * (problem[key].ndim - 2)),
+        1) for key in ("boxes", "scores", "valid")}
+    return dict(problem, **moved), perm
+
+
+def anchor_problem(p, k, seed):
+    """Proposals as a proposal layer at random weights hands them over:
+    Config()'s anchor lattice over a 608 x 1088 canvas (16-pixel stride,
+    12 anchors a cell: base 16, scales 4/8/16/32, ratios 1/2, 1, 2), each
+    box ~e^2.25 times its anchor's sides and clipped, so most are
+    near-duplicates of the canvas; nearly equal scores, the top `k` sorted.
+    At IoU 0.7 a hundred or so kept boxes suppress every other one, and
+    the walk goes through every position with slots to spare."""
+    rng = np.random.RandomState(seed)
+    h, w, stride = 608.0, 1088.0, 16
+    sides = []
+    for r in (0.5, 1.0, 2.0):
+        bw = np.round(np.sqrt(256.0 / r))
+        sides += [(bw * s, np.round(bw * r) * s) for s in (4, 8, 16, 32)]
+    sides = np.float64(sides)
+    gy, gx = np.mgrid[0:int(h) // stride, 0:int(w) // stride]
+    cx = np.repeat(gx.reshape(-1) * stride + 7.5, len(sides))
+    cy = np.repeat(gy.reshape(-1) * stride + 7.5, len(sides))
+    aw, ah = (np.tile(sides[:, i], gx.size) for i in (0, 1))
+    boxes, scores = [], []
+    for _ in range(p):
+        d = rng.normal(0, 0.1, (cx.size, 4))
+        x, y = cx + d[:, 0] * aw, cy + d[:, 1] * ah
+        bw, bh = aw * np.exp(d[:, 2] + 2.25), ah * np.exp(d[:, 3] + 2.25)
+        b = np.stack([np.clip(x - 0.5 * (bw - 1), 0, w - 1),
+                      np.clip(y - 0.5 * (bh - 1), 0, h - 1),
+                      np.clip(x + 0.5 * (bw - 1), 0, w - 1),
+                      np.clip(y + 0.5 * (bh - 1), 0, h - 1)], -1)
+        s = 0.5 + 0.01 * rng.randn(cx.size)
+        top = np.argsort(-s, kind="stable")[:k]
+        boxes.append(b[top])
+        scores.append(s[top])
+    return dict(name=f"anchors_{p}x{k}", boxes=np.float32(boxes),
+                scores=np.float32(scores), valid=np.ones((p, k), bool),
+                iou=0.7, score=-0.5, m=300)
+
+
+def long_walk_problems(seed: int = 0):
+    """Problems whose walk goes past the first 1,024 positions, more
+    than a block of the kernel has threads: proposals at IoU 0.1 (most
+    suppressed; a frame's and a video chunk's), and the anchor problem at
+    a video chunk's 16."""
+    out = []
+    for i, p in enumerate((1, 16)):
+        c = path_problem("video_proposals", p, 6000, 300, 0.1, -0.5,
+                         seed=seed + 50 + i)
+        out.append(dict(c, name=f"proposals_iou_0.1_{p}x6000"))
+    out.append(anchor_problem(16, 6000, seed + 52))
+    return out
+
+
+def walk_end(problem, keep_idx, keep_valid):
+    """How far the greedy walk went in each problem, in positions of the
+    (score desc, index asc) order of its live boxes: past the last kept
+    box where every slot is filled, else through every live box. Takes
+    numpy outputs of either plain form."""
+    ends = []
+    for i in range(problem["scores"].shape[0]):
+        s = np.where(problem["valid"][i], problem["scores"][i],
+                     np.float32(_NEG))
+        live = np.nonzero(s > problem["score"])[0]
+        order = live[np.lexsort((live, -s[live]))]
+        pos = np.empty(len(s), int)
+        pos[order] = np.arange(len(order))
+        kept = keep_idx[i][keep_valid[i]]
+        ends.append(int(pos[kept[-1]]) + 1 if len(kept) == problem["m"]
+                    else len(order))
+    return ends
+
+
 def path_problems(seed: int = 0):
     return [path_problem(*shape, seed=seed + i)
             for i, shape in enumerate(PATH_SHAPES)]
@@ -89,7 +172,8 @@ def crafted_cases(seed: int = 0):
     """The edge cases, each one problem of CRAFTED_K boxes: ties, IoU
     exactly at the threshold, the budget filling inside a step, no valid
     box, thresholds >= 1 (duplicate boxes kept), scores at the score
-    threshold, a NaN score, and the proposal layer's -1 filter."""
+    threshold, a NaN score, the proposal layer's -1 filter, and a score
+    threshold below -1e10 (a masked box selected)."""
     rng = np.random.RandomState(seed)
     k = CRAFTED_K
     ties = np.float32([0.9, 0.7, 0.5, 0.5, 0.3, 1e-4])
@@ -122,4 +206,47 @@ def crafted_cases(seed: int = 0):
     filt = rng.uniform(0, 1, k)
     filt[rng.rand(k) < 0.3] = -1.0
     add("proposal_filter", spread, filt, filt >= 0, iou=0.7, score=-0.5)
+    # below -1e10 a masked box is live again: pairs of equal boxes, the
+    # first box masked; one slot more than the valid pairs' survivors takes
+    # the lowest masked index, 0, in the one-at-a-time and every block form
+    pairs = np.repeat(disjoint[: k // 2], 2, axis=0)
+    masked = rng.rand(k) > 0.85
+    masked[0] = True
+    survivors = int((~masked).reshape(-1, 2).any(1).sum())
+    add("below_masked_score", pairs, rng.uniform(0, 1, k), ~masked,
+        score=2 * _NEG, m=survivors + 1)
     return cases
+
+
+def signed_zero_problem(seed: int = 0):
+    """One problem of CRAFTED_K overlapping boxes whose scores tie at +0.0
+    and -0.0 (live at a score threshold of -0.5). The port ties them by
+    index in both forms, as dtt's argmax (``nms_padded``) does; dtt's
+    ``lax.top_k`` (``nms_padded_fast``) ranks +0.0 first."""
+    rng = np.random.RandomState(seed)
+    k = CRAFTED_K
+    boxes = _boxes(rng, (k,), extent=(200.0, 200.0), size=(10.0, 70.0))
+    scores = rng.choice(np.float32([0.5, 0.0, -0.0, 0.0, -0.0, 0.2]), k)
+    return dict(name="signed_zero_ties", boxes=boxes[None],
+                scores=scores[None], valid=np.ones((1, k), bool), iou=0.3,
+                score=-0.5, m=k)
+
+
+def below_masked_problem(seed: int = 0):
+    """One problem of CRAFTED_K overlapping boxes at a score threshold of
+    -2e10, where every box at -1e10 (masked, retired or suppressed) is live
+    again, ranked by index, above scores between -2e10 and -1e10 and with
+    scores under -2e10 and -inf brought back once suppressed; M = K slots,
+    so the -1e10 boxes come round again. Its decisions depend on the step
+    width (dtt's ``nms_padded_fast`` at that width)."""
+    rng = np.random.RandomState(seed)
+    k = CRAFTED_K
+    scores = rng.uniform(0, 1, k)
+    scores[rng.rand(k) < 0.2] = 1.5 * _NEG
+    scores[rng.rand(k) < 0.1] = 3 * _NEG
+    scores[rng.rand(k) < 0.05] = -np.inf
+    boxes = _boxes(rng, (k,), extent=(200.0, 200.0), size=(10.0, 70.0))
+    return dict(name="below_masked_rich", boxes=boxes[None],
+                scores=scores.astype(np.float32)[None],
+                valid=(rng.rand(k) > 0.2)[None], iou=0.5, score=2 * _NEG,
+                m=k)

@@ -3,15 +3,17 @@
 ``dtt.ops.nms.nms_padded_fast`` at select_block 1, 16 and 32 on the
 crafted cases of ``tests/nms_cases.py`` (ties, IoU exactly at the
 threshold, the budget filling inside a step, no valid box, thresholds >= 1,
-a NaN score) and a batch whose problems stop at different steps; then
+a NaN score) and a batch whose problems stop at different steps; walks
+past 1,024 positions (6,000 boxes) against dtt's one-at-a-time loop; then
 ``multiclass_nms(select_block=...)``, ``proposal_layer`` at
 ``nms_select_block`` 1 and 32 and ``decode_detections_batched`` against
 dtt's.
 
 Decisions (indices, validity) are equal exactly; scores within 1e-6 and
 box coordinates within 1e-6 relative + 1e-4 pixels (decoded boxes may
-differ by an ulp of the decode's exp). Problems keep K <= 512: dtt
-unrolls each block step, one compile per (K, max_outputs, block).
+differ by an ulp of the decode's exp). Problems of dtt's block form keep
+K <= 512: dtt unrolls each block step, one compile per (K, max_outputs,
+block).
 """
 
 import dataclasses
@@ -26,7 +28,9 @@ import dtt.core.config as jcfg
 from dtt.models import dnt as jdnt
 from dtt.models.rpn import proposal_layer as j_proposal_layer
 from dtt.ops import nms as jnms
-from tests.nms_cases import crafted_cases, path_problem
+from tests.nms_cases import (below_masked_problem, crafted_cases,
+                              long_walk_problems, path_problem,
+                              signed_zero_problem, walk_end)
 
 import dtt_torch.core.config as tcfg
 from dtt_torch.models import dnt as tdnt
@@ -35,6 +39,7 @@ from dtt_torch.ops import nms as tnms
 
 BLOCKS = (1, 16, 32)
 CASES = {c["name"]: c for c in crafted_cases()}
+LONG = {c["name"]: c for c in long_walk_problems()}
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
@@ -97,6 +102,94 @@ def test_crafted_cases_reach_their_edges():
         assert len(idx) == c["m"], name
     for name in ("no_valid", "nan_score"):
         assert len(kept(name)[1]) == 0, name
+
+
+def test_below_masked_score_case_reaches_its_edge():
+    """Below a score threshold of -1e10 the last slot takes masked box 0,
+    after every valid pair's survivor."""
+    c = CASES["below_masked_score"]
+    i, v = tnms.nms_padded_fast(_t(c["boxes"]), _t(c["scores"]), c["iou"],
+                                c["m"], _t(c["valid"]), c["score"])
+    idx = i[0][v[0]].numpy()
+    assert len(idx) == c["m"] and idx[-1] == 0 and not c["valid"][0][0]
+    assert c["valid"][0][idx[:-1]].all()
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+def test_signed_zero_ties_match_dtt_argmax(block):
+    """+0.0 and -0.0 tie and go by index, as dtt's argmax form
+    (``nms_padded``) takes them: the plain block loop at each width and
+    the one-at-a-time loop give its decisions, with zeros of both signs
+    kept in index order. dtt's block form ranks +0.0 first (``lax.top_k``
+    orders floats totally), which the port does not follow."""
+    c = signed_zero_problem()
+    args = (_t(c["boxes"]), _t(c["scores"]), c["iou"], c["m"],
+            _t(c["valid"]), c["score"])
+    ji, jv = jnms.nms_padded(jnp.asarray(c["boxes"][0]),
+                             jnp.asarray(c["scores"][0]), c["iou"], c["m"],
+                             valid=jnp.asarray(c["valid"][0]),
+                             score_threshold=c["score"])
+    for ti, tv in (tnms.nms_padded_fast(*args, select_block=block),
+                   tnms.nms_padded(*args)):
+        np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ji))
+    idx = np.asarray(ji)[np.asarray(jv)]
+    zero = idx[c["scores"][0][idx] == 0]
+    signs = np.signbit(c["scores"][0][zero])
+    assert signs.any() and not signs.all() and (np.diff(zero) > 0).all()
+    fi, fv = _dtt_fast(c, block)
+    assert not np.array_equal(np.asarray(fi), np.asarray(ji))
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+def test_nms_below_masked_score_matches_dtt(block):
+    """Below a score threshold of -1e10 (masked, retired and suppressed
+    boxes live again, scores under -1e10 and -inf among them, every slot
+    filled) the plain block loop gives dtt's decisions at each width, and
+    at width 1 so does the one-at-a-time loop: the GPU tests hold the
+    kernel against them there."""
+    c = below_masked_problem()
+    ji, jv = _dtt_fast(c, block)
+    args = (_t(c["boxes"]), _t(c["scores"]), c["iou"], c["m"],
+            _t(c["valid"]), c["score"])
+    ti, tv = tnms.nms_padded_fast(*args, select_block=block)
+    np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ji))
+    if block == 1:
+        si, sv = tnms.nms_padded(*args)
+        np.testing.assert_array_equal(sv.numpy(), tv.numpy())
+        np.testing.assert_array_equal(si.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(LONG))
+def test_long_walk_problems_walk_past_a_block(name):
+    """Each problem's walk goes past the first 1,024 positions of its
+    order (the GPU tests hold the kernel on them there), and both plain
+    forms agree on it at every width."""
+    c = LONG[name]
+    args = (_t(c["boxes"]), _t(c["scores"]), c["iou"], c["m"],
+            _t(c["valid"]), c["score"])
+    si, sv = tnms.nms_padded(*args)
+    assert min(walk_end(c, si.numpy(), sv.numpy())) > 1024
+    for block in BLOCKS:
+        ti, tv = tnms.nms_padded_fast(*args, select_block=block)
+        np.testing.assert_array_equal(tv.numpy(), sv.numpy())
+        np.testing.assert_array_equal(ti.numpy(), si.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(LONG))
+def test_long_walk_problems_match_dtt(name):
+    """The first problem of each against dtt's one-at-a-time loop (6,000
+    boxes: too many for dtt's unrolled block form here)."""
+    c = LONG[name]
+    ji, jv = jnms.nms_padded(jnp.asarray(c["boxes"][0]),
+                             jnp.asarray(c["scores"][0]), c["iou"], c["m"],
+                             valid=jnp.asarray(c["valid"][0]),
+                             score_threshold=c["score"])
+    ti, tv = tnms.nms_padded(_t(c["boxes"][:1]), _t(c["scores"][:1]),
+                             c["iou"], c["m"], _t(c["valid"][:1]), c["score"])
+    np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ji))
 
 
 @pytest.mark.parametrize("block", [1, 32])

@@ -2,9 +2,12 @@
 CUDA card, bit for bit: the four problem shapes of the port's paths (a
 video chunk's and a train step's proposals, a chunk's per-class NMS,
 OHEM) and the crafted cases of ``tests/nms_cases.py``, at select_block 1,
-16, 32 and 48 (wider than a step of the kernel); one launch a call; a call
-that cannot launch raises. Marked ``gpu``: they skip without a card. This
-file imports no JAX:
+16, 32 and 48 (wider than a step of the kernel); walks past the first
+1,024 positions (proposals at IoU 0.1, near-duplicate anchors); unsorted
+proposals, the scratch layout (12,000 boxes and the most the kernel
+takes), +0.0 tied with -0.0 and a score threshold below -1e10; one launch
+a call; a call that cannot launch raises. Marked ``gpu``: they skip without a card. This file imports no
+JAX:
 
     python -m pytest --noconftest -q tests/test_torch_port_nms_gpu.py
 """
@@ -19,12 +22,15 @@ import torch
 from dtt_torch.ops import nms as tnms
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from nms_cases import PATH_SHAPES, crafted_cases, path_problem  # noqa: E402
+from nms_cases import (PATH_SHAPES, below_masked_problem,  # noqa: E402
+                       crafted_cases, long_walk_problems, path_problem,
+                       permuted, signed_zero_problem, walk_end)
 
 pytestmark = pytest.mark.gpu
 
 BLOCKS = (1, 16, 32, 48)
 CASES = {c["name"]: c for c in crafted_cases()}
+LONG = {c["name"]: c for c in long_walk_problems()}
 
 
 @pytest.fixture
@@ -132,3 +138,96 @@ def test_nms_cuda_call_that_cannot_launch_raises(cuda, monkeypatch):
     monkeypatch.undo()
     with pytest.raises(TypeError, match="float32"):
         tnms.nms_padded(args[0].to(torch.bfloat16), *args[1:])
+
+
+def test_nms_kernel_orders_unsorted_proposals(cuda):
+    """A video chunk's proposals (16 x 6000 -> 300) with their boxes in
+    random order, as no caller hands them: the kernel orders them itself,
+    bit for bit against both plain forms at every width, and keeps the
+    same boxes in the same number of steps as on the sorted input."""
+    c = path_problem(*PATH_SHAPES[0], seed=4)
+    # distinct live scores (in float32 the drawn ones tie now and then),
+    # so the order, and with it every decision, is the same in both inputs
+    c["scores"] = np.where(c["valid"], np.linspace(1, 0.01, 6000,
+                                                   dtype=np.float32), -1.0
+                           ).astype(np.float32)
+    u, perm = permuted(c, seed=5)
+    for block in BLOCKS:
+        got = _check(u, block, cuda)
+        *want, steps = tnms.nms_cuda(*_on(c, cuda), select_block=block,
+                                     return_steps=True)
+        *_, usteps = tnms.nms_cuda(*_on(u, cuda), select_block=block,
+                                   return_steps=True)
+        assert torch.equal(usteps, steps), block
+        idx = torch.gather(torch.from_numpy(perm).to(cuda), 1, got[0])
+        assert torch.equal(got[1], want[1]), block
+        assert torch.equal(torch.where(got[1], idx, 0), want[0]), block
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+def test_nms_kernel_ties_signed_zeros(cuda, block):
+    """+0.0 and -0.0 scores tie and go by index, as in both plain forms."""
+    _check(signed_zero_problem(), block, cuda)
+
+
+def test_nms_kernel_below_the_masked_score_follows_the_block_loop(cuda):
+    """Below a score threshold of -1e10 every box at -1e10 is live again
+    and a step's width changes the decisions: the kernel gives the plain
+    block loop's at widths 1, 4, 16 and 32, and `nms_padded` on the card
+    the one-at-a-time loop's, bit for bit."""
+    c = below_masked_problem()
+    args = _on(c, cuda)
+    for block in (1, 4, 16, 32):
+        got = tnms.nms_cuda(*args, select_block=block)
+        want = tnms.nms_padded_fast_plain(*args, select_block=block)
+        assert torch.equal(got[1], want[1]), block
+        assert torch.equal(got[0], want[0]), block
+    got = tnms.nms_padded(*args)
+    want = tnms.nms_padded_plain(*args)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_nms_kernel_takes_the_most_boxes(cuda):
+    """A problem at dtt_nms_max_boxes() (49,152), in random order: the
+    scratch layout and the bitonic sort in it, bit for bit against both
+    plain forms."""
+    _, max_k = tnms._entry()
+    assert tnms.nms_layout(max_k).body == "scratch"
+    c = path_problem("train_proposals", 1, max_k, 300, 0.7, -0.5, seed=6)
+    _check(permuted(c, seed=7)[0], 32, cuda)
+
+
+def test_nms_kernel_scratch_layout_at_12000(cuda):
+    """The train budget (12,000 boxes) is past the shared layout: sorted
+    and in random order, bit for bit against both plain forms at every
+    width."""
+    assert tnms.nms_layout(12000).body == "scratch"
+    c = path_problem("train_proposals", 2, 12000, 300, 0.7, -0.5, seed=8)
+    for block in BLOCKS:
+        _check(c, block, cuda)
+        _check(permuted(c, seed=9)[0], block, cuda)
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("name", sorted(LONG))
+def test_nms_kernel_walks_past_a_block(cuda, name, block):
+    """Walks that go past the first 1,024 positions, more than a block
+    has threads, so each thread masks several positions a step (proposals
+    at IoU 0.1; near-duplicate anchors, where a hundred kept boxes
+    suppress all 6,000): bit for bit against both plain forms at every
+    width."""
+    c = LONG[name]
+    idx, val = _check(c, block, cuda)
+    assert min(walk_end(c, idx.cpu().numpy(), val.cpu().numpy())) > 1024
+
+
+def test_nms_padded_takes_a_tensor_threshold_below_the_masked_score(cuda):
+    """A score threshold below -1e10 given as a tensor picks the same
+    width as a Python number: `nms_padded` on the card gives the
+    one-at-a-time loop's decisions."""
+    c = below_masked_problem()
+    args = _on(c, cuda)
+    thr = torch.tensor(c["score"], device=cuda)
+    got = tnms.nms_padded(*args[:5], thr)
+    want = tnms.nms_padded_plain(*args)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
