@@ -29,13 +29,20 @@ Phases, in order; any failure ends the script with a non-zero exit:
    kernel form, forward and backward, against the plain versions; the NMS
    kernel at every NMS of a video chunk, a train step, a pair batch, a
    frame and the parallel chunk (proposals, per-class or OHEM) and on the
-   crafted cases of tests/nms_cases.py (+0.0 tied with -0.0 and walks
-   past 1,024 positions among them) at select_block 1, 16, 32 and 48, bit
-   for bit against both plain forms,
+   crafted cases of tests/nms_cases.py (+0.0 against -0.0 and walks past
+   1,024 positions among them) at select_block 1, 16, 32 and 48, bit for
+   bit in each order of the zeros against the plain form of that order
+   (``nms_padded_fast``'s total order, ``nms_padded``'s tie), and the two
+   dispatchers on the signed-zero case against their plain forms,
    with its dependent steps, each call's layout and its ms a dependent
    step; below a score threshold of -1e10 against the block loop at the
    kernel's widths; unsorted proposals and the scratch layout (12,000 and
-   49,152 boxes a problem);
+   49,152 boxes a problem); the tube-linking kernel at the eval paths'
+   shapes (30 classes, 20 slots, 20 tubes; 16 frames at tau=1, 8
+   keyframes at tau=2) under every score boost, and on the problems of
+   tests/linking_cases.py (tied scores, 45 slots, one frame, the scratch
+   layout), decisions and tube scores bit for bit against its plain
+   form, rescored scores to 1e-6;
 4. small references: the tiny test config in float32 through the kernels
    on the card against the plain versions on the CPU, for the video path,
    for one train step (same weights, same injected draws; losses, every
@@ -133,6 +140,7 @@ from dtt_torch.core.anchors import grid_anchors_for
 from dtt_torch.core.config import Config
 from dtt_torch.core.config import load_config
 from dtt_torch.data.synthetic import synthetic_batch
+from dtt_torch.eval import linking as link_ops
 from dtt_torch.eval.inference import (evaluate_snippet, evaluate_snippet_video,
                                       link_snippet, make_pair_step,
                                       make_single_frame_step, make_video_step)
@@ -227,13 +235,17 @@ KERNELS = {"correlation": corr_ops.correlation_cuda,
            "psroi_direct_bwd": psroi_ops.psroi_bwd_cuda,
            "psroi_mm": psroi_ops.psroi_mm_sums_cuda,
            "psroi_sat_mean": psroi_ops.psroi_sat_means_cuda,
-           "nms": nms_ops.nms_cuda}
-# the kernels each driven path must launch (every path runs a proposal NMS)
+           "nms": nms_ops.nms_cuda,
+           "linking": link_ops.link_cuda}
+# the kernels each driven path must launch (every path runs a proposal NMS;
+# every run checked as "pair" or "eval_video" is an eval_torch run that
+# links tubes)
 PATH_KERNELS = {"video": ("correlation", "psroi_direct", "nms"),
                 "train": ("correlation", "correlation_bwd", "psroi_direct",
                           "psroi_direct_bwd", "nms"),
-                "pair": ("correlation", "psroi_mm", "nms"),
-                "eval_video": ("correlation", "psroi_direct", "nms"),
+                "pair": ("correlation", "psroi_mm", "nms", "linking"),
+                "eval_video": ("correlation", "psroi_direct", "nms",
+                               "linking"),
                 "frame": ("correlation", "correlation_split", "psroi_mm",
                           "psroi_sat_mean", "nms"),
                 "mode_video": ("correlation", "nms"),
@@ -245,6 +257,13 @@ PATH_KERNELS = {"video": ("correlation", "psroi_direct", "nms"),
 # select_block widths the NMS kernel is held at on the crafted cases (48:
 # wider than one of its steps)
 NMS_BLOCKS = (1, 16, 32, 48)
+# tube linking, kernel against plain form: rescored scores element by
+# element within LINK_TOL (1 + |want|), float32 roundoff of the boost's
+# sum in another order; every other output bit for bit
+LINK_TOL = 1e-6
+LINK_BOOSTS = ("mean_top_half", "mean", "max")
+# the eval paths' snippets: 16 frames at tau=1, their 8 keyframes at tau=2
+LINK_FRAMES = {"eval_video": 16, "pair": 8}
 
 
 def log(msg: str) -> None:
@@ -990,15 +1009,18 @@ def nms_inputs(problem: dict) -> tuple:
 
 
 def nms_exact(args: tuple, block: int, what: str) -> torch.Tensor:
-    """The kernel's (keep_idx, keep_valid) on `args` at width `block`
-    against both plain forms, bit for bit; returns its steps."""
-    *got, steps = nms_ops.nms_cuda(*args, select_block=block,
-                                   return_steps=True)
+    """The kernel's (keep_idx, keep_valid) on `args` at width `block` in
+    each order of the zeros against the plain form of that order, bit for
+    bit: the total order against the block loop, the tied zeros against
+    the one-at-a-time loop; returns its steps in the total order."""
+    *fast, steps = nms_ops.nms_cuda(*args, select_block=block,
+                                    return_steps=True)
+    tied = nms_ops.nms_cuda(*args, select_block=block, total_order=False)
     torch.cuda.synchronize()
-    for form, want in (
-            ("nms_padded_fast",
+    for form, got, want in (
+            ("nms_padded_fast", fast,
              nms_ops.nms_padded_fast_plain(*args, select_block=block)),
-            ("nms_padded", nms_ops.nms_padded_plain(*args))):
+            ("nms_padded", tied, nms_ops.nms_padded_plain(*args))):
         for name, x, y in zip(("keep_idx", "keep_valid"), got, want):
             if not torch.equal(x, y):
                 raise AssertionError(
@@ -1080,6 +1102,26 @@ def phase_nms_crafted() -> None:
     log(f"nms crafted cases: {len(cases)} cases x select_block "
         f"{list(NMS_BLOCKS)} bit-equal to both plain forms "
         f"({', '.join(c['name'] for c in cases)})")
+    # +0.0 against -0.0: each dispatcher on the card as its plain form on
+    # the CPU, and the two forms apart
+    zero = helper.signed_zero_problem()
+    cpu = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                for x in nms_inputs(zero))
+    outs = {}
+    for form, plain in ((nms_ops.nms_padded_fast,
+                         nms_ops.nms_padded_fast_plain),
+                        (nms_ops.nms_padded, nms_ops.nms_padded_plain)):
+        got = [x.cpu() for x in form(*nms_inputs(zero))]
+        if not all(torch.equal(x, y) for x, y in zip(got, plain(*cpu))):
+            raise AssertionError(f"{form.__name__} on the card vs its plain "
+                                 f"form on the CPU, signed zeros")
+        outs[form.__name__] = got
+    if torch.equal(outs["nms_padded_fast"][0], outs["nms_padded"][0]):
+        raise AssertionError("nms: the signed-zero case does not tell the "
+                             "two orders apart")
+    log("nms signed zeros: nms_padded_fast (+0.0 first) and nms_padded "
+        "(tied) on the card bit-equal to their plain forms on the CPU, and "
+        "apart from each other")
     # walks past the first 1,024 positions (more than a block's threads)
     walks = []
     for c in helper.long_walk_problems():
@@ -1124,6 +1166,106 @@ def phase_nms_crafted() -> None:
     log(f"nms below -1e10 bit-equal to the block loop at widths 1/4/16/32 "
         f"and nms_padded to the one-at-a-time loop; bit-equal to both "
         f"plain forms at select_block 32: {'; '.join(big)}")
+
+
+def link_inputs(kw: dict) -> tuple:
+    helper = load_test_helper("linking_cases")
+    return tuple(torch.from_numpy(x).cuda() for x in helper.detections(**kw))
+
+
+def link_exact(args: tuple, k: int, boost: str, weight: float,
+               what: str) -> float:
+    """The linking kernel against its plain form on the card: paths, tube
+    validity, tube scores and claimed detections bit for bit, rescored
+    scores within LINK_TOL; returns max |d rescored|."""
+    got = link_ops.link_cuda(*args, max_tubes=k, link_iou_weight=weight,
+                             score_boost=boost)
+    torch.cuda.synchronize()
+    want = link_ops.link_all_classes_plain(*args, max_tubes=k,
+                                           link_iou_weight=weight,
+                                           score_boost=boost)
+    for name in ("det_idx", "tube_valid", "tube_score", "det_in_tube"):
+        x, y = getattr(got, name), getattr(want, name)
+        same = (x == y) | (x.isnan() & y.isnan()) if x.is_floating_point() \
+            else x == y
+        if not bool(same.all()):
+            raise AssertionError(
+                f"linking kernel vs plain ({what}, {boost}): {name} differs "
+                f"in {int((~same).sum())} of {x.numel()}")
+    x, y = got.rescored, want.rescored
+    same = (x == y) | (x.isnan() & y.isnan())     # NaN and inf where equal
+    err = torch.where(same, torch.zeros_like(x), (x - y).abs())
+    if not bool((same | (err <= LINK_TOL * (1 + y.abs()))).all()):
+        raise AssertionError(f"linking kernel vs plain ({what}, {boost}): "
+                             f"rescored off by {err.max().item():.3g}")
+    return err.max().item()
+
+
+def phase_linking(cfg: Config, path: str, seed: int) -> dict:
+    """The linking kernel at the shapes of the eval path `path` (the 30
+    classes, eval.max_per_class slots, eval.max_tubes_per_class tubes,
+    LINK_FRAMES[path] frames) on detections made as tests/linking_cases.py
+    makes them, under every score boost against the plain form; CUDA-event
+    times of the kernel and of the plain form on the card at the config's
+    boost."""
+    e = cfg.eval
+    c, t = cfg.model.num_classes - 1, LINK_FRAMES[path]
+    n, k, w = e.max_per_class, e.max_tubes_per_class, e.link_iou_weight
+    args = link_inputs(dict(seed=seed, c=c, t=t, n=n))
+    err = max(link_exact(args, k, b, w, f"{path} C={c} T={t} N={n} K={k}")
+              for b in LINK_BOOSTS)
+    kw = dict(max_tubes=k, link_iou_weight=w, score_boost=e.tube_score_boost)
+    ms = time_ms(lambda: link_ops.link_cuda(*args, **kw), iters=20)
+    plain_ms = time_ms(lambda: link_ops.link_all_classes_plain(*args, **kw),
+                       iters=3, warmup=1)
+    # each box and tracked box (16 + 16 B), score (4) and valid flag (1)
+    # read once, each rescored score (4) and claim flag (1) written once,
+    # and a tube's path (8 T), validity (1) and score (4). Float32
+    # operations the function needs: a box's area (2 subtractions, 2
+    # additions, 2 clamps, a product) once a box of frames 0..T-2's tracked
+    # boxes and frames 1..T-1's boxes; the IoU and its weight once a pair
+    # (i, j) of consecutive frames a class, since no tube changes them (a
+    # min and a max, a subtraction and an addition an axis: 8; 2 clamps and
+    # a product; the union's addition and subtraction; its test and the
+    # division; the weight's product: 16); then a tube's link and
+    # candidate a pair (p_t + p_t+1, + w IoU, + v, the max: 4). The
+    # kernel's recomputing the IoU for every tube is not counted.
+    pairs = c * (t - 1) * n * n
+    ops = c * (t - 1) * 2 * n * 7 + pairs * 16 + k * pairs * 4
+    nbytes = c * t * n * 42 + c * k * (8 * t + 5)
+    bound_ms, bound_by = bound(nbytes, ops, F32_OPS_PER_S)
+    log(f"linking [{path}]: C={c} T={t} N={n} K={k} "
+        f"({link_ops.link_layout(t, n).body} layout): decisions and tube "
+        f"scores bit-equal to the plain form under {list(LINK_BOOSTS)}, "
+        f"rescored max_abs_err {err:.3g} (tol {LINK_TOL} (1 + |want|)); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"({e.tube_score_boost}), library: none (no PyTorch call links "
+        f"tubes), bound_us {bound_ms * 1e3:.3f} ({bound_by}, "
+        f"{nbytes / 1e3:.1f} KB, {ops / 1e6:.1f} M float32 ops), "
+        f"{bound_ms / ms:.3%} of the bound")
+    return {"name": "linking", "path": path, "route": "cuda",
+            "source": "dtt_torch/ops/csrc/linking.cu",
+            "replaces": "dtt/eval/linking.py:80 (link_tubes, XLA's lax.scan "
+                        "program vmapped over the classes; no TPU kernel)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_linking_cases() -> None:
+    """The linking kernel on every problem of tests/linking_cases.py
+    (the eval widths with and without tied scores, 45 slots, one frame,
+    the scratch layout) under every score boost, against its plain form."""
+    helper = load_test_helper("linking_cases")
+    done = []
+    for name, kw, k in helper.kernel_cases():
+        args = link_inputs(kw)
+        err = max(link_exact(args, k, b, 1.0, name) for b in LINK_BOOSTS)
+        lay = link_ops.link_layout(kw["t"], kw["n"])
+        done.append(f"{name} C={kw['c']} T={kw['t']} N={kw['n']} K={k} "
+                    f"({lay.body}, {lay.smem} B shared, {lay.scratch} B "
+                    f"scratch a class; max |d rescored| {err:.3g})")
+    log(f"linking cases under {list(LINK_BOOSTS)}: decisions and tube "
+        f"scores bit-equal to the plain form: {'; '.join(done)}")
 
 
 def phase_bench(card: str) -> None:
@@ -2861,13 +3003,18 @@ def main() -> int:
                phase_psroi(cfg, "parallel_video", seed=14),
                *(phase_nms(cfg, path, seed=20 + 2 * i) for i, path in
                  enumerate(("video", "train", "pair", "frame",
-                            "parallel_video")))]
+                            "parallel_video"))),
+               phase_linking(cfg, "pair", seed=30),
+               phase_linking(cfg, "eval_video", seed=31)]
     # the parallel train and pair paths give each kernel the shapes of the
     # serial ones (one rank: the same batch), so their entries are the
-    # serial ones' times, marked with the path they were measured at
+    # serial ones' times, marked with the path they were measured at (the
+    # parallel pair step links no tubes)
     kernels += [dict(k, path="parallel_" + k["path"], measured_as=k["path"])
-                for k in kernels if k["path"] in ("train", "pair")]
+                for k in kernels
+                if k["path"] in ("train", "pair") and k["name"] != "linking"]
     phase_nms_crafted()
+    phase_linking_cases()
     phase_correlation_forms(cfg, FRAMES_PER_CHUNK - 1, seed=1)
     phase_wide_windows(seed=12)
     phase_reference()

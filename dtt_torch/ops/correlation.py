@@ -51,7 +51,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TC_MAX_D = 8      # kMaxD: the tensor-core band of 16 + 2d <= 32 columns
 _TC_MAX_ND = 9     # kMaxNd: one warp per dy in the tensor-core bodies
 _CORE_MAX_ND = 32  # kMaxNdCore: the CUDA-core forward's 32 x nd threads
-_MAX_SMEM = 232448  # kMaxSmem: a block's shared memory on sm_90 (227 KB)
+_MAX_SMEM = _build.SMEM_LIMIT  # kMaxSmem
 
 
 def offsets(max_displacement: int, stride: int) -> list:

@@ -23,8 +23,10 @@
 //     iy <= 0) have IoU exactly 0 there, so they skip the division;
 //   * a committed box is always retired (score -1e10), even at threshold
 //     >= 1; a suppressed box is set to -1e10 too;
-//   * ties go to the lower index, as lax.top_k and argmax break them, and
-//     -0.0 ties +0.0;
+//   * ties go to the lower index, as lax.top_k and argmax break them;
+//     +0.0 ranks above -0.0 in the total order of lax.top_k
+//     (nms_padded_fast) and ties it in the order of argmax (nms_padded):
+//     the caller picks the order;
 //   * a NaN score ends the loop before its first step, as argmax and max
 //     take NaN as the largest value and NaN > threshold is false.
 //
@@ -96,6 +98,7 @@ struct Args {
   int64_t stride;
   int K, M, width;
   float iou_thr, score_thr;
+  bool total;                      // +0.0 above -0.0, else they tie
 };
 
 struct Shared {
@@ -138,9 +141,10 @@ __device__ __forceinline__ bool overlaps(float4 a, float area_a, float4 b,
   return (uni > 0.f ? __fdiv_rn(inter, uni) : 0.f) > thr;
 }
 
-// Ascending order of the keys = score descending, then index ascending.
-__device__ __forceinline__ uint64_t sort_key(float s, int e) {
-  uint32_t u = __float_as_uint(s == 0.f ? 0.f : s);  // -0.0 ties +0.0
+// Ascending order of the keys = score descending, then index ascending;
+// without `total`, -0.0 ties +0.0.
+__device__ __forceinline__ uint64_t sort_key(float s, int e, bool total) {
+  uint32_t u = __float_as_uint(total || s != 0.f ? s : 0.f);
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);     // increases with s
   return ((uint64_t)~u << 32) | (uint32_t)e;
 }
@@ -305,7 +309,7 @@ __global__ void __launch_bounds__(kMaxThreads) nms_walk_kernel(Args a) {
       const unsigned word = alive[e >> 5];
       if ((word >> (e & 31)) & 1u)
         keys[wpre[e >> 5] + __popc(word & ((1u << (e & 31)) - 1u))] =
-            sort_key(score(e), e);
+            sort_key(score(e), e, a.total);
     }
     __syncthreads();
     // 3. Sort unless they are in order already.
@@ -441,7 +445,9 @@ extern "C" int dtt_nms_max_boxes() { return kMaxK; }
 // boxes: (P, K, 4) float32; scores: (P, K) float32; valid: (P, K) bytes
 // 0/1 or null; keep_idx: (P, M) int64; keep_valid: (P, M) bytes; steps:
 // (P,) int32, the dependent steps each problem ran. 1 <= K <= kMaxK,
-// M >= 1, select_block >= 1 (taken 32 at a time past 32). `smem` (dynamic
+// M >= 1, select_block >= 1 (taken 32 at a time past 32). `total_order`
+// 1 ranks +0.0 above -0.0 (nms_padded_fast's lax.top_k), 0 ties them
+// (nms_padded's argmax). `smem` (dynamic
 // shared bytes a block), `stride` and `scratch` come from nms_layout: with
 // `scratch` null the sorted boxes sit in shared memory, otherwise in
 // `scratch`, `stride` bytes a problem. Returns a cudaError_t (0 =
@@ -450,9 +456,9 @@ extern "C" int dtt_nms_select(const void* boxes, const void* scores,
                               const void* valid, void* keep_idx,
                               void* keep_valid, void* steps, int P, int K,
                               int M, int select_block, float iou_threshold,
-                              float score_threshold, int smem,
-                              int64_t stride, void* scratch, int device,
-                              void* stream) {
+                              float score_threshold, int total_order,
+                              int smem, int64_t stride, void* scratch,
+                              int device, void* stream) {
   if (P < 1 || K < 1 || K > kMaxK || M < 1 || select_block < 1)
     return (int)cudaErrorInvalidValue;
   const bool ok = scratch ? stride >= staged_bytes(K) && stride % 16 == 0 &&
@@ -482,6 +488,7 @@ extern "C" int dtt_nms_select(const void* boxes, const void* scores,
   a.width = select_block < kWidth ? select_block : kWidth;
   a.iou_thr = iou_threshold;
   a.score_thr = score_threshold;
+  a.total = total_order != 0;
   kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -5,13 +5,17 @@ A box is suppressed iff its IoU with a kept, higher-ranked box is strictly
 greater than the threshold; a selection is live iff its score is strictly
 greater than `score_threshold`; ties go to the lower index, as ``argmax``
 and ``lax.top_k`` take them; empty slots hold index 0 and are not valid.
+Each form keeps its ``dtt`` form's order of the two zeros: ``argmax``
+(``nms_padded``) ties +0.0 with -0.0, ``lax.top_k`` (``nms_padded_fast``)
+orders floats totally and ranks +0.0 first.
 
 * `nms_padded_plain` — ``dtt``'s ``nms_padded``: a fixed trip count of
   `max_outputs` steps, each selecting the current best score (``torch.max``
   returns the first maximal index) and masking every box it overlaps. No
   step reads a value back to the host.
 * `nms_padded_fast_plain` — ``dtt``'s ``nms_padded_fast``: each step takes
-  the top `select_block` live scores (a stable descending sort), resolves
+  the top `select_block` live scores (a stable descending sort on the
+  total order, `total_order_key`), resolves
   them among themselves greedily over their IoU panel, commits the
   survivors and masks what they overlap, until the budget is full or no
   live score is left. The same decisions in fewer steps; its loop test is
@@ -24,8 +28,9 @@ and ``lax.top_k`` take them; empty slots hold index 0 and are not valid.
   the device loop ``dtt`` leaves to XLA (``nms_padded_fast``'s
   ``lax.while_loop``; there is no Pallas kernel).
 * `nms_padded` / `nms_padded_fast` — the dispatchers: each runs its plain
-  form on CPU tensors and launches the kernel on CUDA tensors (their
-  decisions are the same), or raises.
+  form on CPU tensors and launches the kernel on CUDA tensors, in its own
+  order of the zeros (otherwise their decisions are the same), or
+  raises.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ _NEG = -1e10
 KERNEL_BLOCK = 32
 # a block's shared memory on the card (227 KB), and what the kernel's
 # static part may take of it (``kStaticSmem`` in ``csrc/nms.cu``)
-SMEM_LIMIT = 232_448
+SMEM_LIMIT = _build.SMEM_LIMIT
 _STATIC_SMEM = 1_024
 
 
@@ -77,6 +82,13 @@ def take_along(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     rest = x.shape[nb + 1:]
     ix = idx.reshape(*idx.shape, *([1] * len(rest))).expand(*idx.shape, *rest)
     return torch.gather(x, nb, ix)
+
+
+def total_order_key(scores: torch.Tensor) -> torch.Tensor:
+    """float32 `scores` as int32 keys that increase with the value in the
+    total order of ``lax.top_k``: -0.0 below +0.0, NaN above +inf."""
+    bits = scores.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
 
 
 def _masked_scores(scores: torch.Tensor, valid) -> torch.Tensor:
@@ -141,8 +153,9 @@ def nms_padded_fast_plain(boxes: torch.Tensor, scores: torch.Tensor,
         live = (count < max_outputs) & (s.max(dim=-1).values > score_threshold)
         if not bool(live.any()):
             break
-        top_s, top_i = torch.sort(s, dim=-1, descending=True, stable=True)
-        top_s, top_i = top_s[:, :m], top_i[:, :m]
+        top_i = torch.sort(total_order_key(s), dim=-1, descending=True,
+                           stable=True).indices[:, :m]
+        top_s = torch.gather(s, -1, top_i)
         kb = take_along(bx, top_i)                         # (P, m, 4)
         over = box_ops.pairwise_iou(kb, kb) > iou_threshold
         ok = (top_s > score_threshold) & live[:, None]
@@ -174,8 +187,8 @@ def _entry():
     fn = lib.dtt_nms_select
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 2
-                   + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.dtt_nms_max_boxes.restype = ctypes.c_int
     return fn, lib.dtt_nms_max_boxes()
@@ -184,7 +197,7 @@ def _entry():
 def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
              max_outputs: int, valid: torch.Tensor | None = None,
              score_threshold: float = _NEG / 2, select_block: int = 16,
-             return_steps: bool = False):
+             return_steps: bool = False, total_order: bool = True):
     """Greedy NMS by the CUDA kernel ``dtt_nms_select``, one launch for
     every problem of the batch.
 
@@ -198,7 +211,9 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     a scratch buffer of 24 bytes a box a problem. Below a score_threshold
     of -1e10, where masked boxes are selected again, a step's width
     changes the decisions, and the kernel decides as ``dtt`` at
-    min(select_block, 32).
+    min(select_block, 32). With `total_order` +0.0 ranks above -0.0, as in
+    ``dtt``'s ``nms_padded_fast``; without it they tie and go by index, as
+    in its ``nms_padded``.
     """
     if not boxes.is_cuda or scores.device != boxes.device or (
             valid is not None and valid.device != boxes.device):
@@ -252,7 +267,7 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
              None if va is None else va.data_ptr(), keep_idx.data_ptr(),
              keep_valid.data_ptr(), steps.data_ptr(), p, k, max_outputs,
              select_block, float(iou_threshold), float(score_threshold),
-             layout.smem, layout.scratch,
+             int(bool(total_order)), layout.smem, layout.scratch,
              None if scratch is None else scratch.data_ptr(), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -284,7 +299,8 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
 
     The plain form on CPU tensors; otherwise the kernel, at its widest step
     (the decisions do not depend on the width), or one box a step below a
-    score_threshold of -1e10, where they do.
+    score_threshold of -1e10, where they do; +0.0 ties -0.0, as in
+    ``dtt``'s ``argmax``.
     """
     if boxes.device.type == "cpu":
         return nms_padded_plain(boxes, scores, iou_threshold, max_outputs,
@@ -293,14 +309,15 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
     width = (1 if np.float32(score_threshold) < np.float32(_NEG)
              else KERNEL_BLOCK)
     return nms_cuda(boxes, scores, iou_threshold, max_outputs, valid,
-                    score_threshold, width)
+                    score_threshold, width, total_order=False)
 
 
 def nms_padded_fast(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
                     max_outputs: int, valid: torch.Tensor | None = None,
                     score_threshold=_NEG / 2, select_block: int = 16):
     """`nms_padded`'s decisions taking `select_block` candidates a step
-    (``dtt``'s ``nms_padded_fast``): the plain block loop on CPU tensors,
+    (``dtt``'s ``nms_padded_fast``), but with +0.0 ranked above -0.0 as
+    ``lax.top_k`` ranks them: the plain block loop on CPU tensors,
     otherwise the kernel."""
     if boxes.device.type == "cpu":
         return nms_padded_fast_plain(boxes, scores, iou_threshold,

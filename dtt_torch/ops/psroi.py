@@ -82,7 +82,7 @@ import torch.nn.functional as F
 from dtt_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232448  # a block's shared memory on sm_90 (227 KB), kMaxSmem
+_MAX_SMEM = _build.SMEM_LIMIT  # kMaxSmem
 
 
 def roi_bounds(rois: torch.Tensor, spatial_scale: float, group_size: int,

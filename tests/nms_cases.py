@@ -220,9 +220,10 @@ def crafted_cases(seed: int = 0):
 
 def signed_zero_problem(seed: int = 0):
     """One problem of CRAFTED_K overlapping boxes whose scores tie at +0.0
-    and -0.0 (live at a score threshold of -0.5). The port ties them by
-    index in both forms, as dtt's argmax (``nms_padded``) does; dtt's
-    ``lax.top_k`` (``nms_padded_fast``) ranks +0.0 first."""
+    and -0.0 (live at a score threshold of -0.5). dtt's argmax
+    (``nms_padded``) ties them and goes by index; its ``lax.top_k``
+    (``nms_padded_fast``) ranks +0.0 first. Each of the port's forms
+    follows its own dtt form, so the two forms decide differently here."""
     rng = np.random.RandomState(seed)
     k = CRAFTED_K
     boxes = _boxes(rng, (k,), extent=(200.0, 200.0), size=(10.0, 70.0))

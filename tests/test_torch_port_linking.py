@@ -17,32 +17,7 @@ import torch
 from dtt.eval.linking import link_all_classes as j_link_all_classes
 
 from dtt_torch.eval.linking import link_all_classes
-
-
-def _detections(seed, c=4, t=7, n=5, tied=False):
-    """Random padded detections: objects drifting across frames with the
-    tracked box near the next frame's box, some slots invalid, one class
-    with no valid detection at all and one with frames left empty."""
-    rng = np.random.RandomState(seed)
-    xy = rng.uniform(0, 200, (c, 1, n, 2)) + np.arange(t)[None, :, None,
-                                                          None] * 3.0
-    wh = rng.uniform(10, 60, (c, 1, n, 2)).repeat(t, axis=1)
-    boxes = np.concatenate([xy, xy + wh], axis=-1)
-    boxes += rng.uniform(-4, 4, boxes.shape)
-    tracked = np.roll(boxes, -1, axis=1) + rng.uniform(-3, 3, boxes.shape)
-    if tied:   # few distinct scores and repeated boxes: argmax ties
-        scores = rng.choice(np.float32([0.9, 0.5, 0.5, 0.2]), (c, t, n))
-        boxes[:, :, 1] = boxes[:, :, 0]
-        tracked[:, :, 1] = tracked[:, :, 0]
-    else:
-        scores = rng.uniform(0.01, 1.0, (c, t, n))
-    valid = rng.rand(c, t, n) > 0.3
-    valid[1] = False                     # a class with no detection
-    valid[2, 2:t:2] = False              # empty frames: virtual skip slots
-    if t > 1:
-        valid[3, 0] = False              # no detection at frame 0
-    return (boxes.astype(np.float32), scores.astype(np.float32),
-            tracked.astype(np.float32), valid)
+from tests.linking_cases import detections as _detections
 
 
 @pytest.mark.parametrize("score_boost", ["mean_top_half", "mean", "max"])

@@ -116,12 +116,13 @@ def test_below_masked_score_case_reaches_its_edge():
 
 
 @pytest.mark.parametrize("block", BLOCKS)
-def test_signed_zero_ties_match_dtt_argmax(block):
-    """+0.0 and -0.0 tie and go by index, as dtt's argmax form
-    (``nms_padded``) takes them: the plain block loop at each width and
-    the one-at-a-time loop give its decisions, with zeros of both signs
-    kept in index order. dtt's block form ranks +0.0 first (``lax.top_k``
-    orders floats totally), which the port does not follow."""
+def test_signed_zero_ties_match_each_dtt_form(block):
+    """Each of the port's forms orders the two zeros as its dtt form does:
+    the block loop ranks +0.0 above -0.0 at each width, as dtt's
+    ``nms_padded_fast`` (``lax.top_k`` orders floats totally); the
+    one-at-a-time loop ties them and goes by index, as dtt's
+    ``nms_padded`` (``argmax``). dtt's two forms differ on the case, so it
+    tells the orders apart."""
     c = signed_zero_problem()
     args = (_t(c["boxes"]), _t(c["scores"]), c["iou"], c["m"],
             _t(c["valid"]), c["score"])
@@ -129,15 +130,17 @@ def test_signed_zero_ties_match_dtt_argmax(block):
                              jnp.asarray(c["scores"][0]), c["iou"], c["m"],
                              valid=jnp.asarray(c["valid"][0]),
                              score_threshold=c["score"])
-    for ti, tv in (tnms.nms_padded_fast(*args, select_block=block),
-                   tnms.nms_padded(*args)):
-        np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv))
-        np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ji))
+    fi, fv = _dtt_fast(c, block)
+    for (ti, tv), (wi, wv) in ((tnms.nms_padded_fast(*args,
+                                                     select_block=block),
+                                (fi, fv)),
+                               (tnms.nms_padded(*args), (ji, jv))):
+        np.testing.assert_array_equal(tv[0].numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(ti[0].numpy(), np.asarray(wi))
     idx = np.asarray(ji)[np.asarray(jv)]
     zero = idx[c["scores"][0][idx] == 0]
     signs = np.signbit(c["scores"][0][zero])
     assert signs.any() and not signs.all() and (np.diff(zero) > 0).all()
-    fi, fv = _dtt_fast(c, block)
     assert not np.array_equal(np.asarray(fi), np.asarray(ji))
 
 

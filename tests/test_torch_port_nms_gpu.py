@@ -5,8 +5,9 @@ OHEM) and the crafted cases of ``tests/nms_cases.py``, at select_block 1,
 16, 32 and 48 (wider than a step of the kernel); walks past the first
 1,024 positions (proposals at IoU 0.1, near-duplicate anchors); unsorted
 proposals, the scratch layout (12,000 boxes and the most the kernel
-takes), +0.0 tied with -0.0 and a score threshold below -1e10; one launch
-a call; a call that cannot launch raises. Marked ``gpu``: they skip without a card. This file imports no
+takes), +0.0 against -0.0 in both orders (ranked first for
+``nms_padded_fast``, tied for ``nms_padded``) and a score threshold below
+-1e10; one launch a call; a call that cannot launch raises. Marked ``gpu``: they skip without a card. This file imports no
 JAX:
 
     python -m pytest --noconftest -q tests/test_torch_port_nms_gpu.py
@@ -47,16 +48,22 @@ def _on(c, device):
 
 
 def _check(c, block, device):
+    """The kernel at width `block` in each order of the zeros against the
+    plain form of that order: the total order against the block loop, the
+    tied zeros against the one-at-a-time loop. Returns the first."""
     args = _on(c, device)
     before = tnms.nms_cuda.launches
     got = tnms.nms_padded_fast(*args, select_block=block)
     torch.cuda.synchronize()
     assert tnms.nms_cuda.launches == before + 1
+    tied = tnms.nms_cuda(*args, select_block=block, total_order=False)
     fast = tnms.nms_padded_fast_plain(*args, select_block=block)
     slow = tnms.nms_padded_plain(*args)
-    for want, form in ((fast, "nms_padded_fast"), (slow, "nms_padded")):
-        assert torch.equal(got[1], want[1]), (c["name"], block, form, "valid")
-        assert torch.equal(got[0], want[0]), (c["name"], block, form, "idx")
+    for have, want, form in ((got, fast, "nms_padded_fast"),
+                             (tied, slow, "nms_padded")):
+        assert torch.equal(have[1], want[1]), (c["name"], block, form,
+                                               "valid")
+        assert torch.equal(have[0], want[0]), (c["name"], block, form, "idx")
     return got
 
 
@@ -166,8 +173,27 @@ def test_nms_kernel_orders_unsorted_proposals(cuda):
 
 @pytest.mark.parametrize("block", BLOCKS)
 def test_nms_kernel_ties_signed_zeros(cuda, block):
-    """+0.0 and -0.0 scores tie and go by index, as in both plain forms."""
-    _check(signed_zero_problem(), block, cuda)
+    """+0.0 ranks above -0.0 in the total order, as in the plain block
+    loop, and ties it in the other, as in the one-at-a-time loop; the two
+    orders decide differently on the case."""
+    c = signed_zero_problem()
+    got = _check(c, block, cuda)
+    tied = tnms.nms_cuda(*_on(c, cuda), select_block=block,
+                         total_order=False)
+    assert not torch.equal(got[0], tied[0]), block
+
+
+def test_nms_dispatchers_order_signed_zeros_as_their_dtt_forms(cuda):
+    """On the card `nms_padded_fast` ranks +0.0 first and `nms_padded`
+    ties the zeros, each bit for bit as its plain form on the CPU."""
+    c = signed_zero_problem()
+    cpu = _on(c, torch.device("cpu"))
+    for form, plain in ((tnms.nms_padded_fast, tnms.nms_padded_fast_plain),
+                        (tnms.nms_padded, tnms.nms_padded_plain)):
+        got = form(*_on(c, cuda))
+        want = plain(*cpu)
+        assert torch.equal(got[1].cpu(), want[1]), form.__name__
+        assert torch.equal(got[0].cpu(), want[0]), form.__name__
 
 
 def test_nms_kernel_below_the_masked_score_follows_the_block_loop(cuda):

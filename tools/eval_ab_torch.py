@@ -1,17 +1,20 @@
-"""Time the port's tau=1 ``--link`` evaluation, run for run, on one card.
+"""Time the port's tau=1 ``--link`` evaluation (or, with ``--tau 2``, the
+tau=2 pair-path evaluation), run for run, on one card.
 
 Imports ``eval_torch`` and ``dtt_torch`` from the tree at ``--root``
 (default: this checkout), so one script can time two trees in turns. The
 full-width ``Config()`` weights from numpy seed 0 are written as a port
 checkpoint; ``eval_torch.main`` then runs once on one snippet to warm up,
 ``--repeats`` times timed (1 snippet x 16 frames at tau=1 with tube
-linking, as ``chip_smoke.py``'s eval phase), and once more under
-``torch.profiler``. Prints one JSON line per timed run (wall ms by phase)
+linking, or 2 snippets x 16 frames at tau=2 with the SAT pool, which link
+their keyframes' tubes: ``chip_smoke.py``'s two eval runs), and once more
+under ``torch.profiler``. Prints one JSON line per timed run (wall ms by phase)
 and one for the profiled run (device kernels, device busy ms), and writes
 the profiled run's kernel and operator counts by name to ``--out``::
 
     python tools/eval_ab_torch.py --label change --out counts.json
     python tools/eval_ab_torch.py --root _chip_tree/parent --label parent
+    python tools/eval_ab_torch.py --tau 2 --label change
 """
 
 from __future__ import annotations
@@ -25,8 +28,11 @@ import sys
 import tempfile
 import time
 
-EVAL_FLAGS = ["--synthetic", "--synthetic-snippets", "1",
-              "--synthetic-frames", "16", "--link"]
+EVAL_FLAGS = {1: ["--synthetic", "--synthetic-snippets", "1",
+                  "--synthetic-frames", "16", "--link"],
+              2: ["--synthetic", "--synthetic-snippets", "2",
+                  "--synthetic-frames", "16", "--tau", "2", "--set",
+                  "model.roi.eval_pool_impl=pallas_mm"]}
 
 
 def main() -> int:
@@ -35,6 +41,7 @@ def main() -> int:
         os.path.abspath(__file__))))
     p.add_argument("--label", default="tree")
     p.add_argument("--repeats", type=int, default=5)
+    p.add_argument("--tau", type=int, choices=sorted(EVAL_FLAGS), default=1)
     p.add_argument("--out", default=None)
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -65,13 +72,14 @@ def main() -> int:
             cfg, "cuda", tree=init_jax_params(cfg.model, seed=0))
         save_checkpoint(d, state, cfg)
         del state
-        argv = EVAL_FLAGS + ["--checkpoint", d]
+        argv = EVAL_FLAGS[args.tau] + ["--checkpoint", d]
         run(argv)
         for i in range(args.repeats):
             t0 = time.perf_counter()
             clock, pairs = run(argv)
             wall = (time.perf_counter() - t0) * 1e3
-            print(json.dumps({"label": args.label, "repeat": i,
+            print(json.dumps({"label": args.label, "tau": args.tau,
+                              "repeat": i,
                               "wall_ms": round(wall, 2), "pairs": pairs,
                               **{k: round(v, 2) for k, v in clock.items()}}),
                   flush=True)
@@ -87,7 +95,7 @@ def main() -> int:
         by_kernel[e.name] = by_kernel.get(e.name, 0) + 1
     ops = {e.key: e.count for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CPU}
-    print(json.dumps({"label": args.label,
+    print(json.dumps({"label": args.label, "tau": args.tau,
                       "root": os.path.dirname(eval_torch.__file__),
                       "profiled_wall_ms": round(wall, 2),
                       "detect_ms": round(clock["detect"], 2),
