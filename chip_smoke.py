@@ -39,10 +39,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    kernel's widths; unsorted proposals and the scratch layout (12,000 and
    49,152 boxes a problem); the tube-linking kernel at the eval paths'
    shapes (30 classes, 20 slots, 20 tubes; 16 frames at tau=1, 8
-   keyframes at tau=2) under every score boost, and on the problems of
-   tests/linking_cases.py (tied scores, 45 slots, one frame, the scratch
-   layout), decisions and tube scores bit for bit against its plain
-   form, rescored scores to 1e-6;
+   keyframes at tau=2) and at a VID val snippet's 300 frames under every
+   score boost, with its chain (dependent steps, ns a step), and on the
+   problems of tests/linking_cases.py (tied scores, 45 and 33 slots, one
+   frame, the link weights and then the scores in scratch), decisions and
+   tube scores bit for bit against its plain form, rescored scores to
+   1e-6;
 4. small references: the tiny test config in float32 through the kernels
    on the card against the plain versions on the CPU, for the video path,
    for one train step (same weights, same injected draws; losses, every
@@ -264,6 +266,9 @@ LINK_TOL = 1e-6
 LINK_BOOSTS = ("mean_top_half", "mean", "max")
 # the eval paths' snippets: 16 frames at tau=1, their 8 keyframes at tau=2
 LINK_FRAMES = {"eval_video": 16, "pair": 8}
+# the mean length of an ImageNet VID val snippet (176,126 frames in 555
+# snippets), linked whole at tau=1
+LINK_VID_FRAMES = 300
 
 
 def log(msg: str) -> None:
@@ -1201,21 +1206,22 @@ def link_exact(args: tuple, k: int, boost: str, weight: float,
     return err.max().item()
 
 
-def phase_linking(cfg: Config, path: str, seed: int) -> dict:
-    """The linking kernel at the shapes of the eval path `path` (the 30
-    classes, eval.max_per_class slots, eval.max_tubes_per_class tubes,
-    LINK_FRAMES[path] frames) on detections made as tests/linking_cases.py
-    makes them, under every score boost against the plain form; CUDA-event
-    times of the kernel and of the plain form on the card at the config's
-    boost."""
+def link_timing(cfg: Config, t: int, seed: int, what: str) -> dict:
+    """The linking kernel at the eval widths (the 30 classes,
+    eval.max_per_class slots, eval.max_tubes_per_class tubes) and `t`
+    frames on detections made as tests/linking_cases.py makes them, under
+    every score boost against the plain form; CUDA-event times of the
+    kernel and of the plain form on the card at the config's boost, the
+    roofline bound and the chain the kernel cannot avoid, logged."""
     e = cfg.eval
-    c, t = cfg.model.num_classes - 1, LINK_FRAMES[path]
+    c = cfg.model.num_classes - 1
     n, k, w = e.max_per_class, e.max_tubes_per_class, e.link_iou_weight
     args = link_inputs(dict(seed=seed, c=c, t=t, n=n))
-    err = max(link_exact(args, k, b, w, f"{path} C={c} T={t} N={n} K={k}")
+    err = max(link_exact(args, k, b, w, f"{what} C={c} T={t} N={n} K={k}")
               for b in LINK_BOOSTS)
     kw = dict(max_tubes=k, link_iou_weight=w, score_boost=e.tube_score_boost)
     ms = time_ms(lambda: link_ops.link_cuda(*args, **kw), iters=20)
+    dev_ms = device_ms(lambda: link_ops.link_cuda(*args, **kw), iters=20)
     plain_ms = time_ms(lambda: link_ops.link_all_classes_plain(*args, **kw),
                        iters=3, warmup=1)
     # each box and tracked box (16 + 16 B), score (4) and valid flag (1)
@@ -1228,27 +1234,44 @@ def phase_linking(cfg: Config, path: str, seed: int) -> dict:
     # min and a max, a subtraction and an addition an axis: 8; 2 clamps and
     # a product; the union's addition and subtraction; its test and the
     # division; the weight's product: 16); then a tube's link and
-    # candidate a pair (p_t + p_t+1, + w IoU, + v, the max: 4). The
-    # kernel's recomputing the IoU for every tube is not counted.
+    # candidate a pair (p_t + p_t+1, + w IoU, + v, the max: 4).
     pairs = c * (t - 1) * n * n
     ops = c * (t - 1) * 2 * n * 7 + pairs * 16 + k * pairs * 4
     nbytes = c * t * n * 42 + c * k * (8 * t + 5)
     bound_ms, bound_by = bound(nbytes, ops, F32_OPS_PER_S)
-    log(f"linking [{path}]: C={c} T={t} N={n} K={k} "
-        f"({link_ops.link_layout(t, n).body} layout): decisions and tube "
-        f"scores bit-equal to the plain form under {list(LINK_BOOSTS)}, "
-        f"rescored max_abs_err {err:.3g} (tol {LINK_TOL} (1 + |want|)); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"({e.tube_score_boost}), library: none (no PyTorch call links "
-        f"tubes), bound_us {bound_ms * 1e3:.3f} ({bound_by}, "
-        f"{nbytes / 1e3:.1f} KB, {ops / 1e6:.1f} M float32 ops), "
-        f"{bound_ms / ms:.3%} of the bound")
+    # the chain: tubes claim in turn and a tube's frames are a max-plus
+    # recurrence, so a class is K (T - 1) dependent frame steps and K T
+    # dependent backtrack steps; the classes run side by side
+    steps = k * (t - 1) + k * t
+    lay = link_ops.link_layout(t, n)
+    log(f"linking [{what}]: C={c} T={t} N={n} K={k} ({lay.body} layout, "
+        f"{lay.smem} B shared, in scratch {list(lay.in_scratch)}): "
+        f"decisions and tube scores bit-equal to the plain form under "
+        f"{list(LINK_BOOSTS)}, rescored max_abs_err {err:.3g} (tol "
+        f"{LINK_TOL} (1 + |want|)); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms ({e.tube_score_boost}), kernel device ms "
+        f"{dev_ms} (torch.profiler), library: none (no "
+        f"PyTorch call links tubes), bound_us {bound_ms * 1e3:.3f} "
+        f"({bound_by}, {nbytes / 1e3:.1f} KB, {ops / 1e6:.1f} M float32 "
+        f"ops), {bound_ms / ms:.3%} of the bound; chain {steps} dependent "
+        f"steps a class ({k} x {t - 1} frame steps + {k} x {t} backtrack), "
+        f"{ms * 1e6 / steps:.1f} ns a step by the events"
+        + ("" if dev_ms is None else
+           f", {dev_ms * 1e6 / steps:.1f} by the device time"))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_linking(cfg: Config, path: str, seed: int) -> dict:
+    """The linking kernel at the shapes of the eval path `path`
+    (LINK_FRAMES[path] frames), as `link_timing` gives it, as an entry of
+    the kernels line."""
+    timing = link_timing(cfg, LINK_FRAMES[path], seed, path)
     return {"name": "linking", "path": path, "route": "cuda",
             "source": "dtt_torch/ops/csrc/linking.cu",
             "replaces": "dtt/eval/linking.py:80 (link_tubes, XLA's lax.scan "
                         "program vmapped over the classes; no TPU kernel)",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            **timing, "library_ms": None}
 
 
 def phase_linking_cases() -> None:
@@ -1263,7 +1286,8 @@ def phase_linking_cases() -> None:
         lay = link_ops.link_layout(kw["t"], kw["n"])
         done.append(f"{name} C={kw['c']} T={kw['t']} N={kw['n']} K={k} "
                     f"({lay.body}, {lay.smem} B shared, {lay.scratch} B "
-                    f"scratch a class; max |d rescored| {err:.3g})")
+                    f"scratch a class: {list(lay.in_scratch)}; max |d "
+                    f"rescored| {err:.3g})")
     log(f"linking cases under {list(LINK_BOOSTS)}: decisions and tube "
         f"scores bit-equal to the plain form: {'; '.join(done)}")
 
@@ -3006,6 +3030,7 @@ def main() -> int:
                             "parallel_video"))),
                phase_linking(cfg, "pair", seed=30),
                phase_linking(cfg, "eval_video", seed=31)]
+    link_timing(cfg, LINK_VID_FRAMES, seed=32, what="vid_len")
     # the parallel train and pair paths give each kernel the shapes of the
     # serial ones (one rank: the same batch), so their entries are the
     # serial ones' times, marked with the path they were measured at (the

@@ -43,7 +43,8 @@ import torch
 from dtt_torch.core.anchors import grid_anchors_for
 from dtt_torch.core.config import Config
 from dtt_torch.core.device import resolve_device
-from dtt_torch.eval.linking import Tubes, link_all_classes
+from dtt_torch.eval.linking import (Tubes, link_all_classes, to_device,
+                                    tubes_numpy)
 from dtt_torch.models.dnt import (DnT, FrameFeats,
                                   decode_detections_batched,
                                   decode_frame_detections, detect_frame,
@@ -556,14 +557,15 @@ def interpolate_tubes(tubes: Tubes, boxes: np.ndarray, eval_ts: list[int],
 
 def link_snippet(cfg: Config, boxes, scores, tracked, valid, device=None):
     """Tube linking + rescoring for one snippet's stacked (C-1, T, M, ...)
-    numpy detections on `device` (CUDA unless the caller passes "cpu").
-    Returns the rescored scores and the Tubes, as numpy arrays."""
+    numpy detections on `device` (CUDA unless the caller passes "cpu"), by
+    one copy of the four inputs to the device and one copy of the five
+    outputs back. Returns the rescored scores and the Tubes, as numpy
+    arrays."""
     device = resolve_device(device)
-    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
     tubes = link_all_classes(
-        put(boxes), put(scores), put(tracked), put(valid),
+        *to_device((boxes, scores, tracked, valid), device),
         max_tubes=cfg.eval.max_tubes_per_class,
         link_iou_weight=cfg.eval.link_iou_weight,
         score_boost=cfg.eval.tube_score_boost)
-    tubes = Tubes(*(x.cpu().numpy() for x in tubes))
+    tubes = tubes_numpy(tubes)
     return tubes.rescored, tubes

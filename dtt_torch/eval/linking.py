@@ -23,10 +23,13 @@ frames and the backtrack, one compiled device program. Here:
   all frames and tubes.
 * `link_cuda` — the hand-written kernel ``dtt_link_tubes``
   (``dtt_torch/ops/csrc/linking.cu``): every class of a snippet in one
-  launch, a thread block a class; `link_layout` says where its working
-  arrays sit. Decisions and tube scores equal the plain form's bit for
-  bit; the rescored scores to float32 roundoff (the boost's sum is taken
-  in another order).
+  launch, a thread block a class, each tube's chain on one warp over the
+  plain form's link scores, kept in shared memory and updated where a tube
+  claims; `link_layout` says where its working arrays sit. Decisions and
+  tube scores equal the plain form's bit for bit; the rescored scores to
+  float32 roundoff (the boost's sum is taken in another order).
+* `to_device` and `tubes_numpy` — `link_snippet`'s one copy of its inputs
+  to the card and one of `link_cuda`'s outputs back.
 * `link_all_classes` — the dispatcher: the plain form on CPU tensors, the
   kernel on CUDA tensors, or it raises; `link_tubes` is its one-class
   case.
@@ -39,8 +42,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from dtt_torch.core import boxes as box_ops
@@ -48,9 +53,18 @@ from dtt_torch.ops import _build
 
 _NEG = -1e9
 _BOOSTS = ("mean_top_half", "mean", "max")
-# what the kernel's static part takes of a block's shared memory
-# (``kStaticSmem`` in ``csrc/linking.cu``)
-_STATIC_SMEM = 1_024
+# the kernel's constants (``csrc/linking.cu``): what its static part takes
+# of a block's shared memory (kStaticSmem), its threads a block (kThreads),
+# the slots up to which a backpointer is a byte (kNarrowBack), v's bytes a
+# slot (kSlotBytes), its working arrays in the order they leave shared
+# memory (kArrays of them) and the link frames a ring holds (kRing)
+_STATIC_SMEM = 0
+_THREADS = 512
+_NARROW_BACK = 255
+_SLOT_BYTES = 8
+_ARRAYS = ("link weights", "links", "claimed scores", "p", "backpointers",
+           "live words", "path", "v", "link ring")
+_RING = 4
 
 
 class Tubes(NamedTuple):
@@ -165,38 +179,124 @@ def link_all_classes_plain(boxes: torch.Tensor,    # (C, T, N, 4)
 
 
 class LinkLayout(NamedTuple):
-    body: str        # "shared" or "scratch": where the backpointers sit
+    body: str        # "shared": every array in shared memory; "scratch"
     smem: int        # dynamic shared memory a block, bytes
     scratch: int     # scratch a class, bytes (0 for "shared")
-    n_shared: int    # how many of v, the claimed scores and the
-                     # backpointers sit in shared memory, in that order
+    n_shared: int    # how many of `_ARRAYS`, from the last, sit in shared
+                     # memory
+    in_scratch: tuple  # the names of those in scratch, in order
+    ring: bool       # links in scratch reach the chain through a ring of
+                     # `_RING` frames in shared memory
+
+
+def _array_bytes(t: int, n: int, ring: bool) -> tuple:
+    """The bytes of each of ``dtt_link_tubes``'s working arrays (in
+    `_ARRAYS`'s order) for `t` frames of `n` slots, each padded to 16: a
+    frame of link weights or links n rows of a stride of at least n floats
+    that is 4 (mod 8), p and v `n` rounded up to 4 slots, the ring (its
+    frames and an mbarrier a frame) only with `ring`. The kernel's
+    ``dtt_link_array_bytes`` gives the same (a GPU test holds them)."""
+    back = 1 if n <= _NARROW_BACK else 4
+    n4 = -(-n // 4) * 4
+    frame = 4 * n * (n4 | 4)
+    pad = lambda b: -(-b // 16) * 16            # noqa: E731
+    return ((t - 1) * frame,                    # link weights
+            (t - 1) * frame,                    # links
+            pad(8 * (_THREADS // 32) * t),      # claimed scores, a warp
+            4 * t * n4,                         # p
+            pad(back * (t - 1) * n),            # backpointers
+            pad(4 * t * -(-n // 32)),           # live words
+            pad(back * t),                      # path
+            _SLOT_BYTES * n4,                   # v
+            _RING * frame + pad(8 * _RING) if ring else 0)   # link ring
+
+
+def _fit(sizes: tuple) -> tuple:
+    """(k, bytes): the arrays from the k-th on fit in shared memory."""
+    k, smem = len(sizes), 0
+    while k and smem + sizes[k - 1] + _STATIC_SMEM <= _build.SMEM_LIMIT:
+        k -= 1
+        smem += sizes[k]
+    return k, smem
 
 
 def link_layout(t: int, n: int) -> LinkLayout:
     """Where ``dtt_link_tubes`` keeps the working arrays of a class of `t`
-    frames and `n` slots: v (two buffers, 8 bytes a slot), the claimed
-    scores (4 bytes a frame) and the backpointers (4 bytes a slot of each
-    frame but the last), each padded to 16 bytes. They take shared memory
-    in that order while they fit a block's 227 KB beside the kernel's
-    static 1 KB (the backpointers at n = 20 up to t = 2,754); the rest sits
-    in a scratch buffer of the wrapper's, one slice a class."""
-    pad = lambda b: -(-b // 16) * 16            # noqa: E731
-    sizes = (pad(8 * n), pad(4 * t), pad(4 * (t - 1) * n))
-    smem, k = 0, 0
-    while k < 3 and smem + sizes[k] + _STATIC_SMEM <= _build.SMEM_LIMIT:
-        smem += sizes[k]
-        k += 1
-    return LinkLayout("shared" if k == 3 else "scratch", smem,
-                      sum(sizes[k:]), k)
+    frames and `n` slots: `_ARRAYS` leave shared memory in that order, the
+    link weights first, until the rest fits a block's 227 KB beside the
+    kernel's static bytes (at n = 20 the link weights leave from t = 69 on,
+    the links from t = 128); those that leave sit in a scratch buffer of
+    the wrapper's, one slice a class. Where the links leave, a ring of
+    their frames joins the shared arrays if it fits there."""
+    sizes = _array_bytes(t, n, False)
+    k, smem = _fit(sizes)
+    ring = False
+    if k > 1:
+        with_ring = _array_bytes(t, n, True)
+        rk, rsmem = _fit(with_ring)
+        if rk < len(with_ring):
+            sizes, k, smem, ring = with_ring, rk, rsmem, True
+    return LinkLayout("shared" if k == 0 else "scratch", smem,
+                      sum(sizes[:k]), len(sizes) - k,
+                      tuple(a for a, b in zip(_ARRAYS, sizes[:k]) if b),
+                      ring)
+
+
+def _packed_bytes(fields) -> int:
+    """The bytes of arrays of `fields` ((shape, dtype) each) packed at
+    16-byte aligned offsets."""
+    return sum(-(-math.prod(s) * d.itemsize // 16) * 16 for s, d in fields)
+
+
+def _packed(buf: torch.Tensor, fields) -> list:
+    """The arrays of `fields` ((shape, dtype) each) packed in the uint8
+    `buf` at 16-byte aligned offsets, as views."""
+    out, at = [], 0
+    for shape, dtype in fields:
+        nbytes = math.prod(shape) * dtype.itemsize
+        out.append(buf[at:at + nbytes].view(dtype).view(shape))
+        at += -(-nbytes // 16) * 16
+    return out
+
+
+def to_device(arrays, device) -> list:
+    """numpy arrays as tensors on `device` by one host-to-device copy: packed
+    into one host buffer (pinned where `device` is a card, from PyTorch's
+    caching host allocator, which keeps a block until its copies are done),
+    copied once, and viewed there."""
+    src = [np.ascontiguousarray(a) for a in arrays]
+    fields = [(a.shape, torch.from_numpy(a).dtype) for a in src]
+    device = torch.device(device)
+    host = torch.empty(_packed_bytes(fields), dtype=torch.uint8,
+                       pin_memory=device.type != "cpu")
+    for view, a in zip(_packed(host, fields), src):
+        view.numpy()[...] = a
+    return _packed(host.to(device, non_blocking=True), fields)
+
+
+def tubes_numpy(tubes: Tubes) -> Tubes:
+    """`tubes` as numpy arrays; `link_cuda`'s, whose fields are views of one
+    device buffer, by one device-to-host copy (into a pinned buffer, then
+    out to arrays of their own)."""
+    store = tubes[0].untyped_storage()
+    if tubes[0].device.type == "cpu" or any(
+            x.untyped_storage().data_ptr() != store.data_ptr() for x in tubes):
+        return Tubes(*(x.cpu().numpy() for x in tubes))
+    dev = tubes[0].device
+    host = torch.empty(store.nbytes(), dtype=torch.uint8, pin_memory=True)
+    host.copy_(torch.empty(0, dtype=torch.uint8, device=dev).set_(store))
+    return Tubes(*(host[x.storage_offset() * x.element_size():][:x.nbytes]
+                   .view(x.dtype).view(x.shape).numpy().copy()
+                   for x in tubes))
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("linking").dtt_link_tubes
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -212,8 +312,9 @@ def link_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     (C, T, N) bool, on one CUDA device, T and N >= 1; max_tubes >= 1 and
     link_iou_weight a number (taken as float32). Launches on the current
     stream and never reads back to the host; counts its launches in
-    ``link_cuda.launches``. Where `link_layout` puts an array in scratch it
-    allocates the scratch buffer.
+    ``link_cuda.launches``. The five fields of the result are views of one
+    device buffer (`tubes_numpy` reads them back by one copy). Where
+    `link_layout` puts an array in scratch it allocates the scratch buffer.
     """
     if score_boost not in _BOOSTS:
         raise ValueError(f"unknown tube_score_boost {score_boost!r}")
@@ -246,12 +347,11 @@ def link_cuda(boxes: torch.Tensor, scores: torch.Tensor,
                                 for x in (scores, tracked, valid)):
         raise ValueError("link_cuda: boxes, scores, tracked and valid must "
                          "be on one CUDA device")
-    det_idx = torch.empty((c, max_tubes, t), dtype=torch.int64, device=dev)
-    tube_valid = torch.empty((c, max_tubes), dtype=torch.bool, device=dev)
-    tube_score = torch.empty((c, max_tubes), dtype=torch.float32, device=dev)
-    rescored = torch.empty((c, t, n), dtype=torch.float32, device=dev)
-    in_tube = torch.empty((c, t, n), dtype=torch.bool, device=dev)
-    tubes = Tubes(det_idx, tube_valid, tube_score, rescored, in_tube)
+    fields = [((c, max_tubes, t), torch.int64), ((c, max_tubes), torch.bool),
+              ((c, max_tubes), torch.float32), ((c, t, n), torch.float32),
+              ((c, t, n), torch.bool)]
+    tubes = Tubes(*_packed(torch.empty(_packed_bytes(fields),
+                                       dtype=torch.uint8, device=dev), fields))
     if c == 0:
         return tubes
     fn = _entry()
@@ -260,10 +360,9 @@ def link_cuda(boxes: torch.Tensor, scores: torch.Tensor,
                if layout.scratch else None)
     bx, sc, tr, va = (x.contiguous() for x in (boxes, scores, tracked, valid))
     err = fn(bx.data_ptr(), tr.data_ptr(), sc.data_ptr(), va.data_ptr(),
-             det_idx.data_ptr(), tube_valid.data_ptr(), tube_score.data_ptr(),
-             rescored.data_ptr(), in_tube.data_ptr(), c, t, n, max_tubes,
+             *(x.data_ptr() for x in tubes), c, t, n, max_tubes,
              float(link_iou_weight), _BOOSTS.index(score_boost), layout.smem,
-             layout.n_shared, layout.scratch,
+             layout.n_shared, layout.ring, layout.scratch,
              None if scratch is None else scratch.data_ptr(), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:

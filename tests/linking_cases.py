@@ -9,13 +9,22 @@ the problems the linking kernel is held at against its plain form: the
 eval path's widths (the 30 VID classes, N = ``eval.max_per_class`` = 20,
 K = ``eval.max_tubes_per_class`` = 20) at T = 16 (tau=1) and T = 8 (tau=2
 keyframes), with and without tied scores, and at T = 16 with non-finite
-inputs; N = 45 (not a multiple of a warp); T = 1; and a T long enough
-that the kernel's backpointers take the scratch layout.
+inputs; the eval widths at T = 300, the mean length of an ImageNet VID
+val snippet (from W_SCRATCH_T on the links sit in scratch); N = 45 (not
+a multiple of a warp) and N = 33 (two live words a frame); N = 300 (int32
+backpointers, and a link frame of 360 KB, so the links sit in scratch at
+T = 4); T = 1; T = W_SCRATCH_T, the first length at which the kernel's
+links (the link weights with the scores folded in) leave shared memory at
+N = 20, with and without non-finite inputs; and a T long enough that the
+scores leave it too.
 """
 
 import numpy as np
 
 EVAL_C, EVAL_N, EVAL_K = 30, 20, 20
+# the first T at which dtt_link_tubes's links leave shared memory at N =
+# EVAL_N (link_layout; a CPU test holds it)
+W_SCRATCH_T = 128
 
 
 def detections(seed, c=4, t=7, n=5, tied=False, nonfinite=False):
@@ -69,6 +78,13 @@ def kernel_cases():
             ("eval_tau2_tied", dict(seed=3, t=8, tied=True, **ev), EVAL_K),
             ("eval_tau1_nonfinite", dict(seed=8, t=16, nonfinite=True, **ev),
              EVAL_K),
+            ("vid_len", dict(seed=10, t=300, **ev), EVAL_K),
             ("n45", dict(seed=4, c=6, t=16, n=45), EVAL_K),
+            ("n33", dict(seed=11, c=6, t=16, n=33), EVAL_K),
+            ("n300", dict(seed=13, c=4, t=4, n=300), 3),
             ("t1", dict(seed=5, t=1, **ev), EVAL_K),
+            ("w_scratch", dict(seed=12, c=8, t=W_SCRATCH_T, n=EVAL_N),
+             EVAL_K),
+            ("w_scratch_nonfinite", dict(seed=14, c=8, t=W_SCRATCH_T,
+                                         n=EVAL_N, nonfinite=True), EVAL_K),
             ("scratch", dict(seed=6, c=4, t=1400, n=45), 3)]

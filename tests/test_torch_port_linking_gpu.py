@@ -4,16 +4,20 @@ scores and claimed detections bit for bit, rescored scores to 1e-6 (the
 boost's sum is taken in another order), under every ``score_boost``, on
 the problems of ``tests/linking_cases.py``: the eval path's widths (30
 classes, 20 slots, 20 tubes) at T = 16 and T = 8 with and without tied
-scores and at T = 16 with NaN and infinite inputs (NaN where the plain
-form has NaN), N = 45, T = 1, and a T long enough that the backpointers
-take the scratch layout; then a T so long that the claimed scores take it too, one
-launch a call, the same bits every run, and a call that cannot launch
-raises. Marked ``gpu``: they skip without a card. This file imports no
-JAX:
+scores, at T = 16 with NaN and infinite inputs (NaN where the plain form
+has NaN) and at T = 300 (a VID val snippet's length: the links in
+scratch), N = 45 and N = 33, N = 300 (int32 backpointers, the links in
+scratch), T = 1, T just past where the links leave shared memory (also
+with NaN and infinite inputs), and a T long enough that the scores leave it too; then a T so long that the live
+words leave it as well, `link_layout`'s sizes against the kernel's own,
+one launch a call, one read-back of the five outputs, the same bits every
+run, and a call that cannot launch raises. Marked ``gpu``: they skip
+without a card. This file imports no JAX:
 
     python -m pytest --noconftest -q tests/test_torch_port_linking_gpu.py
 """
 
+import ctypes
 import os
 import sys
 
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 from dtt_torch.eval import linking as tlink
+from dtt_torch.ops import _build
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from linking_cases import detections, kernel_cases  # noqa: E402
@@ -73,8 +78,17 @@ def test_link_kernel_matches_plain(cuda, name, boost):
     assert got.det_idx.min() >= 0 and got.det_idx.max() < kw["n"]
     if kw.get("nonfinite"):
         assert not got.tube_valid[4].any() and got.tube_score[4].isnan().all()
+    lay = tlink.link_layout(kw["t"], kw["n"])
+    if name in ("vid_len", "w_scratch", "w_scratch_nonfinite", "n300"):
+        assert lay.in_scratch == ("link weights", "links")
+        # n300: int32 backpointers, and the links read from scratch with
+        # no ring (one frame of them is 360 KB)
+        assert lay.ring is (name != "n300")
+    if name == "n300":
+        assert kw["n"] > tlink._NARROW_BACK
     if name == "scratch":
-        assert tlink.link_layout(kw["t"], kw["n"]).body == "scratch"
+        assert lay.in_scratch == ("link weights", "links", "claimed scores",
+                                  "p")
 
 
 def test_link_kernel_takes_another_iou_weight(cuda):
@@ -83,11 +97,78 @@ def test_link_kernel_takes_another_iou_weight(cuda):
 
 
 def test_link_kernel_keeps_the_claimed_scores_in_scratch(cuda):
-    """58,000 frames of 2 slots: the claimed scores pass a block's shared
-    memory and join the backpointers in scratch (only v stays)."""
+    """58,000 frames of 2 slots: the claimed scores, p, the backpointers
+    and the live words pass a block's shared memory and join the link
+    weights and the links in scratch (only the path, v and the links' ring
+    stay)."""
     kw = dict(seed=9, c=4, t=58_000, n=2)
-    assert tlink.link_layout(kw["t"], kw["n"]).n_shared == 1
+    lay = tlink.link_layout(kw["t"], kw["n"])
+    assert lay.in_scratch == tlink._ARRAYS[:6] and lay.ring
     _check(_on(kw, cuda), 2, "mean_top_half")
+
+
+def test_link_layout_sizes_are_the_kernels(cuda):
+    """`link_layout` plans with the kernel's own array sizes
+    (``dtt_link_array_bytes``), with the ring and without, across the
+    narrow and int32 backpointers, one and two live words and odd
+    strides."""
+    fn = _build.load("linking").dtt_link_array_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int64 * len(tlink._ARRAYS))()
+    for t in (1, 2, 7, 16, 69, 128, 300, 1400, 58_000):
+        for n in (1, 2, 3, 20, 31, 32, 33, 45, 255, 256, 300, 30_000):
+            for ring in (False, True):
+                assert fn(t, n, ring, out) == len(tlink._ARRAYS)
+                assert tuple(out) == tlink._array_bytes(t, n, ring), (
+                    t, n, ring)
+    assert fn(0, 20, 0, out) == -1 and fn(16, 0, 0, out) == -1
+
+
+def test_link_snippet_copies_once_each_way(cuda, monkeypatch):
+    """`to_device` copies the four inputs up as one buffer and `link_cuda`'s
+    five outputs, views of one device buffer, come back by one copy in
+    `tubes_numpy`, twice in a row (pinned buffers the caching host
+    allocator hands out again); through them the kernel's result equals
+    the plain form's on the card."""
+    kw, k = CASES["eval_tau1"]
+    arrays = detections(**kw)
+    want = tlink.link_all_classes_plain(*_on(kw, cuda), max_tubes=k)
+    ups, downs = [], []
+    to, copy = torch.Tensor.to, torch.Tensor.copy_
+
+    def counted_to(x, *a, **kw):
+        out = to(x, *a, **kw)
+        if out.is_cuda and not x.is_cuda:
+            ups.append(x.numel())
+        return out
+
+    def counted_copy(x, src, *a, **kw):
+        if src.is_cuda and not x.is_cuda:
+            downs.append(src.numel())
+        return copy(x, src, *a, **kw)
+    for _ in range(2):
+        monkeypatch.setattr(torch.Tensor, "to", counted_to)
+        args = tlink.to_device(arrays, cuda)
+        monkeypatch.undo()
+        assert len(ups) == 1 and len({x.untyped_storage().data_ptr()
+                                      for x in args}) == 1
+        got = tlink.link_cuda(*args, max_tubes=k)
+        assert len({x.untyped_storage().data_ptr() for x in got}) == 1
+        monkeypatch.setattr(torch.Tensor, "copy_", counted_copy)
+        host = tlink.tubes_numpy(got)
+        monkeypatch.undo()
+        assert len(downs) == 1
+        ups.clear()
+        downs.clear()
+        for name in EXACT:
+            torch.testing.assert_close(torch.from_numpy(getattr(host, name)),
+                                       getattr(want, name).cpu(), rtol=0,
+                                       atol=0, equal_nan=True)
+        torch.testing.assert_close(torch.from_numpy(host.rescored),
+                                   want.rescored.cpu(), rtol=1e-6, atol=1e-6,
+                                   equal_nan=True)
 
 
 def test_link_kernel_is_deterministic(cuda):

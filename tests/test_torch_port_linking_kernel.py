@@ -3,9 +3,10 @@
 card) against dtt's ``link_all_classes`` at the eval path's widths (the 30
 VID classes, ``max_per_class`` = 20 slots, ``max_tubes_per_class`` = 20
 tubes) at T = 16 (tau=1) and T = 8 (tau=2 keyframes); `link_layout` around
-its shared-memory limit; the dispatcher taking the plain form for CPU
-tensors; and `link_cuda` refusing CPU tensors and bad arguments before it
-builds or launches anything.
+its shared-memory limit and against the kernel source's constants; the
+one-buffer upload and read-back of `link_snippet`; the dispatcher taking
+the plain form for CPU tensors; and `link_cuda` refusing CPU tensors and
+bad arguments before it builds or launches anything.
 
 Decisions (paths, tube validity, claimed detections) are equal exactly;
 rescored and tube scores to 1e-6, as in ``test_torch_port_linking.py``
@@ -23,7 +24,8 @@ from dtt.eval.linking import link_all_classes as j_link_all_classes
 
 from dtt_torch.eval import linking as tlink
 from dtt_torch.ops import _build
-from tests.linking_cases import EVAL_C, EVAL_K, EVAL_N, detections
+from tests.linking_cases import (EVAL_C, EVAL_K, EVAL_N, W_SCRATCH_T,
+                                 detections, kernel_cases)
 
 BOOSTS = ("mean_top_half", "mean", "max")
 
@@ -77,54 +79,135 @@ def test_plain_form_matches_dtt_on_nonfinite_inputs(t, score_boost):
     assert np.isnan(got.rescored[0].numpy()).any()
 
 
-def _fits(t, n):
-    sizes = [-(-b // 16) * 16 for b in (8 * n, 4 * t, 4 * (t - 1) * n)]
-    return sum(sizes) + tlink._STATIC_SMEM <= _build.SMEM_LIMIT
+def _fits(t, n, ring=False, leave=0):
+    return (sum(tlink._array_bytes(t, n, ring)[leave:]) + tlink._STATIC_SMEM
+            <= _build.SMEM_LIMIT)
 
 
 @pytest.mark.parametrize("n", [1, 20, 45, 300])
 def test_link_layout_switches_at_the_shared_limit(n):
-    """The backpointers stay in shared memory up to the last T at which
-    v, the claimed scores and they fit beside the static 1 KB, and go to
-    scratch one frame later; the shared bytes never pass the limit."""
+    """Every array stays in shared memory up to the last T at which they all
+    fit beside the static bytes; one frame later the link weights go to
+    scratch (and the links with them at n = 300); once the links must go
+    too, a ring of four of their frames takes shared memory where it fits
+    (not at n = 300); the shared bytes never pass the limit."""
+    sizes = tlink._array_bytes
     last = max(t for t in range(1, 60_000 // n + 2) if _fits(t, n))
+    links = min(t for t in range(last + 1, 60_000 // n + 3)
+                if not _fits(t, n, leave=1))
     shared, past = tlink.link_layout(last, n), tlink.link_layout(last + 1, n)
-    assert shared.body == "shared" and shared.n_shared == 3
-    assert shared.scratch == 0
-    assert past.body == "scratch" and past.n_shared == 2
-    assert past.scratch == -(-4 * last * n // 16) * 16
-    for lay in (shared, past):
-        assert lay.smem % 16 == 0
+    assert shared.body == "shared" and shared.n_shared == 9
+    assert shared.scratch == 0 and shared.in_scratch == ()
+    assert not shared.ring and shared.smem == sum(sizes(last, n, False))
+    assert past.body == "scratch"
+    assert past.in_scratch[0] == "link weights"
+    assert len(past.in_scratch) == (1 if links > last + 1 else 2)
+    assert past.scratch >= sizes(last + 1, n, False)[0]
+    assert sizes(last + 1, n, False)[0] == last * 4 * n * (-(-n // 4) * 4 | 4)
+    both = tlink.link_layout(links, n)
+    assert both.in_scratch == ("link weights", "links")
+    assert both.ring == (n < 300) and both.n_shared == 7
+    assert both.smem == sum(sizes(links, n, both.ring)[2:])
+    for lay in (shared, past, both):
+        assert lay.smem % 16 == 0 and lay.scratch % 16 == 0
         assert lay.smem + tlink._STATIC_SMEM <= _build.SMEM_LIMIT
 
 
 def test_link_layout_at_the_eval_widths_and_past_every_limit():
-    """The eval path's snippets sit wholly in shared memory; at N = 20
-    the backpointers move to scratch from T = 2,755; a T too long for the
-    claimed scores and an N too wide for v move those too, in order."""
+    """The eval path's snippets sit wholly in shared memory; at N = 20 the
+    links leave it from T = W_SCRATCH_T (the `w_scratch` case) and a
+    VID-length snippet keeps everything else there beside their ring;
+    longer T and wider N move the claimed scores, p, the backpointers, the
+    live words, the path and v after the links, in that order, and a wide
+    N takes int32 backpointers and no ring. The sizes are written out here
+    (W, the links, the claimed scores, p, the backpointers, the live
+    words, the path, v, the ring's four frames and mbarriers)."""
     assert tlink.link_layout(16, 20) == tlink.LinkLayout(
-        "shared", 160 + 64 + 1200, 0, 3)
-    assert tlink.link_layout(1, 20) == tlink.LinkLayout("shared", 176, 0, 3)
-    assert tlink.link_layout(2754, 20).body == "shared"
-    assert tlink.link_layout(2755, 20).body == "scratch"
+        "shared", 2 * 24000 + 2048 + 1280 + 304 + 64 + 16 + 160, 0, 9, (),
+        False)
+    assert tlink.link_layout(1, 20) == tlink.LinkLayout(
+        "shared", 128 + 80 + 16 + 16 + 160, 0, 9, (), False)
+    assert len(tlink.link_layout(W_SCRATCH_T - 1, 20).in_scratch) == 1
+    assert tlink.link_layout(W_SCRATCH_T, 20).in_scratch == (
+        "link weights", "links")
+    assert tlink.link_layout(300, 20) == tlink.LinkLayout(
+        "scratch", 38400 + 24000 + 5984 + 1200 + 304 + 160 + 4 * 1600 + 32,
+        2 * 299 * 1600, 7, ("link weights", "links"), True)
+    assert tlink.link_layout(1400, 45).in_scratch == (
+        "link weights", "links", "claimed scores", "p")
     long = tlink.link_layout(60_000, 1)
-    assert long.n_shared == 1 and long.smem == 16
-    assert long.scratch == 240_000 + 240_000     # 4 * 59,999 padded
+    assert long.n_shared == 3 and long.smem == 60_000 + 32 + 4 * 16 + 32
+    assert long.in_scratch == tlink._ARRAYS[:6]
     wide = tlink.link_layout(2, 30_000)
-    assert wide.n_shared == 0 and wide.smem == 0
-    assert wide.scratch == 240_000 + 16 + 120_000
+    assert wide.n_shared == 1 and wide.smem == 0 and not wide.ring
+    assert wide.in_scratch == tlink._ARRAYS[:-1]
+    frame = 30_000 * 30_004 * 4
+    assert wide.scratch == (2 * frame + 256 + 240_000 + 4 * 30_000
+                            + 7504 + 16 + 240_000)  # int32 backpointers
+    n300 = tlink.link_layout(4, 300)                # the `n300` case
+    assert n300.in_scratch == ("link weights", "links") and not n300.ring
 
 
 def test_link_layout_agrees_with_the_kernel_source():
-    """The limit and the static bytes `link_layout` plans with are the
-    kernel's, and so is every kernel source's own shared-memory limit."""
-    def constant(name, source):
+    """The limit, the static bytes, the block's threads, the narrow
+    backpointers' reach, v's bytes a slot, the ring's frames and the
+    arrays' order that `link_layout` plans with are the kernel's, and so is
+    every kernel source's own shared-memory limit."""
+    source = (_build.CSRC / "linking.cu").read_text()
+
+    def constant(name, text=source):
         return int(re.search(rf"constexpr \w+ {name} = (\d+);",
-                             (_build.CSRC / source).read_text()).group(1))
-    assert constant("kSmemLimit", "linking.cu") == _build.SMEM_LIMIT
-    assert constant("kStaticSmem", "linking.cu") == tlink._STATIC_SMEM
-    for source in ("correlation.cu", "psroi.cu"):
-        assert constant("kMaxSmem", source) == _build.SMEM_LIMIT, source
+                             text).group(1))
+    assert constant("kSmemLimit") == _build.SMEM_LIMIT
+    assert constant("kStaticSmem") == tlink._STATIC_SMEM
+    assert constant("kThreads") == tlink._THREADS
+    assert constant("kNarrowBack") == tlink._NARROW_BACK
+    assert constant("kSlotBytes") == tlink._SLOT_BYTES
+    assert constant("kRing") == tlink._RING
+    assert constant("kArrays") == len(tlink._ARRAYS)
+    order = re.findall(r"b\[(\d)\] = .*;\s*// (.+)", source)
+    assert [int(i) for i, _ in order] == list(range(len(tlink._ARRAYS)))
+    assert tuple(name.strip() for _, name in order) == tlink._ARRAYS
+    for other in ("correlation.cu", "psroi.cu"):
+        text = (_build.CSRC / other).read_text()
+        assert constant("kMaxSmem", text) == _build.SMEM_LIMIT, other
+
+
+def test_w_scratch_case_is_the_first_length_past_shared_memory():
+    """`linking_cases.W_SCRATCH_T` is where the links leave shared memory
+    at the eval path's N, so the `w_scratch` kernel case sits just past
+    it."""
+    assert not _fits(W_SCRATCH_T, EVAL_N, leave=1)
+    assert _fits(W_SCRATCH_T - 1, EVAL_N, leave=1)
+    cases = {name: kw for name, kw, _ in kernel_cases()}
+    assert cases["w_scratch"]["t"] == W_SCRATCH_T
+    assert cases["w_scratch"]["n"] == EVAL_N
+    assert tlink.link_layout(cases["vid_len"]["t"], EVAL_N).body == "scratch"
+    assert tlink.link_layout(16, cases["n33"]["n"]).body == "shared"
+
+
+@pytest.mark.parametrize("shape", [(4, 7, 5), (30, 16, 20), (1, 1, 1)])
+def test_to_device_packs_one_buffer(shape):
+    """`link_snippet`'s upload: the four arrays, equal to what was given, as
+    views of one buffer at 16-byte aligned offsets (one copy to a card);
+    linking them gives the unpacked arrays' result."""
+    c, t, n = shape
+    arrays = detections(5, c=max(c, 4), t=t, n=n)
+    arrays = tuple(a[:c] for a in arrays)
+    got = tlink.to_device(arrays, "cpu")
+    store = got[0].untyped_storage().data_ptr()
+    for g, a in zip(got, arrays):
+        np.testing.assert_array_equal(g.numpy(), a)
+        assert g.untyped_storage().data_ptr() == store
+        assert g.storage_offset() * g.element_size() % 16 == 0
+    want = tlink.link_all_classes_plain(*(torch.from_numpy(a)
+                                          for a in arrays), max_tubes=3)
+    for g, w in zip(tlink.link_all_classes(*got, max_tubes=3), want):
+        assert torch.equal(g, w)
+    host = tlink.tubes_numpy(want)
+    for h, w in zip(host, want):
+        assert isinstance(h, np.ndarray)
+        np.testing.assert_array_equal(h, w.numpy())
 
 
 def test_dispatcher_takes_the_plain_form_for_cpu_tensors(monkeypatch):
