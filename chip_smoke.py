@@ -112,7 +112,18 @@ Phases, in order; any failure ends the script with a non-zero exit:
    for align 1 + 3 train steps (ms/step, peak memory), and the tiny f32
    config card against CPU for the video step and one train step, as in
    phase 4;
-12. both correlation forwards' device time by ``torch.profiler`` at one
+12. the mid_synth accuracy path (configs/mid_synth.yml: ResNet-50 at
+   304x544, 19x34 maps, 10 classes, 12 anchors): the correlation and its
+   backward, the direct pool and its backward and the NMS at one train
+   step's shapes, and the correlation, the direct pool, the NMS and tube
+   linking at its linked eval's 8-frame snippets, each against its plain
+   version as in phase 3; then ``tools/run_mid_synth_torch.py``'s train
+   (1 + MID_STEPS steps, from scratch with --calibrate-bn) and its eval of
+   one snippet with --link, in this process at full width, each with its
+   launches, the step's ms, pairs/s and peak memory, the losses of the
+   last step, the mAPs and the verdict line (too few steps for the gate,
+   whose message is logged, not applied);
+13. both correlation forwards' device time by ``torch.profiler`` at one
    pair and at 16 pairs, after the main paths, since a traced card slows
    the host's later launches.
 
@@ -134,6 +145,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -255,7 +267,11 @@ PATH_KERNELS = {"video": ("correlation", "psroi_direct", "nms"),
                 "parallel_train": ("correlation", "correlation_bwd",
                                    "psroi_direct", "psroi_direct_bwd", "nms"),
                 "parallel_video": ("correlation", "psroi_direct", "nms"),
-                "parallel_pair": ("correlation", "psroi_mm", "nms")}
+                "parallel_pair": ("correlation", "psroi_mm", "nms"),
+                "mid_train": ("correlation", "correlation_bwd",
+                              "psroi_direct", "psroi_direct_bwd", "nms"),
+                "mid_eval": ("correlation", "psroi_direct", "nms",
+                             "linking")}
 # select_block widths the NMS kernel is held at on the crafted cases (48:
 # wider than one of its steps)
 NMS_BLOCKS = (1, 16, 32, 48)
@@ -269,6 +285,20 @@ LINK_FRAMES = {"eval_video": 16, "pair": 8}
 # the mean length of an ImageNet VID val snippet (176,126 frames in 555
 # snippets), linked whole at tau=1
 LINK_VID_FRAMES = 300
+# the mid_synth accuracy run (tools/run_mid_synth_torch.py): the train
+# steps timed after 1 warm-up, and the frames of its eval's snippets
+# (eval_torch's --synthetic-frames default: 8-frame snippets in 9-frame
+# video chunks, so 8 frames pooled and linked)
+MID_STEPS = 8
+MID_EVAL_FRAMES = 8
+LINK_FRAMES["mid_eval"] = MID_EVAL_FRAMES
+# the frames one call of a video-step path pools, and the paths that run
+# the train step's shapes
+VIDEO_FRAMES = {"video": FRAMES_PER_CHUNK - 1,
+                # the parallel chunk's one rank also pools its wrapped pair
+                "parallel_video": FRAMES_PER_CHUNK,
+                "mid_eval": MID_EVAL_FRAMES}
+TRAIN_PATHS = ("train", "mid_train")
 
 
 def log(msg: str) -> None:
@@ -391,9 +421,10 @@ def phase_correlation(cfg: Config, path: str, pairs: int, seed: int) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def phase_correlation_bwd(cfg: Config, pairs: int, seed: int) -> dict:
+def phase_correlation_bwd(cfg: Config, pairs: int, seed: int,
+                          path: str = "train") -> dict:
     """The correlation backward of one train step's pairs at the 3
-    scales."""
+    scales (`path` names the train path)."""
     t = cfg.model.track
     d, s = t.max_displacement, t.stride
     nd2 = corr_ops.num_corr_channels(d, s)
@@ -417,13 +448,13 @@ def phase_correlation_bwd(cfg: Config, pairs: int, seed: int) -> dict:
     nbytes = sum(4 * f1.numel() * 2 + go.numel() * 2 for f1, _, go in cases)
     ops = sum(2 * 2 * nd2 * f1.numel() for f1, _, _ in cases)
     bound_ms, bound_by = bound(nbytes, ops)
-    log(f"correlation_bwd [train]: {pairs} pair(s) x 3 scales "
+    log(f"correlation_bwd [{path}]: {pairs} pair(s) x 3 scales "
         f"{[tuple(c[0].shape) for c in cases]} bf16 d={d} s={s}: max_abs_err"
         f" {err:.3g} (tol 2^-7 |want| + 1e-5), kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library: none (no single PyTorch call computes "
         f"it), bound_us {bound_ms * 1e3:.1f} ({bound_by}, {nbytes / 1e6:.1f} "
         f"MB, {ops / 1e9:.2f} GFLOP), {bound_ms / ms:.1%} of the bound")
-    return {"name": "correlation_bwd", "path": "train", "route": "cuda",
+    return {"name": "correlation_bwd", "path": path, "route": "cuda",
             "source": "dtt_torch/ops/csrc/correlation.cu",
             "replaces": "dtt/ops/correlation.py:337 (XLA AD of correlation_mm;"
                         " no TPU kernel)",
@@ -468,10 +499,8 @@ def pool_cases(cfg: Config, path: str) -> list:
     m = cfg.model
     dc = m.num_classes
     db = 8 if m.roi.class_agnostic else 4 * dc
-    if path in ("video", "parallel_video"):
-        # the parallel chunk's one rank also pools its wrapped last pair
-        pairs = FRAMES_PER_CHUNK - (path == "video")
-        return [(pairs, m.rpn.post_nms_top_n_test, dc + db + 4)]
+    if path in VIDEO_FRAMES:
+        return [(VIDEO_FRAMES[path], m.rpn.post_nms_top_n_test, dc + db + 4)]
     b = cfg.train.batch_size_per_chip
     n = (m.rpn.post_nms_top_n_train + cfg.input.max_gt_boxes
          if cfg.train.ohem else m.roi.batch_size)
@@ -571,14 +600,14 @@ def pool_sector_bytes(bd: list, shape: tuple, k: int, esize: int) -> int:
     return int(hit.sum().item()) * 32
 
 
-def phase_psroi_bwd(cfg: Config, seed: int) -> dict:
+def phase_psroi_bwd(cfg: Config, seed: int, path: str = "train") -> dict:
     """The pool backward's calls of one train step (cls, bbox and track
-    maps), each against its plain version; times are for all of the
-    calls."""
+    maps; `path` names the train path), each against its plain version;
+    times are for all of the calls."""
     k = cfg.model.roi.ps_grid
     h, w = cfg.input.canvas_height // 16, cfg.input.canvas_width // 16
     bf16 = torch.bfloat16
-    cases = pool_cases(cfg, "train")
+    cases = pool_cases(cfg, path)
     g = torch.Generator(device="cuda").manual_seed(seed)
     inputs = []
     for (b, n, d), bd in zip(cases, pool_bounds(cfg, cases, seed)):
@@ -619,14 +648,14 @@ def phase_psroi_bwd(cfg: Config, seed: int) -> dict:
                  + 4 * bd[0].numel() * 4
                  for (b, _, d), (gh, bd) in zip(cases, inputs))
     bound_ms, bound_by = bound(nbytes, adds)
-    log(f"psroi_direct_bwd [train]: ghat {[tuple(gh.shape) for gh, _ in inputs]}"
+    log(f"psroi_direct_bwd [{path}]: ghat {[tuple(gh.shape) for gh, _ in inputs]}"
         f" f32 -> bf16 maps, k={k}: max_abs_err {err:.3g} (tol {BWD_REL_TOL} "
         f"of the largest per call), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, library einsum {library_ms:.4f} ms (bf16, max abs diff "
         f"{lib_err:.3g}), bound_us {bound_ms * 1e3:.1f} ({bound_by}, "
         f"{nbytes / 1e6:.1f} MB, {adds / 1e9:.3f} G adds), "
         f"{bound_ms / ms:.1%} of the bound")
-    return {"name": "psroi_direct_bwd", "path": "train", "route": "cuda",
+    return {"name": "psroi_direct_bwd", "path": path, "route": "cuda",
             "source": "dtt_torch/ops/csrc/psroi.cu",
             "replaces": "dtt/ops/psroi.py:479",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -990,18 +1019,20 @@ def nms_calls(cfg: Config, path: str) -> list:
     classes at the test proposals), or OHEM's on the train step's frames
     (the train proposals and the gt slots)."""
     r, e, m = cfg.model.rpn, cfg.eval, cfg.model
-    if path == "train":
+    # the proposal layer keeps at most the map's anchors
+    anchors = (m.anchors.num_anchors * (cfg.input.canvas_height // 16)
+               * (cfg.input.canvas_width // 16))
+    if path in TRAIN_PATHS:
         frames = 2 * cfg.train.batch_size_per_chip
         t = cfg.train
-        return [("proposals", frames, r.pre_nms_top_n_train,
+        return [("proposals", frames, min(r.pre_nms_top_n_train, anchors),
                  r.post_nms_top_n_train, r.nms_thresh, -0.5),
                 ("ohem", frames, r.post_nms_top_n_train
                  + cfg.input.max_gt_boxes, t.ohem_top_k, t.ohem_nms_thresh,
                  -0.5)]
-    frames = {"video": FRAMES_PER_CHUNK - 1, "pair": PAIR_BATCH, "frame": 1,
-              "parallel_video": FRAMES_PER_CHUNK}[path]
-    return [("proposals", frames, r.pre_nms_top_n_test, r.post_nms_top_n_test,
-             r.nms_thresh, -0.5),
+    frames = {**VIDEO_FRAMES, "pair": PAIR_BATCH, "frame": 1}[path]
+    return [("proposals", frames, min(r.pre_nms_top_n_test, anchors),
+             r.post_nms_top_n_test, r.nms_thresh, -0.5),
             ("per_class", frames * (m.num_classes - 1), r.post_nms_top_n_test,
              e.max_per_class, e.nms_thresh, e.score_thresh)]
 
@@ -1046,8 +1077,9 @@ def phase_nms(cfg: Config, path: str, seed: int) -> dict:
         block = (cfg.model.rpn.nms_select_block if name == "proposals"
                  else cfg.eval.nms_select_block if name == "per_class"
                  else nms_ops.KERNEL_BLOCK)         # OHEM: nms_padded
-        args = nms_inputs(cases.path_problem(name, p, k, m, iou, score,
-                                             seed + i))
+        args = nms_inputs(cases.path_problem(
+            name, p, k, m, iou, score, seed + i,
+            classes=cfg.model.num_classes - 1))
         steps = nms_exact(args, block, f"{path} {name} P={p} K={k} M={m}")
         calls.append((name, args, block, steps))
     ms = time_ms(lambda: [nms_ops.nms_cuda(*a, select_block=b)
@@ -3000,6 +3032,85 @@ def phase_parallel(cfg: Config, tree: dict, card: str) -> dict:
     return launches
 
 
+def load_tool(name: str):
+    """This checkout's ``tools/<name>.py`` (the tools import each other by
+    name, from their directory)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
+
+
+def phase_mid_synth(card: str) -> tuple:
+    """The mid_synth accuracy path (configs/mid_synth.yml: ResNet-50 at
+    304x544, 19x34 maps, 10 classes, 12 anchors): the train step's and the
+    linked eval's kernels at its shapes against their plain versions, then
+    ``run_mid_synth_torch``'s train (1 + MID_STEPS steps) and its eval of
+    one snippet with --link at full width, each with its launches counted
+    (reset just before, read just after), the step's ms and peak memory,
+    and the verdict line. Too few steps for the gate: its message is
+    logged, not applied. Returns the kernels' entries and the launches per
+    path."""
+    tool = load_tool("run_mid_synth_torch")
+    cfg = load_config(tool.CONFIG)
+    b = cfg.train.batch_size_per_chip
+    kernels = [phase_correlation(cfg, "mid_train", b, seed=40),
+               phase_correlation_bwd(cfg, b, seed=41, path="mid_train"),
+               phase_psroi(cfg, "mid_train", seed=42),
+               phase_psroi_bwd(cfg, seed=43, path="mid_train"),
+               phase_nms(cfg, "mid_train", seed=44),
+               phase_correlation(cfg, "mid_eval", MID_EVAL_FRAMES, seed=45),
+               phase_psroi(cfg, "mid_eval", seed=46),
+               phase_nms(cfg, "mid_eval", seed=47),
+               phase_linking(cfg, "mid_eval", seed=48)]
+    clock = load_tool("accuracy_runs_torch").StepClock(
+        importlib.import_module("dtt_torch.train.trainer"))
+    launches = {}
+
+    def counted(fn, path):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            reset_launches()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            launches[path] = read_launches()
+            return out
+        return call
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        args = tool.parse_args(["--out", d, "--steps", str(1 + MID_STEPS),
+                                "--snippets", "1"])
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(train_torch, "main",
+                               counted(train_torch.main, "mid_train")), \
+                mock.patch.object(eval_torch, "main",
+                                  counted(eval_torch.main, "mid_eval")), \
+                clock:
+            res = tool.run(args, device="cuda")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = clock.metrics
+    wall = time.perf_counter() - t0
+    for path in ("mid_train", "mid_eval"):
+        log(f"{path} launches: {launches[path]}")
+        check_launches(path, launches[path])
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"mid_synth train: losses not finite: {losses}")
+    for key in ("mAP", "mAP_nolink", "link_uplift"):
+        if not (key in res and np.isfinite(res[key]) and -1 <= res[key] <= 1):
+            raise AssertionError(f"mid_synth eval: {key} is {res.get(key)!r}")
+    ms = clock.ms_per_step()
+    log(f"mid_synth: {MID_STEPS} timed steps of {b} pairs at "
+        f"{cfg.input.canvas_height}x{cfg.input.canvas_width} "
+        f"({cfg.model.backbone}): {ms:.2f} ms/step, {b * 1e3 / ms:.2f} "
+        f"pairs/s, peak {peak:.2f} GiB, losses at step {clock.last}: "
+        f"{ {k: round(v, 4) for k, v in losses.items()} }; eval of 1 snippet with --link: mAP {res['mAP']}, mAP_nolink "
+        f"{res['mAP_nolink']}; verdict {json.dumps(tool.verdict(res))}; "
+        f"gate not applied at {1 + MID_STEPS} steps (it would say: "
+        f"{tool.gate(res) or 'PASS'}); {wall:.1f} s on {card}")
+    return kernels, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3059,6 +3170,9 @@ def main() -> int:
     phase_data(cfg, tree, card)
     del tree
     phase_weights(card)
+    mid_kernels, mid_launches = phase_mid_synth(card)
+    kernels += mid_kernels
+    launches.update(mid_launches)
     for k in kernels:
         k["launches"] = launches[k["path"]][k["name"]]
     phase_correlation_device(cfg)

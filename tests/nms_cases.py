@@ -44,10 +44,11 @@ def _boxes(rng, shape, extent=(608.0, 1088.0), size=(16.0, 400.0),
     return np.stack([x1, y1, x2, y2], -1).astype(np.float32)
 
 
-def path_problem(name, p, k, m, iou, score, seed):
+def path_problem(name, p, k, m, iou, score, seed, classes=30):
     """A problem at one of PATH_SHAPES: proposals sorted by score (as the
     proposal layer hands them over) with ~5% filtered to -1; per-class
-    scores as softmax columns, most under the threshold; OHEM losses."""
+    scores as softmax columns of `classes` foreground classes (p a multiple
+    of them), most under the threshold; OHEM losses."""
     rng = np.random.RandomState(seed)
     centers = np.stack([rng.uniform(0, 1088, 200), rng.uniform(0, 608, 200)],
                        -1)
@@ -57,9 +58,10 @@ def path_problem(name, p, k, m, iou, score, seed):
         scores[rng.rand(p, k) < 0.05] = -1.0
         valid = scores >= 0
     elif name == "per_class":
-        scores = rng.dirichlet(np.full(31, 0.05), (p // 30, k))[..., 1:]
+        scores = rng.dirichlet(np.full(classes + 1, 0.05),
+                               (p // classes, k))[..., 1:]
         scores = scores.transpose(0, 2, 1).reshape(p, k)
-        valid = np.repeat(rng.rand(p // 30, k) > 0.02, 30, axis=0)
+        valid = np.repeat(rng.rand(p // classes, k) > 0.02, classes, axis=0)
     else:
         scores = rng.exponential(1.0, (p, k))
         valid = rng.rand(p, k) > 0.05

@@ -558,9 +558,11 @@ def test_import_leaves_out_jax_and_dtt():
     """Importing dtt_torch, every submodule (the data-parallel
     ``dtt_torch.parallel`` and the timing helpers of ``dtt_torch.utils``
     among them), chip_smoke, train_torch, eval_torch, demo_torch,
-    bench_torch and the tree writer chip_smoke runs (with their lazily
-    imported modules) pulls in no JAX, flax, dtt, eval.py, demo.py,
-    bench.py, cv2 or msgpack module."""
+    bench_torch, the tree writer chip_smoke runs (with their lazily
+    imported modules) and the accuracy tools (run_mid_synth_torch,
+    run_hard_bench_torch, run_flagship_synth_torch and what measures them)
+    pulls in no JAX, flax, dtt, eval.py, demo.py, bench.py, cv2 or msgpack
+    module, and none of dtt's accuracy tools."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dtt_torch\n"
@@ -568,10 +570,17 @@ def test_import_leaves_out_jax_and_dtt():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, train_torch, eval_torch, demo_torch, bench_torch\n"
         "chip_smoke.vid_tree_writer()\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import run_mid_synth_torch, run_hard_bench_torch\n"
+        "import run_flagship_synth_torch, accuracy_runs_torch\n"
+        "import checkpoint_bf16_torch, sanitize_linking_torch\n"
+        "import compare_detections_torch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt',\n"
         "                                    'eval', 'demo', 'bench', 'cv2',\n"
-        "                                    'msgpack'))\n"
+        "                                    'msgpack', 'run_mid_synth',\n"
+        "                                    'run_hard_bench',\n"
+        "                                    'run_flagship_synth'))\n"
         "assert not bad, bad\n"
         "assert {'dtt_torch.parallel.mesh', 'dtt_torch.utils.timing',\n"
         "        'dtt_torch.utils.profiling'} <= set(sys.modules)\n"
