@@ -123,7 +123,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    launches, the step's ms, pairs/s and peak memory, the losses of the
    last step, the mAPs and the verdict line (too few steps for the gate,
    whose message is logged, not applied);
-13. both correlation forwards' device time by ``torch.profiler`` at one
+13. the flagship accuracy path (configs/flagship_synth.yml: Config()'s
+   model, ResNet-101 dilated at 608x1088, 31 classes, 8 pairs a step
+   rendered on the card): the same kernels at its train step's and its
+   linked eval's shapes against their plain versions, then
+   ``tools/run_flagship_synth_torch.py``'s train (1 + FLAG_STEPS steps)
+   and its eval of one snippet with --link, as in phase 12;
+14. both correlation forwards' device time by ``torch.profiler`` at one
    pair and at 16 pairs, after the main paths, since a traced card slows
    the host's later launches.
 
@@ -271,7 +277,11 @@ PATH_KERNELS = {"video": ("correlation", "psroi_direct", "nms"),
                 "mid_train": ("correlation", "correlation_bwd",
                               "psroi_direct", "psroi_direct_bwd", "nms"),
                 "mid_eval": ("correlation", "psroi_direct", "nms",
-                             "linking")}
+                             "linking"),
+                "flag_train": ("correlation", "correlation_bwd",
+                               "psroi_direct", "psroi_direct_bwd", "nms"),
+                "flag_eval": ("correlation", "psroi_direct", "nms",
+                              "linking")}
 # select_block widths the NMS kernel is held at on the crafted cases (48:
 # wider than one of its steps)
 NMS_BLOCKS = (1, 16, 32, 48)
@@ -292,13 +302,18 @@ LINK_VID_FRAMES = 300
 MID_STEPS = 8
 MID_EVAL_FRAMES = 8
 LINK_FRAMES["mid_eval"] = MID_EVAL_FRAMES
+# the flagship accuracy run (tools/run_flagship_synth_torch.py): the train
+# steps timed after 1 warm-up; its eval's snippets are 8 frames, as mid's
+FLAG_STEPS = 2
+LINK_FRAMES["flag_eval"] = MID_EVAL_FRAMES
 # the frames one call of a video-step path pools, and the paths that run
 # the train step's shapes
 VIDEO_FRAMES = {"video": FRAMES_PER_CHUNK - 1,
                 # the parallel chunk's one rank also pools its wrapped pair
                 "parallel_video": FRAMES_PER_CHUNK,
-                "mid_eval": MID_EVAL_FRAMES}
-TRAIN_PATHS = ("train", "mid_train")
+                "mid_eval": MID_EVAL_FRAMES,
+                "flag_eval": MID_EVAL_FRAMES}
+TRAIN_PATHS = ("train", "mid_train", "flag_train")
 
 
 def log(msg: str) -> None:
@@ -3041,28 +3056,30 @@ def load_tool(name: str):
     return importlib.import_module(name)
 
 
-def phase_mid_synth(card: str) -> tuple:
-    """The mid_synth accuracy path (configs/mid_synth.yml: ResNet-50 at
-    304x544, 19x34 maps, 10 classes, 12 anchors): the train step's and the
-    linked eval's kernels at its shapes against their plain versions, then
-    ``run_mid_synth_torch``'s train (1 + MID_STEPS steps) and its eval of
-    one snippet with --link at full width, each with its launches counted
-    (reset just before, read just after), the step's ms and peak memory,
-    and the verdict line. Too few steps for the gate: its message is
-    logged, not applied. Returns the kernels' entries and the launches per
-    path."""
-    tool = load_tool("run_mid_synth_torch")
+def phase_accuracy(card: str, tool_name: str, prefix: str, steps: int,
+                   seed: int) -> tuple:
+    """An accuracy tool's path (``tools/<tool_name>.py``): the train
+    step's and the linked eval's kernels at its config's shapes against
+    their plain versions (paths `prefix`_train and `prefix`_eval), then
+    the tool's train (1 + `steps` steps, from scratch with --calibrate-bn)
+    and its eval of one snippet with --link at full width, each with its
+    launches counted (reset just before, read just after), the step's ms
+    and peak memory, and the verdict line. Too few steps for the gate: its
+    message is logged, not applied. Returns the kernels' entries and the
+    launches per path."""
+    tool = load_tool(tool_name)
     cfg = load_config(tool.CONFIG)
     b = cfg.train.batch_size_per_chip
-    kernels = [phase_correlation(cfg, "mid_train", b, seed=40),
-               phase_correlation_bwd(cfg, b, seed=41, path="mid_train"),
-               phase_psroi(cfg, "mid_train", seed=42),
-               phase_psroi_bwd(cfg, seed=43, path="mid_train"),
-               phase_nms(cfg, "mid_train", seed=44),
-               phase_correlation(cfg, "mid_eval", MID_EVAL_FRAMES, seed=45),
-               phase_psroi(cfg, "mid_eval", seed=46),
-               phase_nms(cfg, "mid_eval", seed=47),
-               phase_linking(cfg, "mid_eval", seed=48)]
+    train, ev = f"{prefix}_train", f"{prefix}_eval"
+    kernels = [phase_correlation(cfg, train, b, seed=seed),
+               phase_correlation_bwd(cfg, b, seed=seed + 1, path=train),
+               phase_psroi(cfg, train, seed=seed + 2),
+               phase_psroi_bwd(cfg, seed=seed + 3, path=train),
+               phase_nms(cfg, train, seed=seed + 4),
+               phase_correlation(cfg, ev, LINK_FRAMES[ev], seed=seed + 5),
+               phase_psroi(cfg, ev, seed=seed + 6),
+               phase_nms(cfg, ev, seed=seed + 7),
+               phase_linking(cfg, ev, seed=seed + 8)]
     clock = load_tool("accuracy_runs_torch").StepClock(
         importlib.import_module("dtt_torch.train.trainer"))
     launches = {}
@@ -3079,36 +3096,55 @@ def phase_mid_synth(card: str) -> tuple:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        args = tool.parse_args(["--out", d, "--steps", str(1 + MID_STEPS),
+        args = tool.parse_args(["--out", d, "--steps", str(1 + steps),
                                 "--snippets", "1"])
         torch.cuda.reset_peak_memory_stats()
         with mock.patch.object(train_torch, "main",
-                               counted(train_torch.main, "mid_train")), \
+                               counted(train_torch.main, train)), \
                 mock.patch.object(eval_torch, "main",
-                                  counted(eval_torch.main, "mid_eval")), \
+                                  counted(eval_torch.main, ev)), \
                 clock:
             res = tool.run(args, device="cuda")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = clock.metrics
     wall = time.perf_counter() - t0
-    for path in ("mid_train", "mid_eval"):
+    for path in (train, ev):
         log(f"{path} launches: {launches[path]}")
         check_launches(path, launches[path])
     if not all(np.isfinite(v) for v in losses.values()):
-        raise AssertionError(f"mid_synth train: losses not finite: {losses}")
+        raise AssertionError(f"{prefix} train: losses not finite: {losses}")
     for key in ("mAP", "mAP_nolink", "link_uplift"):
         if not (key in res and np.isfinite(res[key]) and -1 <= res[key] <= 1):
-            raise AssertionError(f"mid_synth eval: {key} is {res.get(key)!r}")
+            raise AssertionError(f"{prefix} eval: {key} is {res.get(key)!r}")
     ms = clock.ms_per_step()
-    log(f"mid_synth: {MID_STEPS} timed steps of {b} pairs at "
+    log(f"{tool_name.removeprefix('run_').removesuffix('_torch')}: {steps} "
+        f"timed steps of {b} pairs at "
         f"{cfg.input.canvas_height}x{cfg.input.canvas_width} "
         f"({cfg.model.backbone}): {ms:.2f} ms/step, {b * 1e3 / ms:.2f} "
         f"pairs/s, peak {peak:.2f} GiB, losses at step {clock.last}: "
-        f"{ {k: round(v, 4) for k, v in losses.items()} }; eval of 1 snippet with --link: mAP {res['mAP']}, mAP_nolink "
+        f"{ {k: round(v, 4) for k, v in losses.items()} }; eval of 1 "
+        f"snippet with --link: mAP {res['mAP']}, mAP_nolink "
         f"{res['mAP_nolink']}; verdict {json.dumps(tool.verdict(res))}; "
-        f"gate not applied at {1 + MID_STEPS} steps (it would say: "
+        f"gate not applied at {1 + steps} steps (it would say: "
         f"{tool.gate(res) or 'PASS'}); {wall:.1f} s on {card}")
     return kernels, launches
+
+
+def phase_mid_synth(card: str) -> tuple:
+    """The mid_synth accuracy path (configs/mid_synth.yml: ResNet-50 at
+    304x544, 19x34 maps, 10 classes, 12 anchors), paths mid_train and
+    mid_eval, as `phase_accuracy` drives it."""
+    return phase_accuracy(card, "run_mid_synth_torch", "mid", MID_STEPS,
+                          seed=40)
+
+
+def phase_flagship(card: str) -> tuple:
+    """The flagship accuracy path (configs/flagship_synth.yml: Config()'s
+    model, ResNet-101 dilated at 608x1088, 38x68 maps, 31 classes, 12
+    anchors, 8 pairs a step rendered on the card, OHEM and tracking),
+    paths flag_train and flag_eval, as `phase_accuracy` drives it."""
+    return phase_accuracy(card, "run_flagship_synth_torch", "flag",
+                          FLAG_STEPS, seed=50)
 
 
 def main() -> int:
@@ -3170,9 +3206,10 @@ def main() -> int:
     phase_data(cfg, tree, card)
     del tree
     phase_weights(card)
-    mid_kernels, mid_launches = phase_mid_synth(card)
-    kernels += mid_kernels
-    launches.update(mid_launches)
+    for phase in (phase_mid_synth, phase_flagship):
+        acc_kernels, acc_launches = phase(card)
+        kernels += acc_kernels
+        launches.update(acc_launches)
     for k in kernels:
         k["launches"] = launches[k["path"]][k["name"]]
     phase_correlation_device(cfg)

@@ -11,7 +11,8 @@ scratch), T = 1, T just past where the links leave shared memory (also
 with NaN and infinite inputs), and a T long enough that the scores leave it too; then a T so long that the live
 words leave it as well, `link_layout`'s sizes against the kernel's own,
 one launch a call, one read-back of the five outputs, the same bits every
-run, and a call that cannot launch raises. Marked ``gpu``: they skip
+run, a call that cannot launch raises, and each instance's SASS holds the
+tame vote's block reduction once. Marked ``gpu``: they skip
 without a card. This file imports no JAX:
 
     python -m pytest --noconftest -q tests/test_torch_port_linking_gpu.py
@@ -19,6 +20,8 @@ without a card. This file imports no JAX:
 
 import ctypes
 import os
+import re
+import subprocess
 import sys
 
 import pytest
@@ -200,3 +203,26 @@ def test_link_call_that_cannot_launch_raises(cuda, monkeypatch):
     monkeypatch.undo()
     with pytest.raises(TypeError, match="float32"):
         tlink.link_all_classes(args[0], args[1].double(), *args[2:])
+
+
+def test_link_kernel_reduces_the_vote_once(cuda):
+    """Each instance of ``link_kernel`` in the built library runs one block
+    reduction (``BAR.RED``, the tame vote's ``__syncthreads_and``). Where
+    the vote reduces a constant, ptxas (CUDA 12.9, -O1 to -O3) gave the
+    scratch instances a second copy on warp 0's path at the head of the
+    tubes' loop, which meets the other warps' ``__syncthreads`` and stops
+    the kernel on an illegal instruction (S1;
+    ``tools/sanitize_linking_torch.py --routes``)."""
+    _build.load("linking")
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("linking"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and "link_kernel" in name and "BAR.RED" in line:
+            counts[name] = counts.get(name, 0) + 1
+    assert len(counts) == 4, counts        # uint8 / int32 x shared / scratch
+    assert set(counts.values()) == {1}, counts

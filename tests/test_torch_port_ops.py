@@ -560,9 +560,11 @@ def test_import_leaves_out_jax_and_dtt():
     among them), chip_smoke, train_torch, eval_torch, demo_torch,
     bench_torch, the tree writer chip_smoke runs (with their lazily
     imported modules) and the accuracy tools (run_mid_synth_torch,
-    run_hard_bench_torch, run_flagship_synth_torch and what measures them)
-    pulls in no JAX, flax, dtt, eval.py, demo.py, bench.py, cv2 or msgpack
-    module, and none of dtt's accuracy tools."""
+    run_hard_bench_torch, run_flagship_synth_torch and what measures them),
+    the diagnosis probes (probe_dead_snippet_torch, probe_tau2_torch and
+    flagship_probes_torch, which runs them) pulls in no JAX, flax, dtt,
+    eval.py, demo.py, bench.py, cv2 or msgpack module, and none of dtt's
+    accuracy tools or probes."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dtt_torch\n"
@@ -575,12 +577,16 @@ def test_import_leaves_out_jax_and_dtt():
         "import run_flagship_synth_torch, accuracy_runs_torch\n"
         "import checkpoint_bf16_torch, sanitize_linking_torch\n"
         "import compare_detections_torch\n"
+        "import probe_dead_snippet_torch, probe_tau2_torch\n"
+        "import flagship_probes_torch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt',\n"
         "                                    'eval', 'demo', 'bench', 'cv2',\n"
         "                                    'msgpack', 'run_mid_synth',\n"
         "                                    'run_hard_bench',\n"
-        "                                    'run_flagship_synth'))\n"
+        "                                    'run_flagship_synth',\n"
+        "                                    'probe_dead_snippet',\n"
+        "                                    'probe_tau2'))\n"
         "assert not bad, bad\n"
         "assert {'dtt_torch.parallel.mesh', 'dtt_torch.utils.timing',\n"
         "        'dtt_torch.utils.profiling'} <= set(sys.modules)\n"
