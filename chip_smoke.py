@@ -44,14 +44,20 @@ Phases, in order; any failure ends the script with a non-zero exit:
    problems of tests/linking_cases.py (tied scores, 45 and 33 slots, one
    frame, the link weights and then the scores in scratch), decisions and
    tube scores bit for bit against its plain form, rescored scores to
-   1e-6;
+   1e-6; the trunk's conv epilogue (kernel 10, forward and backward) at
+   every trunk call of a video chunk, a train step (the backward at its
+   trained blocks), a pair batch and a frame, bit for bit;
 4. small references: the tiny test config in float32 through the kernels
    on the card against the plain versions on the CPU, for the video path,
    for one train step (same weights, same injected draws; losses, every
    gradient leaf and the updated parameters), for the pair path at
    tau=2 with the SAT pool, tube linking included, and for the
    single-frame step, every per-frame pool form and the split
-   correlation with their gradients;
+   correlation with their gradients; then kernel 10 bit for bit at every
+   trunk shape of 608x1088 on 1 and 2 frames, each form in bf16 and f32
+   with NaN, +-inf and +-0.0, forward and backward, and a calibrated
+   ResNet-101 trunk's c3, c4 and c5 on one frame bit for bit against its
+   eager form, with the trunk alone on 17 frames timed fused and eager;
 5. the video path: ``Config()`` at full width (ResNet-101, 608x1088, bf16,
    31 classes), random flax-layout weights from a numpy seed carried over
    by ``from_jax_params``, and ``evaluate_snippet_video`` over a uint8
@@ -117,8 +123,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    backward, the direct pool and its backward and the NMS at one train
    step's shapes, and the correlation, the direct pool, the NMS and tube
    linking at its linked eval's 8-frame snippets, each against its plain
-   version as in phase 3; then ``tools/run_mid_synth_torch.py``'s train
-   (1 + MID_STEPS steps, from scratch with --calibrate-bn) and its eval of
+   version as in phase 3, and kernel 10 at both trunks' calls; then
+   ``tools/run_mid_synth_torch.py``'s train (1 + MID_STEPS steps, from
+   scratch with --calibrate-bn) and its eval of
    one snippet with --link, in this process at full width, each with its
    launches, the step's ms, pairs/s and peak memory, the losses of the
    last step, the mAPs and the verdict line (too few steps for the gate,
@@ -169,10 +176,13 @@ from dtt_torch.models.dnt import (DnT, Detections, cosine_prep,
                                   decode_frame_detections, is_frozen,
                                   normalize_device_images, pool_vote_fused,
                                   rfcn_head)
+from dtt_torch.models.dnt import _BACKBONES, is_frozen
+from dtt_torch.models.resnet import ResNetBackbone
 from dtt_torch.models.rpn import Proposals, proposal_layer, softmax
 from dtt_torch.models.targets import sample_draws
 from dtt_torch.ops import _build
 from dtt_torch.ops import correlation as corr_ops
+from dtt_torch.ops import epilogue as epilogue_ops
 from dtt_torch.ops import nms as nms_ops
 from dtt_torch.ops import psroi as psroi_ops
 from dtt_torch.train import losses as train_losses
@@ -256,7 +266,9 @@ KERNELS = {"correlation": corr_ops.correlation_cuda,
            "psroi_mm": psroi_ops.psroi_mm_sums_cuda,
            "psroi_sat_mean": psroi_ops.psroi_sat_means_cuda,
            "nms": nms_ops.nms_cuda,
-           "linking": link_ops.link_cuda}
+           "linking": link_ops.link_cuda,
+           "epilogue": epilogue_ops.conv_epilogue_cuda,
+           "epilogue_bwd": epilogue_ops.conv_epilogue_bwd_cuda}
 # the kernels each driven path must launch (every path runs a proposal NMS;
 # every run checked as "pair" or "eval_video" is an eval_torch run that
 # links tubes)
@@ -282,6 +294,14 @@ PATH_KERNELS = {"video": ("correlation", "psroi_direct", "nms"),
                                "psroi_direct", "psroi_direct_bwd", "nms"),
                 "flag_eval": ("correlation", "psroi_direct", "nms",
                               "linking")}
+# every path runs a trunk, so the conv epilogue; the training paths run
+# its backward at every trained block
+TRAIN_PATHS = ("train", "mid_train", "flag_train")
+PATH_KERNELS = {path: (*names, "epilogue",
+                       *(("epilogue_bwd",) if path in TRAIN_PATHS
+                         or path in ("mode_train", "parallel_train")
+                         else ()))
+                for path, names in PATH_KERNELS.items()}
 # select_block widths the NMS kernel is held at on the crafted cases (48:
 # wider than one of its steps)
 NMS_BLOCKS = (1, 16, 32, 48)
@@ -313,7 +333,16 @@ VIDEO_FRAMES = {"video": FRAMES_PER_CHUNK - 1,
                 "parallel_video": FRAMES_PER_CHUNK,
                 "mid_eval": MID_EVAL_FRAMES,
                 "flag_eval": MID_EVAL_FRAMES}
-TRAIN_PATHS = ("train", "mid_train", "flag_train")
+# kernel 10 at the shapes of each path's trunk calls: the frames one trunk
+# call takes (a video chunk's 17, a parallel rank's chunk one more, an eval
+# chunk's 17 or 9, a train step's two frames a pair, the pair batch's 8,
+# one frame)
+EPI_FRAMES = {"video": FRAMES_PER_CHUNK, "pair": 2 * PAIR_BATCH, "frame": 1,
+              "parallel_video": FRAMES_PER_CHUNK + 1,
+              "mid_eval": MID_EVAL_FRAMES + 1,
+              "flag_eval": MID_EVAL_FRAMES + 1}
+EPI_EXACT_FRAMES = (1, 2)    # bit for bit at every trunk shape of 608x1088
+EPI_TRUNK_FRAMES = 17        # the trunk alone, fused against unfused
 
 
 def log(msg: str) -> None:
@@ -1337,6 +1366,248 @@ def phase_linking_cases() -> None:
                     f"rescored| {err:.3g})")
     log(f"linking cases under {list(LINK_BOOSTS)}: decisions and tube "
         f"scores bit-equal to the plain form: {'; '.join(done)}")
+
+
+def epilogue_args(form: str, shape: tuple, dtype: torch.dtype, gen,
+                  special: float = 0.0) -> tuple:
+    """Kernel 10's arguments (x, scale, bias, z, scale_z, bias_z) for one
+    call: channels-last tensors ~N(0, 2) with a share `special` of NaN,
+    +-inf and +-0.0, buffers ~N(1, 0.5) and ~N(0, 1), -0.0 among them."""
+    def tensor():
+        x = torch.randn(shape, device="cuda", generator=gen) * 2
+        if special:
+            table = torch.tensor([float("nan"), float("inf"), float("-inf"),
+                                  0.0, -0.0], device="cuda")
+            pick = torch.rand(shape, device="cuda", generator=gen)
+            x = torch.where(pick < special,
+                            table[(pick * 1e6).long() % len(table)], x)
+        return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    def buffers():
+        c = shape[1]
+        s = 1 + 0.5 * torch.randn(c, device="cuda", generator=gen)
+        b = torch.randn(c, device="cuda", generator=gen)
+        return s, torch.where(b.abs() < 0.1, torch.full_like(b, -0.0), b)
+
+    x, (s, b) = tensor(), buffers()
+    z = None if form == "A" else tensor()
+    t, c = buffers() if form == "C" else (None, None)
+    return x, s, b, z, t, c
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+def phase_epilogue_exact(cfg: Config) -> None:
+    """Kernel 10 (``dtt_conv_epilogue`` and its backward) bit for bit
+    against its plain version at each distinct (form, shape) of a
+    ``Config()`` trunk call at its canvas, on EPI_EXACT_FRAMES frames,
+    every form in bf16 and f32, with NaN, +-inf and +-0.0 among the
+    inputs; the backward with and without the shortcut's gradient."""
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    n = 0
+    for frames in EPI_EXACT_FRAMES:
+        shapes = sorted({(f, s) for _, f, s in
+                         trunk_epilogue_calls(cfg, frames)})
+        for dtype in (torch.bfloat16, torch.float32):
+            for i, (form, shape) in enumerate(shapes):
+                gen = torch.Generator(device="cuda").manual_seed(60 + i)
+                args = epilogue_args(form, shape, dtype, gen, special=0.05)
+                y = epilogue_ops.conv_epilogue_cuda(*args)
+                torch.cuda.synchronize()
+                want = epilogue_ops.conv_epilogue_plain(*args)
+                if not same_bits(y, want):
+                    raise AssertionError(f"epilogue kernel vs plain: form "
+                                         f"{form} {shape} {dtype} not "
+                                         f"bit-equal")
+                g = epilogue_args("A", shape, dtype, gen, special=0.05)[0]
+                s, t = args[1], args[4]
+                want_g = epilogue_ops.conv_epilogue_bwd_plain(g, want, s,
+                                                              form, t)
+                for want_gz in (True, False):
+                    got_g = epilogue_ops.conv_epilogue_bwd_cuda(
+                        g, y, s, form, t, want_gz)
+                    torch.cuda.synchronize()
+                    ok = same_bits(got_g[0], want_g[0]) and (
+                        (got_g[1] is None) == (form == "A" or not want_gz))
+                    if got_g[1] is not None:
+                        ok = ok and same_bits(got_g[1], want_g[1])
+                    if not ok:
+                        raise AssertionError(f"epilogue backward kernel vs "
+                                             f"plain: form {form} {shape} "
+                                             f"{dtype} not bit-equal")
+                n += 1
+    log(f"epilogue exact: {n} (form, shape, dtype) calls of a "
+        f"{cfg.model.backbone} trunk at {h}x{w} on {EPI_EXACT_FRAMES} "
+        f"frame(s), with NaN, +-inf and +-0.0: forward and backward bit for "
+        f"bit against the plain version")
+
+
+def phase_epilogue_trunk(cfg: Config) -> None:
+    """The whole trunk through kernel 10 against its eager form: a
+    ``Config()`` backbone (PyTorch's initialisation from a seed, then BN
+    calibration, through the kernel) on one frame, c3, c4 and c5 bit for
+    bit against the same backbone with the dispatcher patched to the plain
+    version (one launch a recorded call, the calls a meta-device trunk
+    records); then the trunk alone on EPI_TRUNK_FRAMES frames, fused
+    against unfused, by CUDA events."""
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    layers = _BACKBONES[cfg.model.backbone]
+    dtype = getattr(torch, cfg.model.dtype)
+    torch.manual_seed(70)
+    bb = ResNetBackbone(layers, cfg.model.frozen_stages, device="cuda").to(
+        memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    frames = (torch.randn(EPI_TRUNK_FRAMES, 3, h, w, device="cuda",
+                          generator=gen) * 60).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    t0 = time.perf_counter()
+    calibrate.calibrate_backbone(bb, frames[:2])
+    calib_s = time.perf_counter() - t0
+    seen = []
+
+    def plain(x, scale, bias, z=None, scale_z=None, bias_z=None):
+        seen.append((epilogue_ops.form_of(z, scale_z), tuple(x.shape)))
+        return epilogue_ops.conv_epilogue_plain(x, scale, bias, z, scale_z,
+                                                bias_z)
+
+    one = frames[:1]
+    with torch.no_grad():
+        before = epilogue_ops.conv_epilogue_cuda.launches
+        fused = bb(one)
+        launched = epilogue_ops.conv_epilogue_cuda.launches - before
+        with mock.patch.object(epilogue_ops, "conv_epilogue", plain):
+            eager = bb(one)
+        torch.cuda.synchronize()
+        want_calls = [c[1:] for c in trunk_epilogue_calls(cfg, 1)]
+        if seen != want_calls or launched != len(want_calls) or \
+                launched != 1 + 3 * sum(layers):
+            raise AssertionError(f"trunk epilogue calls: {len(seen)} "
+                                 f"recorded, {launched} launched, "
+                                 f"{len(want_calls)} expected")
+        for name, a, b in zip(("c3", "c4", "c5"), fused, eager):
+            if not same_bits(a, b):
+                raise AssertionError(f"trunk {name} through kernel 10 is not "
+                                     "bit-equal to the eager form")
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f"trunk {name} has non-finite values")
+        ms = time_ms(lambda: bb(frames), iters=5)
+        with mock.patch.object(epilogue_ops, "conv_epilogue",
+                               epilogue_ops.conv_epilogue_plain):
+            eager_ms = time_ms(lambda: bb(frames), iters=5)
+        ms2 = time_ms(lambda: bb(frames), iters=5)
+    log(f"epilogue trunk: {cfg.model.backbone} at {h}x{w} {dtype}, "
+        f"calibrated in {calib_s:.1f} s; one frame's c3, c4, c5 through "
+        f"kernel 10 bit-equal to the eager form, "
+        f"{launched} launches; the trunk alone on {EPI_TRUNK_FRAMES} frames: "
+        f"fused {ms:.3f} / {ms2:.3f} ms, eager {eager_ms:.3f} ms (CUDA "
+        f"events, fused, eager, fused)")
+    del bb, frames, fused, eager
+    torch.cuda.empty_cache()
+
+
+def trunk_epilogue_calls(cfg: Config, frames: int) -> list:
+    """(trained, form, shape) of each kernel 10 call of one call of
+    ``cfg``'s trunk on `frames` frames at its canvas, in order, recorded
+    through the dispatcher on a meta-device trunk whose parameters are
+    frozen as ``DnT`` freezes them; trained: the call records a gradient,
+    so a train step runs its backward."""
+    with torch.device("meta"):
+        bb = ResNetBackbone(_BACKBONES[cfg.model.backbone],
+                            cfg.model.frozen_stages)
+    for name, p in bb.named_parameters():
+        p.requires_grad_(not is_frozen("backbone." + name,
+                                       cfg.model.frozen_stages))
+    seen = []
+
+    def record(x, scale, bias, z=None, scale_z=None, bias_z=None):
+        seen.append((x.requires_grad, epilogue_ops.form_of(z, scale_z),
+                     tuple(x.shape)))
+        return epilogue_ops.conv_epilogue_plain(x, scale, bias, z, scale_z,
+                                                bias_z)
+
+    with mock.patch.object(epilogue_ops, "conv_epilogue", record):
+        bb(torch.empty(frames, 3, cfg.input.canvas_height,
+                       cfg.input.canvas_width, device="meta",
+                       dtype=getattr(torch, cfg.model.dtype)))
+    return seen
+
+
+def epilogue_calls(cfg: Config, path: str) -> list:
+    """``trunk_epilogue_calls`` of one trunk call of `path` (a train
+    path's trunk takes its batch's two frames a pair)."""
+    return trunk_epilogue_calls(cfg, EPI_FRAMES[path] if path in EPI_FRAMES
+                                else 2 * cfg.train.batch_size_per_chip)
+
+
+def phase_epilogue(cfg: Config, path: str, seed: int,
+                   backward: bool = False) -> dict:
+    """Kernel 10 at one trunk call of `path` (its forward, or with
+    `backward` its backward at every trained block, the shortcut's
+    gradient wanted as the train step wants it), in the model's dtype:
+    each distinct call bit for bit against the plain version, then CUDA
+    event times of all the calls through the kernel and the plain
+    version, beside the bound of the bytes they move."""
+    dtype = getattr(torch, cfg.model.dtype)
+    calls = [c for c in epilogue_calls(cfg, path) if not backward or c[0]]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    inputs = {}
+    for _, form, shape in calls:
+        if (form, shape) not in inputs:
+            args = epilogue_args(form, shape, dtype, gen)
+            g = epilogue_args("A", shape, dtype, gen)[0]
+            y = epilogue_ops.conv_epilogue_plain(*args)
+            inputs[form, shape] = (args, g, y)
+    if backward:
+        kernel = lambda a, g, y, f: epilogue_ops.conv_epilogue_bwd_cuda(
+            g, y, a[1], f, a[4])
+        plain = lambda a, g, y, f: epilogue_ops.conv_epilogue_bwd_plain(
+            g, y, a[1], f, a[4])
+    else:
+        kernel = lambda a, g, y, f: (epilogue_ops.conv_epilogue_cuda(*a),)
+        plain = lambda a, g, y, f: (epilogue_ops.conv_epilogue_plain(*a),)
+    for (form, shape), (a, g, y) in inputs.items():
+        got, want = kernel(a, g, y, form), plain(a, g, y, form)
+        torch.cuda.synchronize()
+        if not all(x is None and v is None or same_bits(x, v)
+                   for x, v in zip(got, want)):
+            raise AssertionError(f"epilogue{'_bwd' if backward else ''} "
+                                 f"kernel vs plain ({path}): form {form} "
+                                 f"{shape} not bit-equal")
+    run = lambda fn: [fn(*inputs[f, s], f) for _, f, s in calls]
+    ms = time_ms(lambda: run(kernel), iters=10)
+    plain_ms = time_ms(lambda: run(plain), iters=3, warmup=1)
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = ops = 0
+    for _, form, shape in calls:
+        n, c = int(np.prod(shape)), shape[1]
+        if backward:
+            nbytes += n * esize * (3 if form == "A" else 4) + 4 * c * (
+                2 if form == "C" else 1)
+            ops += n * (3 if form == "C" else 2)
+        else:
+            nbytes += n * esize * (2 if form == "A" else 3) + 4 * c * (
+                4 if form == "C" else 2)
+            ops += n * {"A": 3, "B": 4, "C": 7}[form]
+    bound_ms, bound_by = bound(nbytes, ops, F32_OPS_PER_S)
+    frames = calls[0][2][0]
+    name = "epilogue_bwd" if backward else "epilogue"
+    log(f"{name} [{path}]: {len(calls)} calls of a "
+        f"{cfg.model.backbone} trunk on {frames} frame(s) at "
+        f"{cfg.input.canvas_height}x{cfg.input.canvas_width} {dtype} "
+        f"({len(inputs)} distinct, each bit-equal to the plain version): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by}, {nbytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of "
+        f"the bound")
+    del inputs
+    torch.cuda.empty_cache()
+    return {"name": name, "path": path, "route": "cuda",
+            "source": "dtt_torch/ops/csrc/epilogue.cu",
+            "replaces": "dtt/models/resnet.py:101",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_bench(card: str) -> None:
@@ -3079,7 +3350,10 @@ def phase_accuracy(card: str, tool_name: str, prefix: str, steps: int,
                phase_correlation(cfg, ev, LINK_FRAMES[ev], seed=seed + 5),
                phase_psroi(cfg, ev, seed=seed + 6),
                phase_nms(cfg, ev, seed=seed + 7),
-               phase_linking(cfg, ev, seed=seed + 8)]
+               phase_linking(cfg, ev, seed=seed + 8),
+               phase_epilogue(cfg, train, seed=seed + 9),
+               phase_epilogue(cfg, train, seed=seed + 10, backward=True),
+               phase_epilogue(cfg, ev, seed=seed + 11)]
     clock = load_tool("accuracy_runs_torch").StepClock(
         importlib.import_module("dtt_torch.train.trainer"))
     launches = {}
@@ -3176,8 +3450,16 @@ def main() -> int:
                  enumerate(("video", "train", "pair", "frame",
                             "parallel_video"))),
                phase_linking(cfg, "pair", seed=30),
-               phase_linking(cfg, "eval_video", seed=31)]
+               phase_linking(cfg, "eval_video", seed=31),
+               *(phase_epilogue(cfg, path, seed=80 + i) for i, path in
+                 enumerate(("video", "train", "pair", "frame",
+                            "parallel_video"))),
+               phase_epilogue(cfg, "train", seed=86, backward=True)]
     link_timing(cfg, LINK_VID_FRAMES, seed=32, what="vid_len")
+    # the eval video chunk gives the trunk the video chunk's shapes
+    kernels += [dict(k, path="eval_video", measured_as="video")
+                for k in kernels
+                if k["name"] == "epilogue" and k["path"] == "video"]
     # the parallel train and pair paths give each kernel the shapes of the
     # serial ones (one rank: the same batch), so their entries are the
     # serial ones' times, marked with the path they were measured at (the
@@ -3193,6 +3475,8 @@ def main() -> int:
     phase_train_reference()
     phase_pair_reference()
     phase_frame_reference()
+    phase_epilogue_exact(cfg)
+    phase_epilogue_trunk(cfg)
     t0 = time.perf_counter()
     tree = init_jax_params(cfg.model, seed=0)
     log(f"full-width weights from a numpy seed in "

@@ -5,6 +5,11 @@
   copies.
 * Frozen BN is a per-channel affine ``x * scale + bias`` held in float32
   buffers, so it takes no gradient (the reference's ``stop_gradient``).
+  After each conv, the affine, the ReLU and a block's residual add run as
+  one pass, ``dtt_torch.ops.epilogue.conv_epilogue`` (kernel 10 on the
+  card), reading the ``FrozenAffine`` modules' buffers; ``FrozenAffine``'s
+  own forward is the affine alone (``dtt_torch.utils.calibrate`` applies
+  it to each conv's output).
 * ``frozen_stages`` stops the gradient at the stem (>= 1), layer1 (>= 2)
   and layer2 (>= 3) outputs, as the reference does.
 * Stride sits on the 3x3 conv of each bottleneck (torchvision layout);
@@ -27,6 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from dtt_torch.ops import epilogue
 
 
 class Conv2d(nn.Conv2d):
@@ -75,12 +82,17 @@ class Bottleneck(nn.Module):
             self.downsample_conv = None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        if self.downsample_conv is not None:
-            x = self.downsample_bn(self.downsample_conv(x))
-        return F.relu(out + x)
+        out = epilogue.conv_epilogue(self.conv1(x), self.bn1.scale,
+                                     self.bn1.bias)
+        out = epilogue.conv_epilogue(self.conv2(out), self.bn2.scale,
+                                     self.bn2.bias)
+        if self.downsample_conv is None:
+            return epilogue.conv_epilogue(self.conv3(out), self.bn3.scale,
+                                          self.bn3.bias, x)
+        return epilogue.conv_epilogue(
+            self.conv3(out), self.bn3.scale, self.bn3.bias,
+            self.downsample_conv(x), self.downsample_bn.scale,
+            self.downsample_bn.bias)
 
 
 class ResNetStage(nn.Sequential):
@@ -123,7 +135,8 @@ class ResNetBackbone(nn.Module):
                                   remat=remat, **factory)
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = epilogue.conv_epilogue(self.conv1(x), self.bn1.scale,
+                                   self.bn1.bias)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         if self.frozen_stages >= 1:
             x = x.detach()

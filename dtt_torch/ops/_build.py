@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("correlation", "linking", "nms", "psroi")
+KERNELS = ("correlation", "epilogue", "linking", "nms", "psroi")
 # a block's shared memory on sm_90 (227 KB): kMaxSmem and kSmemLimit in csrc/
 SMEM_LIMIT = 232_448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,7 +14,10 @@ need is a good init", ICLR 2016).
 Each group of affines of one topological rank is measured by one backbone
 forward, stopped once the group's outputs are captured; the outputs are
 cast to float32 before their statistics, as ``dtt`` casts its captured
-intermediates.
+intermediates. The trunk runs each affine inside its fused epilogue
+(``dtt_torch.ops.epilogue``), so the forward's hooks sit on the convs
+that feed the affines and apply each ``FrozenAffine`` to its conv's
+output: the bits the affine's own output had before the fusion.
 """
 
 from __future__ import annotations
@@ -56,6 +59,14 @@ class _Captured(Exception):
     pass
 
 
+def _conv_of(name: str) -> str:
+    """The conv whose output the affine `name` takes."""
+    head, _, bn = name.rpartition(".")
+    conv = "downsample_conv" if bn == "downsample_bn" else \
+        bn.replace("bn", "conv")
+    return f"{head}.{conv}" if head else conv
+
+
 @torch.no_grad()
 def affine_stats(backbone: ResNetBackbone, images: torch.Tensor,
                  names: list[str]) -> dict:
@@ -66,7 +77,8 @@ def affine_stats(backbone: ResNetBackbone, images: torch.Tensor,
     stats: dict = {}
 
     def hook(name):
-        def fn(_module, _inputs, y):
+        def fn(_conv, _inputs, x):
+            y = modules[name](x)
             var, mean = torch.var_mean(y.float(), dim=(0, 2, 3),
                                        unbiased=False)
             stats[name] = (mean, var)
@@ -74,7 +86,8 @@ def affine_stats(backbone: ResNetBackbone, images: torch.Tensor,
                 raise _Captured
         return fn
 
-    handles = [modules[n].register_forward_hook(hook(n)) for n in names]
+    handles = [modules[_conv_of(n)].register_forward_hook(hook(n))
+               for n in names]
     try:
         backbone(images)
     except _Captured:

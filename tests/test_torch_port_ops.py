@@ -562,7 +562,10 @@ def test_import_leaves_out_jax_and_dtt():
     imported modules) and the accuracy tools (run_mid_synth_torch,
     run_hard_bench_torch, run_flagship_synth_torch and what measures them),
     the diagnosis probes (probe_dead_snippet_torch, probe_tau2_torch and
-    flagship_probes_torch, which runs them) pulls in no JAX, flax, dtt,
+    flagship_probes_torch, which runs them) and the trunk's profile split
+    (trunk_split_torch; the conv epilogue ``dtt_torch.ops.epilogue``
+    among the submodules) and the launch-bound paths' A/B
+    (host_ab_torch) pulls in no JAX, flax, dtt,
     eval.py, demo.py, bench.py, cv2 or msgpack module, and none of dtt's
     accuracy tools or probes."""
     code = (
@@ -578,7 +581,8 @@ def test_import_leaves_out_jax_and_dtt():
         "import checkpoint_bf16_torch, sanitize_linking_torch\n"
         "import compare_detections_torch\n"
         "import probe_dead_snippet_torch, probe_tau2_torch\n"
-        "import flagship_probes_torch\n"
+        "import flagship_probes_torch, trunk_split_torch\n"
+        "import host_ab_torch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt',\n"
         "                                    'eval', 'demo', 'bench', 'cv2',\n"
@@ -589,7 +593,8 @@ def test_import_leaves_out_jax_and_dtt():
         "                                    'probe_tau2'))\n"
         "assert not bad, bad\n"
         "assert {'dtt_torch.parallel.mesh', 'dtt_torch.utils.timing',\n"
-        "        'dtt_torch.utils.profiling'} <= set(sys.modules)\n"
+        "        'dtt_torch.utils.profiling',\n"
+        "        'dtt_torch.ops.epilogue'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('dtt_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -1,0 +1,175 @@
+"""A/B of the port's launch-bound paths for two trees on one CUDA card, in
+one call: the ``Config()`` train step (1 pair), the single frame
+(``make_single_frame_step``) and one frame's trunk alone, each tree in a
+fresh process a turn, the trees in alternating turns.
+
+    python3 tools/host_ab_torch.py --parent _chip_tree/parent \
+        [--pairs 10] [--steps 20] [--frames 30] [--out ab_out/host]
+
+`--parent` is an unpacked archive of the other tree; the change is this
+checkout. The turns go parent, change, change, parent, ... (`--pairs` of
+each tree, labelled E1, E2, ...); each builds its tree's kernels first
+(kept in that tree between turns). A turn makes ``Config()``'s model
+(ResNet-101, 608x1088, bf16; weights from numpy seed 0) and times, each
+after one warm-up: `--steps` train steps on synthetic uint8 pairs as one
+block ended by a synchronize, then `--steps` more synchronized one by
+one; the same for `--frames` single frames; and 50 no-grad calls of the
+backbone on one frame as one block. Prints one JSON line a turn (ms/step,
+ms/frame, trunk ms: the block's mean and the one-by-one median; the card's
+name and power limit), writes them to OUT/turns.jsonl, and last prints
+each tree's median, min and max of every number over its turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+METRICS = ("train_ms", "train_ms_each", "frame_ms", "frame_ms_each",
+           "trunk_ms")
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "-i", "0",
+                           "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+
+
+def worker(root: str, steps: int, frames: int) -> dict:
+    """One turn in the tree at `root` (see the module docstring)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from dtt_torch.core.config import Config
+    from dtt_torch.data.synthetic import synthetic_batch
+    from dtt_torch.eval.inference import make_single_frame_step
+    from dtt_torch.models.targets import sample_draws
+    from dtt_torch.ops import _build
+    from dtt_torch.train.trainer import create_train_state, make_train_step
+    from dtt_torch.utils.params import from_jax_params, init_jax_params
+
+    _build.build()
+    cfg = Config()
+    m, t = cfg.model, cfg.train
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    b = t.batch_size_per_chip
+    tree = init_jax_params(m, seed=0)
+
+    def block(fn, n):
+        """(mean ms of `n` calls as one block, median ms of `n` more
+        synchronized one by one), after one warm-up call."""
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(1 + i)
+        torch.cuda.synchronize()
+        mean = (time.perf_counter() - t0) * 1e3 / n
+        each = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            fn(1 + n + i)
+            torch.cuda.synchronize()
+            each.append((time.perf_counter() - t0) * 1e3)
+        return mean, statistics.median(each)
+
+    model, state = create_train_state(cfg, "cuda", tree=tree)
+    step = make_train_step(cfg, model, (h // 16, w // 16))
+    rng = np.random.RandomState(t.seed)
+    gen = torch.Generator(device="cuda").manual_seed(t.seed + 1)
+    batches = [synthetic_batch(rng, b, h, w, m.num_classes,
+                               cfg.input.max_gt_boxes, cfg.input.pixel_means,
+                               uint8=True,
+                               num_objects=cfg.input.synthetic_objects)
+               for _ in range(2 * steps + 1)]
+    box = {"state": state}
+
+    def train(i):
+        box["state"], _ = step(box["state"], batches[i],
+                               sample_draws(cfg, b, gen, "cuda"))
+
+    train_ms, train_each = block(train, steps)
+    del model, state, step, box, batches
+    torch.cuda.empty_cache()
+
+    model = from_jax_params(tree, m, device="cuda")
+    fstep = make_single_frame_step(cfg, model)
+    images = np.random.RandomState(11).randint(
+        0, 256, (2 * frames + 1, h, w, 3)).astype(np.uint8)
+    im_hw = (h - 8, w - 48)
+    frame_ms, frame_each = block(
+        lambda i: fstep(torch.from_numpy(images[i:i + 1]), im_hw), frames)
+
+    one = (torch.randn(1, 3, h, w, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(5))
+           * 60).to(getattr(torch, m.dtype)).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        trunk_ms, _ = block(lambda i: model.backbone(one), 50)
+    return {"card": card(), "train_ms": train_ms, "train_ms_each": train_each,
+            "frame_ms": frame_ms, "frame_ms_each": frame_each,
+            "trunk_ms": trunk_ms}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--parent")
+    p.add_argument("--pairs", type=int, default=10)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--frames", type=int, default=30)
+    p.add_argument("--out", default=os.path.join(HERE, "ab_out", "host"))
+    p.add_argument("--worker", metavar="ROOT",
+                   help="run one turn in the tree at ROOT and print its "
+                        "JSON line")
+    args = p.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(os.path.abspath(args.worker), args.steps,
+                                args.frames)), flush=True)
+        return 0
+    if not args.parent:
+        p.error("--parent is required")
+    trees = {"parent": os.path.abspath(args.parent), "change": HERE}
+    order = ["parent", "change", "change", "parent"] * (args.pairs // 2) + \
+        ["parent", "change"] * (args.pairs % 2)
+    os.makedirs(args.out, exist_ok=True)
+    results = {name: [] for name in trees}
+    failed = 0
+    with open(os.path.join(args.out, "turns.jsonl"), "a") as log:
+        for n, name in enumerate(order, 1):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 trees[name], "--steps", str(args.steps), "--frames",
+                 str(args.frames)], cwd=trees[name], capture_output=True,
+                text=True, timeout=900)
+            lines = proc.stdout.strip().splitlines()
+            if proc.returncode or not lines:
+                failed += 1
+                print(f"E{n}_{name}: rc {proc.returncode}\n"
+                      f"{proc.stderr[-3000:]}", flush=True)
+                continue
+            row = dict(json.loads(lines[-1]), turn=f"E{n}_{name}",
+                       seconds=time.perf_counter() - t0)
+            results[name].append(row)
+            log.write(json.dumps(row) + "\n")
+            print(json.dumps(row), flush=True)
+    summary = {name: {k: {"median": statistics.median(r[k] for r in rows),
+                          "min": min(r[k] for r in rows),
+                          "max": max(r[k] for r in rows)}
+                      for k in METRICS}
+               for name, rows in results.items() if rows}
+    print(json.dumps({"turns": {k: len(v) for k, v in results.items()},
+                      "summary": summary}), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
