@@ -46,7 +46,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    tube scores bit for bit against its plain form, rescored scores to
    1e-6; the trunk's conv epilogue (kernel 10, forward and backward) at
    every trunk call of a video chunk, a train step (the backward at its
-   trained blocks), a pair batch and a frame, bit for bit;
+   trained blocks), a pair batch and a frame, bit for bit, with the device
+   design that ran and, per path, the host's cost of one wrapper call by
+   part (tools/epilogue_host_torch.py: checks, allocation, launch; beside
+   an eager torch.add);
 4. small references: the tiny test config in float32 through the kernels
    on the card against the plain versions on the CPU, for the video path,
    for one train step (same weights, same injected draws; losses, every
@@ -154,6 +157,7 @@ import io
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1597,17 +1601,50 @@ def phase_epilogue(cfg: Config, path: str, seed: int,
     log(f"{name} [{path}]: {len(calls)} calls of a "
         f"{cfg.model.backbone} trunk on {frames} frame(s) at "
         f"{cfg.input.canvas_height}x{cfg.input.canvas_width} {dtype} "
-        f"({len(inputs)} distinct, each bit-equal to the plain version): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by}, {nbytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of "
-        f"the bound")
+        f"({len(inputs)} distinct, each bit-equal to the plain version; "
+        f"{epilogue_design()}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB), "
+        f"{bound_ms / ms:.1%} of the bound")
     del inputs
     torch.cuda.empty_cache()
+    if not backward:
+        phase_epilogue_host(cfg, path)
     return {"name": name, "path": path, "route": "cuda",
             "source": "dtt_torch/ops/csrc/epilogue.cu",
             "replaces": "dtt/models/resnet.py:101",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def epilogue_design() -> str:
+    """The device design of kernel 10, with its sizes as its source sets
+    them."""
+    with open(os.path.join(os.path.dirname(epilogue_ops.__file__), "csrc",
+                           "epilogue.cu")) as f:
+        text = f.read()
+    size = {k: re.search(rf"constexpr int {k} = (\d+);", text).group(1)
+            for k in ("kUnroll", "kMinBlocks")}
+    return (f"design control: {size['kUnroll']} 16-byte loads a thread in "
+            f"flight, {size['kMinBlocks']} blocks an SM")
+
+
+def phase_epilogue_host(cfg: Config, path: str) -> None:
+    """The host's cost of one call of kernel 10's wrappers by part
+    (``tools/epilogue_host_torch.py``) at `path`'s trunk calls, the
+    gradient's parts at a train path's trained calls: medians of at least
+    1,000 calls, µs a call, beside an eager ``torch.add`` of the same
+    tensors."""
+    calls = epilogue_calls(cfg, path)
+    if path not in TRAIN_PATHS:
+        calls = [(False, f, s) for _, f, s in calls]
+    tool = load_tool("epilogue_host_torch")
+    split = tool.host_split(epilogue_ops, calls,
+                            rounds=-(-1000 // len(calls)),
+                            dtype=getattr(torch, cfg.model.dtype))
+    torch.cuda.empty_cache()
+    log(f"epilogue host [{path}]: µs a call (median of {split['calls']}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()
+                    if isinstance(v, float)))
 
 
 def phase_bench(card: str) -> None:

@@ -22,13 +22,13 @@ each product and sum rounded to the dtype as the eager ops round it.
 differentiates its ops), the kernels for CUDA tensors (or an error),
 through ``_ConvEpilogue`` when a gradient is recorded.
 ``conv_epilogue_bwd_plain`` is the backward kernel's reference. The
-buffers take no gradient.
+buffers take no gradient. The wrappers launch on the current device's
+current stream: tensors on another device raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +37,10 @@ from dtt_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 FORMS = ("A", "B", "C")
+# the C entries' `code`: the form in bits 0-1, bfloat16 in bit 2
+_CODES = {(f, d): FORMS.index(f) | c << 2
+          for f in FORMS for d, c in _DTYPE_CODES.items()}
+_CL = torch.channels_last
 
 
 def form_of(z, scale_z) -> str:
@@ -78,55 +82,74 @@ def conv_epilogue_bwd_plain(g: torch.Tensor, y: torch.Tensor,
     return gx, m if form == "B" else m * _cast(scale_z, g.dtype)
 
 
-def _check(name: str, t: torch.Tensor, like: torch.Tensor | None = None):
-    """`t` channels-last and 16-byte aligned, of `like`'s shape, dtype and
-    device where `like` is given."""
-    if like is not None and (t.shape != like.shape or t.dtype != like.dtype
-                             or t.device != like.device):
-        raise ValueError(f"{name}: every tensor must be {tuple(like.shape)} "
-                         f"{like.dtype} on {like.device}, got "
-                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if not t.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(f"{name}: tensors must be channels-last contiguous, "
-                         f"got strides {t.stride()}")
+def _check_inputs(name: str, x: torch.Tensor,
+                  z: torch.Tensor | None = None) -> int:
+    """Raise unless x is (N, C, H, W) float32 or bfloat16, channels-last
+    and 16-byte aligned, and z (where given) the same but for its data;
+    returns x's data pointer."""
+    if x.dim() != 4 or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: tensors must be (N, C, H, W) float32 or "
+                        f"bfloat16, got {tuple(x.shape)} {x.dtype}")
+    _check_layout(name, x)
+    if z is not None:
+        if z.shape != x.shape or z.dtype != x.dtype or z.device != x.device:
+            raise ValueError(f"{name}: every tensor must be "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}, "
+                             f"got {tuple(z.shape)} {z.dtype} on {z.device}")
+        _check_layout(name, z)
+    return x.data_ptr()
+
+
+def _check_layout(name: str, t: torch.Tensor) -> None:
+    if not t.is_contiguous(memory_format=_CL):
+        raise ValueError(f"{name}: tensors must be channels-last "
+                         f"contiguous, got strides {t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
-def _check_params(name: str, c: int, device, *params) -> None:
-    """The (C,) float32 buffers on `device`, which must be a CUDA one."""
+def _check_buffers(name: str, c: int, device, *params) -> None:
+    """Raise unless `params` are (c,) float32 contiguous tensors on
+    `device`."""
     for p in params:
         if p.dtype != torch.float32 or p.shape != (c,) or \
                 p.device != device or not p.is_contiguous():
             raise ValueError(f"{name}: the buffers must be ({c},) float32 "
                              f"contiguous on {device}, got "
                              f"{tuple(p.shape)} {p.dtype} on {p.device}")
-    if device.type != "cuda":
+
+
+def _device(name: str, x: torch.Tensor) -> int:
+    """x's CUDA device, which must be the current one: the kernels launch
+    on the current device's current stream."""
+    if not x.is_cuda:
         raise ValueError(f"{name}: the tensors must be on a CUDA device, "
-                         f"got {device}")
+                         f"got {x.device}")
+    dev, cur = x.get_device(), torch._C._cuda_getDevice()
+    if dev != cur:
+        raise ValueError(f"{name}: the tensors are on cuda:{dev} but the "
+                         f"current device is cuda:{cur}; call under "
+                         f"torch.cuda.device({dev})")
+    return dev
 
 
-def _check_input(name: str, x: torch.Tensor) -> None:
-    if x.dim() != 4 or x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: tensors must be (N, C, H, W) float32 or "
-                        f"bfloat16, got {tuple(x.shape)} {x.dtype}")
+_ENTRIES = None
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    fn = getattr(_build.load("epilogue"), name)
-    if name == "dtt_conv_epilogue":
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
+def _entries() -> tuple:
+    """(``dtt_conv_epilogue``, ``dtt_conv_epilogue_bwd``), built, loaded
+    and bound once."""
+    global _ENTRIES
+    if _ENTRIES is None:
+        lib = _build.load("epilogue")
+        fwd, bwd = lib.dtt_conv_epilogue, lib.dtt_conv_epilogue_bwd
+        fwd.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fwd.restype = bwd.restype = ctypes.c_int
+        _ENTRIES = (fwd, bwd)
+    return _ENTRIES
 
 
 def conv_epilogue_cuda(x: torch.Tensor, scale: torch.Tensor,
@@ -134,29 +157,29 @@ def conv_epilogue_cuda(x: torch.Tensor, scale: torch.Tensor,
                        scale_z: torch.Tensor | None = None,
                        bias_z: torch.Tensor | None = None) -> torch.Tensor:
     """The epilogue by ``dtt_conv_epilogue``: (N, C, H, W) channels-last,
-    16-byte aligned x (and z) in float32 or bfloat16, (C,) float32
-    buffers; the output is a new channels-last tensor like x.
+    16-byte aligned x (and z) in float32 or bfloat16 on the current CUDA
+    device, (C,) float32 buffers; the output is a new channels-last
+    tensor like x.
 
     Launches on the current stream; counts its launches in
     ``conv_epilogue_cuda.launches``."""
     name = "conv_epilogue_cuda"
-    _check_input(name, x)
-    form = form_of(z, scale_z)
-    _check(name, x)
-    if z is not None:
-        _check(name, z, x)
+    xp = _check_inputs(name, x, z)
     c = x.shape[1]
-    _check_params(name, c, x.device, scale, bias,
-                  *((scale_z, bias_z) if form == "C" else ()))
-    y = torch.empty_like(x, memory_format=torch.channels_last)
-    if y.numel() == 0:
+    _check_buffers(name, c, x.device, scale, bias,
+                   *(() if scale_z is None else (scale_z, bias_z)))
+    dev = _device(name, x)
+    y = torch.empty_like(x)                 # x's channels-last strides
+    n = y.numel()
+    if n == 0:
         return y
-    device = x.get_device()
-    err = _entry("dtt_conv_epilogue")(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(z),
-        _ptr(scale_z), _ptr(bias_z), y.data_ptr(), y.numel(), c,
-        FORMS.index(form), _DTYPE_CODES[x.dtype], device,
-        torch._C._cuda_getCurrentRawStream(device))
+    err = (_ENTRIES or _entries())[0](
+        xp, None if z is None else z.data_ptr(), y.data_ptr(),
+        scale.data_ptr(), bias.data_ptr(),
+        None if scale_z is None else scale_z.data_ptr(),
+        None if scale_z is None else bias_z.data_ptr(), n, c,
+        _CODES[form_of(z, scale_z), x.dtype],
+        torch._C._cuda_getCurrentRawStream(dev))
     if err:
         raise RuntimeError(f"dtt_conv_epilogue: kernel launch failed: "
                            f"cudaError {err}")
@@ -180,23 +203,20 @@ def conv_epilogue_bwd_cuda(g: torch.Tensor, y: torch.Tensor,
     name = "conv_epilogue_bwd_cuda"
     if form not in FORMS:
         raise ValueError(f"{name}: form must be one of {FORMS}, got {form!r}")
-    _check_input(name, y)
-    _check(name, y)
-    _check(name, g, y)
+    yp = _check_inputs(name, y, g)
     c = y.shape[1]
-    _check_params(name, c, y.device, scale,
-                  *((scale_z,) if form == "C" else ()))
-    gx = torch.empty_like(y, memory_format=torch.channels_last)
-    gz = (torch.empty_like(y, memory_format=torch.channels_last)
-          if form != "A" and want_gz else None)
-    if y.numel() == 0:
+    _check_buffers(name, c, y.device, scale,
+                   *((scale_z,) if form == "C" else ()))
+    dev = _device(name, y)
+    gx = torch.empty_like(y)
+    gz = torch.empty_like(y) if form != "A" and want_gz else None
+    n = y.numel()
+    if n == 0:
         return gx, gz
-    device = y.get_device()
-    err = _entry("dtt_conv_epilogue_bwd")(
-        g.data_ptr(), y.data_ptr(), scale.data_ptr(),
-        _ptr(scale_z) if form == "C" else None, gx.data_ptr(), _ptr(gz),
-        y.numel(), c, FORMS.index(form), _DTYPE_CODES[y.dtype], device,
-        torch._C._cuda_getCurrentRawStream(device))
+    err = (_ENTRIES or _entries())[1](
+        g.data_ptr(), yp, gx.data_ptr(), None if gz is None else gz.data_ptr(),
+        scale.data_ptr(), scale_z.data_ptr() if form == "C" else None, n, c,
+        _CODES[form, y.dtype], torch._C._cuda_getCurrentRawStream(dev))
     if err:
         raise RuntimeError(f"dtt_conv_epilogue_bwd: kernel launch failed: "
                            f"cudaError {err}")

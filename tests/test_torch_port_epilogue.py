@@ -4,8 +4,10 @@ CPU: its plain version against ``dtt``'s ``FrozenAffine`` + ``nn.relu``
 ``jax.vjp``; the autograd path against the eager ops; ``Bottleneck`` and
 ``ResNetBackbone`` through the dispatcher against the trunk's unfused
 expressions; the backward kernel's reference against eager autograd; the
-BN calibration's bits and its hooks; the CUDA wrappers' checks; and the
-epilogue calls a full-size trunk makes (recorded on the meta device).
+BN calibration's bits and its hooks; the CUDA wrappers' checks and the C
+entries' codes and constants; and the
+epilogue calls a full-size trunk makes (recorded on the meta device, also
+by the host-split tool).
 
 Inputs are seeded numpy arrays with NaN, +-inf and +-0.0 among them. Bits
 are compared: bf16 inputs reach JAX as the same bits (not rounded twice).
@@ -18,6 +20,8 @@ gradient where the ReLU's input is NaN, which torch passes
 """
 
 import copy
+import os
+import sys
 
 import flax.linen as nn
 import jax
@@ -524,5 +528,53 @@ def test_cuda_wrappers_check_and_raise():
     with pytest.raises(ValueError, match="channels-last"):
         tepi.conv_epilogue_cuda(torch.zeros(17, 2048, 38, 68,
                                             device="meta"), ms, mb)
+    # a wrong buffer beside right ones, after the right set was used: a
+    # view of another dtype, another dtype, another device, a stride, a
+    # wrong length
+    with pytest.raises(ValueError, match="CUDA device"):
+        tepi.conv_epilogue_cuda(x, s, b)
+    for bad in (s.view(torch.int32), s.to(torch.bfloat16),
+                s.to("meta"), torch.ones(16)[::2]):
+        with pytest.raises(ValueError, match="buffers"):
+            tepi.conv_epilogue_cuda(x, bad, b)
+    with pytest.raises(ValueError, match="buffers"):
+        tepi.conv_epilogue_cuda(meta, ms, torch.zeros(2048), meta, ms, mb)
+    with pytest.raises(ValueError, match="buffers"):
+        tepi.conv_epilogue_bwd_cuda(x, x, s, "C", torch.ones(9))
     assert (tepi.conv_epilogue_cuda.launches,
             tepi.conv_epilogue_bwd_cuda.launches) == before
+
+
+def test_codes_match_the_source():
+    """The wrappers' codes are the C entries' own: the form in bits 0-1,
+    bfloat16 in bit 2, and no other bit."""
+    src = os.path.join(os.path.dirname(tepi.__file__), "csrc",
+                       "epilogue.cu")
+    with open(src) as f:
+        text = f.read()
+    assert "form = code & 3;" in text and "bf16 = (code >> 2) & 1;" in text
+    assert "(code >> 3) == 0" in text
+    assert tepi._CODES == {("A", torch.float32): 0, ("B", torch.float32): 1,
+                           ("C", torch.float32): 2, ("A", torch.bfloat16): 4,
+                           ("B", torch.bfloat16): 5, ("C", torch.bfloat16): 6}
+
+
+def test_host_tool_records_the_trunk_calls(monkeypatch):
+    """``tools/epilogue_host_torch.trunk_calls`` (the calls the host split
+    and the kernel timings run) is the dispatcher's record of a
+    ResNet-101 trunk call."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import epilogue_device_torch
+    import epilogue_host_torch
+    for frames in (1, 2):
+        got = epilogue_host_torch.trunk_calls(frames)
+        with monkeypatch.context() as mp:
+            want = _record_calls((3, 4, 23, 3), frames, (608, 1088), mp)
+        assert got == want
+    calls = epilogue_host_torch.trunk_calls(17)
+    ms, nbytes = epilogue_device_torch.bound_ms(calls, 2, False)
+    assert nbytes == sum(
+        2 * np.prod(sh) * (2 if f == "A" else 3) + 4 * sh[1] * (
+            4 if f == "C" else 2) for _, f, sh in calls)
+    assert 5.5 < ms < 5.7            # a 17-frame chunk's 5.5994 ms bound

@@ -2,9 +2,12 @@
 ``dtt_conv_epilogue_bwd`` (kernel 10) held against their plain PyTorch
 versions on a CUDA card, bit for bit: every form in float32 and bfloat16
 at each distinct shape of a ResNet-101 trunk call on one 608x1088 frame,
-at odd channel counts, with NaN, +-inf and +-0.0 among the inputs; three
-runs bit-equal; one launch a call; autograd through both kernels; calls
-that cannot launch raise; and a full-width ``Config()`` train step with
+at odd channel counts, with NaN, +-inf and +-0.0 among the inputs; the
+edges of the vector loop's chunks (a tensor shorter than one chunk, a
+last partial chunk, blocks walking several chunks); a launch on a
+non-default stream; buffers changed in place and replaced; three runs
+bit-equal; one launch a call; autograd through both kernels; calls that
+cannot launch raise; and a full-width ``Config()`` train step with
 the kernels against the eager form, whose losses and gradients must lie
 within the spread of two eager runs measured here (cuDNN's weight
 gradients need not be deterministic). Marked ``gpu``: they skip without a
@@ -218,6 +221,103 @@ def test_raises_where_it_cannot_launch(cuda):
         tepi.conv_epilogue_cuda(x, s.cpu(), b)
     with pytest.raises(ValueError, match="every tensor"):
         tepi.conv_epilogue_bwd_cuda(x.float(), x, s, "A")
+    tepi.conv_epilogue_cuda(x, s, b)
+    with pytest.raises(ValueError, match="buffers"):
+        tepi.conv_epilogue_cuda(x, s.view(torch.int32), b)
+    with pytest.raises(ValueError, match="buffers"):
+        tepi.conv_epilogue_cuda(x, s, b.to(torch.bfloat16))
+    if torch.cuda.device_count() > 1:
+        with pytest.raises(ValueError, match="current device"):
+            tepi.conv_epilogue_cuda(x.to("cuda:1"), s.to("cuda:1"),
+                                    b.to("cuda:1"))
+
+
+def _edge_shapes(dtype):
+    """(N, C, H, W) shapes at the edges of the vector loop's chunks (a
+    block's chunk of one tensor: 256 threads x 2 loads of 16 bytes): a
+    tensor shorter than one chunk, a chunk and a part, and at C = 1,024
+    and 2,048, where a block walks 2 to 8 chunks, 15 positions (a last
+    partial chunk but in float32 at C = 2,048)."""
+    chunk = 256 * 2 * 16 // (torch.finfo(dtype).bits // 8)
+    short = (1, 64, 1, chunk // 64 // 2)
+    partial = (1, 64, 1, chunk // 64 + chunk // 128 + 1)  # 1.5 chunks + 64
+    assert 64 * short[3] < chunk < 64 * partial[3] and 64 * partial[3] % chunk
+    return short, partial, (1, 1024, 3, 5), (1, 2048, 3, 5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form", tepi.FORMS)
+def test_kernels_match_plain_at_the_chunk_edges(cuda, dtype, form):
+    for i, shape in enumerate(_edge_shapes(dtype)):
+        _check_forward(form, shape, dtype, seed=200 + i)
+        for want_gz in (True, False):
+            _check_backward(form, shape, dtype, seed=210 + i,
+                            want_gz=want_gz)
+
+
+def test_launches_on_the_current_stream(cuda):
+    """Both wrappers launch on a non-default current stream: their input
+    is written on that stream after a sleep, so a launch elsewhere would
+    read it before it is there."""
+    x, s, b, z, t, c = _case("C", (2, 256, 19, 34), torch.bfloat16, seed=9)
+    want = tepi.conv_epilogue_plain(x, s, b, z, t, c)
+    g = _tensor(x.shape, torch.bfloat16, torch.Generator(
+        device="cuda").manual_seed(10))
+    wx, wz = tepi.conv_epilogue_bwd_plain(g, want, s, "C", t)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        late = torch.empty_like(x)
+        torch.cuda._sleep(50_000_000)
+        late.copy_(x)
+        y = tepi.conv_epilogue_cuda(late, s, b, z, t, c)
+        late_g = torch.empty_like(g)
+        torch.cuda._sleep(50_000_000)
+        late_g.copy_(g)
+        gx, gz = tepi.conv_epilogue_bwd_cuda(late_g, y, s, "C", t)
+    side.synchronize()
+    assert _same(y, want) and _same(gx, wx) and _same(gz, wz)
+
+
+def test_sees_buffers_changed_in_place_and_replaced(cuda):
+    """A trunk's ``FrozenAffine`` buffers changed in place, loaded by
+    ``load_state_dict`` and moved by ``.to()`` after the kernel has used
+    them: every call computes with their values of the moment."""
+    from dtt_torch.models.resnet import FrozenAffine
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = _tensor((2, 128, 9, 13), torch.bfloat16, gen, special=0.0)
+    aff = FrozenAffine(128, device="cuda")
+    down = FrozenAffine(128, device="cuda")
+    z = _tensor(x.shape, torch.bfloat16, gen, special=0.0)
+
+    def check():
+        args = (x, aff.scale, aff.bias, z, down.scale, down.bias)
+        y = tepi.conv_epilogue_cuda(*args)
+        assert _same(y, tepi.conv_epilogue_plain(*args))
+        g = _tensor(x.shape, torch.bfloat16, gen, special=0.0)
+        gx, gz = tepi.conv_epilogue_bwd_cuda(g, y, aff.scale, "C",
+                                             down.scale)
+        wx, wz = tepi.conv_epilogue_bwd_plain(g, y, aff.scale, "C",
+                                              down.scale)
+        assert _same(gx, wx) and _same(gz, wz)
+        return y
+
+    before = check()
+    aff.scale.mul_(-1.5)
+    down.bias.add_(2.0)
+    changed = check()
+    assert not _same(changed, before)
+    aff.load_state_dict({"scale": torch.rand(128, device="cuda") + 0.5,
+                         "bias": torch.randn(128, device="cuda")})
+    down.load_state_dict({"scale": torch.rand(128, device="cuda") - 2.0,
+                          "bias": torch.randn(128, device="cuda")})
+    loaded = check()
+    assert not _same(loaded, changed)
+    aff.to("cpu")
+    aff.scale.mul_(3.0)
+    aff.to("cuda")
+    moved = check()
+    assert not _same(moved, loaded)
 
 
 def _spread_ok(f, e1, e2) -> bool:

@@ -564,8 +564,10 @@ def test_import_leaves_out_jax_and_dtt():
     the diagnosis probes (probe_dead_snippet_torch, probe_tau2_torch and
     flagship_probes_torch, which runs them) and the trunk's profile split
     (trunk_split_torch; the conv epilogue ``dtt_torch.ops.epilogue``
-    among the submodules) and the launch-bound paths' A/B
-    (host_ab_torch) pulls in no JAX, flax, dtt,
+    among the submodules), the launch-bound paths' A/B
+    (host_ab_torch), and kernel 10's host split and device timings
+    (epilogue_host_torch, epilogue_device_torch) pulls in no JAX, flax,
+    dtt,
     eval.py, demo.py, bench.py, cv2 or msgpack module, and none of dtt's
     accuracy tools or probes."""
     code = (
@@ -582,7 +584,7 @@ def test_import_leaves_out_jax_and_dtt():
         "import compare_detections_torch\n"
         "import probe_dead_snippet_torch, probe_tau2_torch\n"
         "import flagship_probes_torch, trunk_split_torch\n"
-        "import host_ab_torch\n"
+        "import host_ab_torch, epilogue_host_torch, epilogue_device_torch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtt',\n"
         "                                    'eval', 'demo', 'bench', 'cv2',\n"

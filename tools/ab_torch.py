@@ -2,7 +2,8 @@
 and ``bench_torch.py``'s chunk sweep of each tree, in turns.
 
     python3 tools/ab_torch.py --parent _chip_tree/parent \
-        [--order pccp] [--chunks 17 33 65 97] [--out ab_out]
+        [--order pccp] [--chunks 17 33 65 97] [--out ab_out] \
+        [--also "python3 {here}/tools/epilogue_host_torch.py --root ." ...]
 
 `--parent` is an unpacked archive of the other tree (``git archive <rev> |
 tar -x -C _chip_tree/parent``); the change is this checkout. `--order`
@@ -11,7 +12,11 @@ change, parent, labelled E1..E4). A tree without ``bench_torch.py`` gets
 this checkout's copy, which drives that tree's ``dtt_torch``. Each run's
 output goes to OUT/E<n>_<tree>.log and OUT/E<n>_<tree>_bench<chunk>.log;
 the bench JSON lines, with their stderr statistics, are gathered in
-OUT/bench.jsonl, and one summary line a run goes to stdout.
+OUT/bench.jsonl, and one summary line a run goes to stdout. Each
+``--also`` command (a shell line) runs after the bench in every turn, in
+that turn's tree, with ``{here}`` replaced by this checkout, ``{label}``
+by the turn's label and ``{out}`` by OUT; its output goes to
+OUT/E<n>_<tree>_also<i>.log and its JSON lines to stdout.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ def main(argv=None) -> int:
     p.add_argument("--runs", type=int, default=10)
     p.add_argument("--out", default=os.path.join(HERE, "ab_out"))
     p.add_argument("--smoke-timeout", type=float, default=900)
+    p.add_argument("--also", action="append", default=[],
+                   help="a shell line to run in each turn's tree")
     args = p.parse_args(argv)
     trees = {"p": os.path.abspath(args.parent), "c": HERE}
     name = {"p": "parent", "c": "change"}
@@ -82,6 +89,17 @@ def main(argv=None) -> int:
                 bench_log.flush()
                 print(f"{label} bench chunk {chunk}: {line} "
                       f"{record['stats']}", flush=True)
+            for i, cmd in enumerate(args.also):
+                cmd = cmd.format(here=HERE, label=label,
+                                 out=os.path.abspath(args.out))
+                rc, sec, out, err = run(
+                    ["bash", "-c", cmd], trees[key],
+                    os.path.join(args.out, f"{label}_also{i}.log"), 1200)
+                failed += rc != 0
+                print(f"{label} also {i}: rc {rc} in {sec:.1f} s", flush=True)
+                for text in out.splitlines():
+                    if text.startswith("{"):
+                        print(f"{label} also {i}: {text}", flush=True)
     return 1 if failed else 0
 
 
