@@ -70,7 +70,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    bounds, SAT build, kernel and mean);
 6. the training path: ``Config()`` at full width, the same weights,
    ``create_train_state``/``make_train_step`` on synthetic uint8 pairs:
-   one warm-up step and several timed ones, its launch counts (read from
+   two warm-up steps (the first eager, the second captures the step's
+   program) and several timed ones, its launch counts (read from
    the timed run), checks of the losses, the frozen and trained leaves
    and a checkpoint round trip, a few steps under ``torch.profiler`` (the
    device's busy share, kernels per step) and one step split into stages;
@@ -107,7 +108,16 @@ Phases, in order; any failure ends the script with a non-zero exit:
    card's canvases pixel for pixel against the host renderer's first),
    each with its launches, and ``eval_torch.main --dataset ... --link``
    on the val snippet, which must decode every frame once;
-11. weights and pooling modes, at full width: a torchvision-layout
+11. the step programs (CUDA graphs), at full width on the same weights:
+   the 17-frame video chunk under both ``split_video_step`` forms, the
+   4-pair batch and the single frame, each over 3 calls with changing
+   frames, extents and scales, and the ``Config()`` train step and the
+   flagship's (8 pairs drawn on the card) over 5 steps from one state,
+   each bit for bit against its eager form (``step.eager``; the train
+   steps with cuDNN's deterministic algorithms), with host ms a call of
+   both forms (median, min and max of 20 calls after warm-up) and, last,
+   each form's device busy share under ``torch.profiler``;
+12. weights and pooling modes, at full width: a torchvision-layout
    ResNet-101 .pth with BN running statistics made here from a numpy seed,
    ``train_torch.main --pretrained --calibrate-bn`` for 1 + 3 steps (every
    backbone conv the .pth's bit for bit, the last calibrated affines'
@@ -121,7 +131,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    for align 1 + 3 train steps (ms/step, peak memory), and the tiny f32
    config card against CPU for the video step and one train step, as in
    phase 4;
-12. the mid_synth accuracy path (configs/mid_synth.yml: ResNet-50 at
+13. the mid_synth accuracy path (configs/mid_synth.yml: ResNet-50 at
    304x544, 19x34 maps, 10 classes, 12 anchors): the correlation and its
    backward, the direct pool and its backward and the NMS at one train
    step's shapes, and the correlation, the direct pool, the NMS and tube
@@ -133,13 +143,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    launches, the step's ms, pairs/s and peak memory, the losses of the
    last step, the mAPs and the verdict line (too few steps for the gate,
    whose message is logged, not applied);
-13. the flagship accuracy path (configs/flagship_synth.yml: Config()'s
+14. the flagship accuracy path (configs/flagship_synth.yml: Config()'s
    model, ResNet-101 dilated at 608x1088, 31 classes, 8 pairs a step
    rendered on the card): the same kernels at its train step's and its
    linked eval's shapes against their plain versions, then
    ``tools/run_flagship_synth_torch.py``'s train (1 + FLAG_STEPS steps)
-   and its eval of one snippet with --link, as in phase 12;
-14. both correlation forwards' device time by ``torch.profiler`` at one
+   and its eval of one snippet with --link, as in phase 13;
+15. both correlation forwards' device time by ``torch.profiler`` at one
    pair and at 16 pairs, after the main paths, since a traced card slows
    the host's later launches.
 
@@ -170,7 +180,8 @@ import torch
 from dtt_torch.core.anchors import grid_anchors_for
 from dtt_torch.core.config import Config
 from dtt_torch.core.config import load_config
-from dtt_torch.data.synthetic import synthetic_batch
+from dtt_torch.data.device_synth import make_pair_render_fn
+from dtt_torch.data.synthetic import sample_params_batch, synthetic_batch
 from dtt_torch.eval import linking as link_ops
 from dtt_torch.eval.inference import (evaluate_snippet, evaluate_snippet_video,
                                       link_snippet, make_pair_step,
@@ -193,7 +204,8 @@ from dtt_torch.train import losses as train_losses
 from dtt_torch.train.checkpoint import (latest_checkpoint,
                                         restore_checkpoint, save_checkpoint)
 from dtt_torch.train.trainer import (apply_gradients, batch_to_device,
-                                     create_train_state, make_train_step)
+                                     create_train_state, make_train_step,
+                                     sgd_step_)
 from dtt_torch.utils import calibrate
 from dtt_torch.utils.params import from_jax_params, init_jax_params
 
@@ -216,7 +228,7 @@ CORR_RTOL, CORR_ATOL = 2.0 ** -7, 1e-5
 PSROI_TOL = 1e-3             # f32 sums of the same bf16 values, other order
 PAIR_BATCH = 4               # pairs per batch of the tau-strided pair step
 BWD_REL_TOL = 8e-3           # bf16 gradients: one bf16 ulp of the largest
-TRAIN_STEPS = 6              # timed full-width train steps (after 1 warm-up)
+TRAIN_STEPS = 6              # timed full-width train steps (after 2 warm-up)
 TRAIN_REF_LOSS_TOL = 1e-4    # tiny f32 train step, card vs CPU, losses
 # ... each gradient leaf: max |card - CPU| <= this share of the leaf's
 # largest |CPU| element. On an H100 the worst leaf is off by ~1.7e-5;
@@ -1959,10 +1971,11 @@ def phase_main_path(cfg: Config, card: str, tree: dict) -> dict:
                                   cfg.input.canvas_width, 3)).astype(np.uint8)
     im_hw = (cfg.input.canvas_height - 8, cfg.input.canvas_width - 48)
     step = make_video_step(cfg, model, FRAMES_PER_CHUNK)
+    # the peak from before the capture: replays allocate nothing
+    torch.cuda.reset_peak_memory_stats()
     evaluate_snippet_video(cfg, step, frames[:FRAMES_PER_CHUNK], im_hw=im_hw)
     torch.cuda.synchronize()                        # warm-up: 2 chunks
 
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     boxes, scores, valid, tracked = evaluate_snippet_video(
@@ -2079,8 +2092,9 @@ def phase_train_reference(mode: str = "psroi") -> None:
 
 
 def phase_train(cfg: Config, tree: dict, card: str) -> dict:
-    """The training path at full width: one warm-up step, then
-    TRAIN_STEPS timed steps whose kernel launches are counted (returned);
+    """The training path at full width: two warm-up steps (the second
+    captures the program), then TRAIN_STEPS timed steps whose kernel
+    launches are counted (returned);
     checks, a checkpoint round trip, PROFILE_STEPS steps under the
     profiler and one step split into stages."""
     m, t = cfg.model, cfg.train
@@ -2094,7 +2108,7 @@ def phase_train(cfg: Config, tree: dict, card: str) -> dict:
                                cfg.input.max_gt_boxes, cfg.input.pixel_means,
                                uint8=True,
                                num_objects=cfg.input.synthetic_objects)
-               for _ in range(TRAIN_STEPS + PROFILE_STEPS + 2)]
+               for _ in range(TRAIN_STEPS + PROFILE_STEPS + 3)]
     initial = {k: v.clone() for k, v in model.state_dict().items()}
     log(f"train path: {m.backbone} {h}x{w} {m.dtype} compute, float32 "
         f"parameters, {m.num_classes} classes, k={m.roi.ps_grid}, "
@@ -2102,17 +2116,20 @@ def phase_train(cfg: Config, tree: dict, card: str) -> dict:
         f"proposals, OHEM {t.ohem} top-{t.ohem_top_k} NMS "
         f"{t.ohem_nms_thresh}, batch {b} pair(s), frozen_stages "
         f"{m.frozen_stages}")
-    t0 = time.perf_counter()
-    state, metrics = step(state, batches[0], sample_draws(cfg, b, gen, "cuda"))
-    torch.cuda.synchronize()
-    log(f"train warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-
     torch.cuda.reset_peak_memory_stats()
+    for i in range(2):       # eager, then captured as the step's program
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i],
+                              sample_draws(cfg, b, gen, "cuda"))
+        torch.cuda.synchronize()
+        log(f"train warm-up step {i + 1}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
     reset_launches()
     history = []
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
-        state, metrics = step(state, batches[1 + i],
+        state, metrics = step(state, batches[2 + i],
                               sample_draws(cfg, b, gen, "cuda"))
         history.append(metrics)
     torch.cuda.synchronize()
@@ -2435,15 +2452,17 @@ def phase_frame_path(cfg: Config, tree: dict, card: str) -> dict:
 
 def timed_train(cfg: Config, state, step, stream, gen, label: str,
                 card: str):
-    """One warm-up step and DATA_STEPS timed steps of `step` on batches
-    pulled from `stream`: checks the losses and the train path's kernels,
-    logs ms/step, pairs/s, the wait for batches, peak memory and launches
-    a step. Returns the state and the timed ms/step."""
+    """Two warm-up steps (the program captures at the second) and
+    DATA_STEPS timed steps of `step` on batches pulled from `stream`:
+    checks the losses and the train path's kernels, logs ms/step, pairs/s,
+    the wait for batches, peak memory and launches a step. Returns the
+    state and the timed ms/step."""
     b = cfg.train.batch_size_per_chip
-    state, _ = step(state, next(stream), sample_draws(cfg, b, gen, "cuda"),
-                    gen)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, _ = step(state, next(stream),
+                        sample_draws(cfg, b, gen, "cuda"), gen)
+    torch.cuda.synchronize()
     reset_launches()
     history, wait = [], 0.0
     t0 = time.perf_counter()
@@ -2875,9 +2894,9 @@ def phase_mode(cfg: Config, card: str) -> dict:
         0, 256, (FRAMES_PER_CHUNK, h, w, 3)).astype(np.uint8))
     im_hw = torch.tensor([h - 8, w - 48], dtype=torch.float32, device="cuda")
     step = make_video_step(cfg, model, FRAMES_PER_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
     step(frames, im_hw)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     outs = [x.cpu().numpy() for x in step(frames, im_hw)]
@@ -2902,14 +2921,15 @@ def phase_mode(cfg: Config, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     batches = [synthetic_batch(rng, b, h, w, cfg.model.num_classes,
                                cfg.input.max_gt_boxes, cfg.input.pixel_means,
-                               uint8=True) for _ in range(1 + MODE_STEPS)]
-    state, _ = step(state, batches[0], sample_draws(cfg, b, gen, "cuda"))
-    torch.cuda.synchronize()
+                               uint8=True) for _ in range(2 + MODE_STEPS)]
     torch.cuda.reset_peak_memory_stats()
+    for batch in batches[:2]:   # eager, then captured as the program
+        state, _ = step(state, batch, sample_draws(cfg, b, gen, "cuda"))
+    torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     history = []
-    for batch in batches[1:]:
+    for batch in batches[2:]:
         state, metrics = step(state, batch, sample_draws(cfg, b, gen, "cuda"))
         history.append(metrics)
     torch.cuda.synchronize()
@@ -3005,8 +3025,10 @@ def phase_parallel_nccl(cfg: Config, tree: dict, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(32)
     draws = [sample_draws(cfg, b, gen, "cuda") for _ in range(1 + PAR_STEPS)]
     fhw = (h // 16, w // 16)
+    # the serial reference runs uncaptured, as the parallel step does
     s_loss, s_ms, s_after, _, s_peak, _ = par_train_run(
-        cfg, tree, lambda m: make_train_step(cfg, m, fhw), batches, draws)
+        cfg, tree, lambda m: make_train_step(cfg, m, fhw).eager, batches,
+        draws)
     p_loss, p_ms, p_after, t_launches, p_peak, nbytes = par_train_run(
         cfg, tree, lambda m: make_parallel_train_step(cfg, m, fhw, mesh),
         batches, draws)
@@ -3428,8 +3450,8 @@ def phase_accuracy(card: str, tool_name: str, prefix: str, steps: int,
         if not (key in res and np.isfinite(res[key]) and -1 <= res[key] <= 1):
             raise AssertionError(f"{prefix} eval: {key} is {res.get(key)!r}")
     ms = clock.ms_per_step()
-    log(f"{tool_name.removeprefix('run_').removesuffix('_torch')}: {steps} "
-        f"timed steps of {b} pairs at "
+    log(f"{tool_name.removeprefix('run_').removesuffix('_torch')}: "
+        f"{clock.last - clock.first} timed steps of {b} pairs at "
         f"{cfg.input.canvas_height}x{cfg.input.canvas_width} "
         f"({cfg.model.backbone}): {ms:.2f} ms/step, {b * 1e3 / ms:.2f} "
         f"pairs/s, peak {peak:.2f} GiB, losses at step {clock.last}: "
@@ -3456,6 +3478,330 @@ def phase_flagship(card: str) -> tuple:
     paths flag_train and flag_eval, as `phase_accuracy` drives it."""
     return phase_accuracy(card, "run_flagship_synth_torch", "flag",
                           FLAG_STEPS, seed=50)
+
+
+# the step programs (CUDA graphs): inference calls held bit for bit against
+# the eager form on changing inputs, train steps from one state, calls of
+# each form timed after warm-up, calls of each form under the profiler
+PROGRAM_CHECKS = 3
+PROGRAM_STEPS = 5
+PROGRAM_CALLS = 20
+PROGRAM_PROFILE_CALLS = 5
+
+
+def exact(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit: floats by their bits (NaN payloads and signed zeros
+    included), other dtypes by value."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(ints), b.view(ints))
+    return torch.equal(a, b)
+
+
+def output_tensors(out) -> list:
+    """The tensors of a step's outputs, in order."""
+    if isinstance(out, dict):
+        return list(out.values())
+    return list(out)
+
+
+def check_program(name: str, step, calls: list) -> None:
+    """`step` (its programs) against ``step.eager`` on the same arguments
+    call by call, bit for bit; the outputs of consecutive calls share no
+    storage; each program captured once and replayed."""
+    before = [p.replays for p in step.programs]
+    prev = set()
+    for i, args in enumerate(calls):
+        got = output_tensors(step(*args))
+        want = output_tensors(step.eager(*args))
+        bad = [j for j, (g, w) in enumerate(zip(got, want))
+               if not exact(g, w)]
+        if bad or len(got) != len(want):
+            raise AssertionError(f"programs {name}: call {i} outputs {bad} "
+                                 f"differ from the eager form")
+        ptrs = {t.untyped_storage().data_ptr() for t in got}
+        if ptrs & prev:
+            raise AssertionError(f"programs {name}: call {i} returned "
+                                 "storage of the call before")
+        prev = ptrs
+    captures = [p.captures for p in step.programs]
+    replays = [p.replays - b for p, b in zip(step.programs, before)]
+    if captures != [1] * len(step.programs) or min(replays) < len(calls):
+        raise AssertionError(f"programs {name}: captures {captures}, "
+                             f"replays {replays} over {len(calls)} calls")
+    log(f"programs {name}: {len(calls)} calls bit-equal to the eager form "
+        f"(changing inputs), no storage shared between calls; "
+        f"{len(step.programs)} program(s), captured once, replays "
+        f"{replays}")
+
+
+def program_memory(name: str, step, args: tuple) -> None:
+    """Device memory of a fresh step's first call, eager form first
+    (MiB above what was allocated before it): the call's peak and what
+    stays allocated after it (a program's buffers, graph outputs and
+    copies)."""
+    parts = []
+    for form, fn in (("eager", step.eager), ("graphed", step)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        kept = torch.cuda.memory_allocated() - base
+        del out
+        parts.append(f"{form} peak +{peak / 2**20:.1f} MiB, kept "
+                     f"+{kept / 2**20:.1f} MiB")
+    log(f"programs {name} memory of the first call: " + "; ".join(parts))
+
+
+def host_ms(fn, n: int = PROGRAM_CALLS) -> dict:
+    """Host ms of `n` calls of `fn(i)`, each ended by a synchronize, after
+    two warm-up calls: median, min and max."""
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    ms = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(2 + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"median": float(np.median(ms)), "min": min(ms), "max": max(ms)}
+
+
+def log_forms(name: str, times: dict, card: str) -> None:
+    log(f"programs {name} host ms a call ({PROGRAM_CALLS} calls after 2 "
+        f"warm-up, synchronized): " + "; ".join(
+            f"{form} median {t['median']:.3f} [{t['min']:.3f}-"
+            f"{t['max']:.3f}]" for form, t in times.items())
+        + f"; graphed/eager median "
+        f"{times['graphed']['median'] / times['eager']['median']:.3f} on "
+        f"{card}")
+
+
+def train_programs(cfg: Config, tree: dict, name: str, batches: list,
+                   render: bool, card: str):
+    """PROGRAM_STEPS train steps of the program and of ``step.eager`` from
+    one state, on the same batches and draws (and render generators
+    seeded alike): losses, parameters, momentum buffers and the render
+    generator's state bit for bit, with cuDNN's deterministic algorithms
+    (its weight gradients need not be otherwise). Then host ms a step of
+    both forms. Returns a closure (form, i) -> one step, for the
+    profile."""
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    b = cfg.train.batch_size_per_chip
+    render_fn = make_pair_render_fn(h, w) if render else None
+    dgen = torch.Generator(device="cuda").manual_seed(61)
+    draws = [sample_draws(cfg, b, dgen, "cuda") for _ in batches]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for form in ("graphed", "eager"):
+            model, state = create_train_state(cfg, "cuda", tree=tree)
+            step = make_train_step(cfg, model, (h // 16, w // 16),
+                                   render_fn=render_fn)
+            fn = step if form == "graphed" else step.eager
+            gen = (torch.Generator(device="cuda").manual_seed(62) if render
+                   else None)
+            metrics = []
+            for i in range(PROGRAM_STEPS):
+                state, m = fn(state, batches[i], draws[i], gen)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            runs[form] = (metrics, state, gen, step)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (mg, sg, gg, step), (me, se, ge, _) = runs["graphed"], runs["eager"]
+    bad = [(i, k) for i, (a, e) in enumerate(zip(mg, me)) for k in a
+           if not exact(a[k], e[k])]
+    pe = se.model.state_dict()
+    bad += [k for k, v in sg.model.state_dict().items() if not exact(v, pe[k])]
+    bufs = lambda st: [x["momentum_buffer"] for x in st.optimizer.state.values()]
+    bad += [f"momentum {i}" for i, (x, y) in enumerate(zip(bufs(sg), bufs(se)))
+            if not exact(x, y)]
+    if render and not torch.equal(gg.get_state(), ge.get_state()):
+        bad.append("render generator state")
+    if bad or step.programs[0].captures != 1:
+        raise AssertionError(f"programs {name}: the graphed steps differ "
+                             f"from the eager ones: {bad[:6]} ({len(bad)})")
+    log(f"programs {name}: {PROGRAM_STEPS} train steps (1 eager, then "
+        f"captured, {step.programs[0].replays} replays) bit-equal to "
+        f"{PROGRAM_STEPS} eager ones from the same state: every loss, "
+        f"{len(pe)} parameters and buffers, {len(bufs(sg))} momentum "
+        f"buffers" + (", the render generator's state" if render else ""))
+    del runs, se, me, ge
+    box = {"state": sg}
+    gen = gg
+
+    def one(form, i):
+        fn = step if form == "graphed" else step.eager
+        box["state"], _ = fn(box["state"], batches[i % len(batches)],
+                             draws[i % len(draws)], gen)
+
+    log_forms(name, {f: host_ms(lambda i, f=f: one(f, i))
+                     for f in ("graphed", "eager")}, card)
+    return one
+
+
+def sgd_bits(cfg: Config) -> None:
+    """The port's update (``sgd_step_``: a device rate, the product
+    rounded before the add) against ``torch.optim.SGD.step`` at the same
+    float rate, over 3 steps (the first makes the momentum buffers) on
+    random float32 parameters and gradients: how many elements of the
+    parameters differ and by how many float32 ulps at most."""
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    shapes = [(1024, 1024), (512, 256, 3, 3), (2048,), (4096, 1024)]
+    base = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
+    grads = [[torch.randn(s, device="cuda", generator=gen) * 1e-2
+              for s in shapes] for _ in range(3)]
+    t = cfg.train
+    runs = []
+    for form in ("sgd_step_", "SGD.step"):
+        params = [torch.nn.Parameter(b.clone()) for b in base]
+        opt = torch.optim.SGD([{"params": params, "lr_mult": 1.0,
+                                "weight_decay": t.weight_decay}],
+                              lr=t.learning_rate, momentum=t.momentum)
+        for g in grads:
+            for p, x in zip(params, g):
+                p.grad = x.clone()
+            if form == "SGD.step":
+                opt.step()
+            else:
+                with torch.no_grad():
+                    sgd_step_(opt, torch.full((), t.learning_rate,
+                                              device="cuda"))
+        runs.append([p.detach() for p in params])
+    n = sum(b.numel() for b in base)
+    differ = sum(int((a != b).sum()) for a, b in zip(*runs))
+    ulps = max(int((a.view(torch.int32) - b.view(torch.int32)).abs().max())
+               for a, b in zip(*runs))
+    log(f"programs update bits: sgd_step_ against torch.optim.SGD.step at "
+        f"lr {t.learning_rate}, 3 steps: {differ} of {n} parameter "
+        f"elements differ, by at most {ulps} float32 ulp(s)")
+
+
+def phase_programs(cfg: Config, tree: dict, card: str) -> None:
+    """The serial steps as programs (CUDA graphs) at ``Config()``'s full
+    width: the 17-frame video chunk under both ``split_video_step`` forms,
+    the 4-pair batch, the single frame, the ``Config()`` train step and
+    the flagship's (8 pairs rendered on the card), each held bit for bit
+    against its eager form (``step.eager``) over PROGRAM_CHECKS calls with
+    changing frames, extents and scales (train: PROGRAM_STEPS steps from
+    one state), then host ms a call of both forms and, last, the card's
+    busy share of each under the profiler."""
+    sgd_bits(cfg)
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    m = cfg.model
+    model = from_jax_params(tree, m, device="cuda")
+    rng = np.random.RandomState(60)
+    extents = [(h - 8 * i, w - 48 * i) for i in range(PROGRAM_CHECKS)]
+    scales = [1.0, 0.8, 1.25][:PROGRAM_CHECKS]
+    hw = [torch.tensor(e, dtype=torch.float32, device="cuda")
+          for e in extents]
+    profiled = {}
+
+    def frames(n):
+        return [torch.from_numpy(rng.randint(0, 256, (n, h, w, 3)).astype(
+            np.uint8)) for _ in range(PROGRAM_CHECKS)]
+
+    chunks = frames(FRAMES_PER_CHUNK)
+    for split in (True, False):
+        c = cfg.replace(eval=cfg.eval.replace(split_video_step=split))
+        step = make_video_step(c, model, FRAMES_PER_CHUNK)
+        name = f"video chunk (split_video_step={split})"
+        program_memory(name, step, (chunks[0], hw[0], scales[0]))
+        check_program(name, step, [(chunks[i], hw[i], scales[i])
+                                   for i in range(PROGRAM_CHECKS)])
+        forms = {"graphed": step, "eager": step.eager}
+        log_forms(name, {f: host_ms(lambda i, fn=fn: fn(
+            chunks[i % PROGRAM_CHECKS], hw[0], 1.0)) for f, fn in
+            forms.items()}, card)
+        profiled[name] = lambda form, i, forms=forms: forms[form](
+            chunks[i % PROGRAM_CHECKS], hw[0], 1.0)
+    pairs = [x.reshape(PAIR_BATCH, 2, h, w, 3)
+             for x in frames(2 * PAIR_BATCH)]
+    step = make_pair_step(cfg, model, PAIR_BATCH)
+    program_memory("pair batch", step, (pairs[0], hw[0], scales[0]))
+    check_program("pair batch", step, [(pairs[i], hw[i], scales[i])
+                                       for i in range(PROGRAM_CHECKS)])
+    pforms = {"graphed": step, "eager": step.eager}
+    log_forms("pair batch", {f: host_ms(lambda i, fn=fn: fn(
+        pairs[i % PROGRAM_CHECKS], hw[0], 1.0)) for f, fn in
+        pforms.items()}, card)
+    profiled["pair batch"] = lambda form, i: pforms[form](
+        pairs[i % PROGRAM_CHECKS], hw[0], 1.0)
+    images = frames(1)
+    step = make_single_frame_step(cfg, model)
+    program_memory("single frame", step, (images[0], extents[0], scales[0]))
+    check_program("single frame", step, [(images[i], extents[i], scales[i])
+                                         for i in range(PROGRAM_CHECKS)])
+    fforms = {"graphed": step, "eager": step.eager}
+    log_forms("single frame", {f: host_ms(lambda i, fn=fn: fn(
+        images[i % PROGRAM_CHECKS], extents[0])) for f, fn in
+        fforms.items()}, card)
+    profiled["single frame"] = lambda form, i: fforms[form](
+        images[i % PROGRAM_CHECKS], extents[0])
+
+    t = cfg.train
+    b = t.batch_size_per_chip
+    brng = np.random.RandomState(t.seed)
+    batches = [synthetic_batch(brng, b, h, w, m.num_classes,
+                               cfg.input.max_gt_boxes, cfg.input.pixel_means,
+                               uint8=True, num_objects=cfg.input.synthetic_objects)
+               for _ in range(PROGRAM_STEPS)]
+    profiled["Config() train step"] = train_programs(
+        cfg, tree, "Config() train step", batches, False, card)
+    fcfg = load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "configs", "flagship_synth.yml"))
+    fh, fw = fcfg.input.canvas_height, fcfg.input.canvas_width
+    frng = np.random.RandomState(fcfg.train.seed)
+    fbatches = [sample_params_batch(
+        frng, fcfg.train.batch_size_per_chip, fh, fw,
+        fcfg.model.num_classes, fcfg.input.max_gt_boxes,
+        num_objects=fcfg.input.synthetic_objects)
+        for _ in range(PROGRAM_STEPS)]
+    profiled["flagship train step"] = train_programs(
+        fcfg, init_jax_params(fcfg.model, seed=0), "flagship train step",
+        fbatches, True, card)
+    phase_programs_profile(profiled)
+
+
+def phase_programs_profile(profiled: dict) -> None:
+    """PROGRAM_PROFILE_CALLS calls of each form of each program under
+    ``torch.profiler``: the card's busy share (the union of its kernel
+    intervals over the traced wall time) and device kernels a call."""
+    from torch.profiler import ProfilerActivity, profile
+    for name, one in profiled.items():
+        parts = []
+        for form in ("graphed", "eager"):
+            one(form, 0)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(PROGRAM_PROFILE_CALLS):
+                    one(form, 1 + i)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            n = PROGRAM_PROFILE_CALLS
+            if not kernels:
+                parts.append(f"{form} {wall / n:.2f} ms wall, busy share "
+                             "not measured (no device events)")
+                continue
+            busy = busy_ms((e.time_range.start, e.time_range.end)
+                           for e in kernels)
+            parts.append(f"{form} {wall / n:.2f} ms wall, device busy "
+                         f"{busy / n:.2f} ms ({100 * busy / wall:.1f}%), "
+                         f"{len(kernels) / n:.0f} device events a call")
+        log(f"programs {name} profile ({PROGRAM_PROFILE_CALLS} calls a "
+            f"form): " + "; ".join(parts))
 
 
 def main() -> int:
@@ -3525,6 +3871,7 @@ def main() -> int:
                 **phase_parallel(cfg, tree, card)}
     phase_bench(card)
     phase_data(cfg, tree, card)
+    phase_programs(cfg, tree, card)
     del tree
     phase_weights(card)
     for phase in (phase_mid_synth, phase_flagship):

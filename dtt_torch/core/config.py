@@ -4,9 +4,9 @@ A JAX-free copy of ``dtt.core.config``: the same frozen dataclasses, fields,
 defaults and YAML keys, so one YAML file configures both packages. ``yaml``
 is imported only inside ``load_config``/``save_config``.
 
-``EvalConfig.split_video_step`` steers the JAX program only and is
-accepted and ignored here: it works around an XLA scheduling artifact that
-eager PyTorch does not have. Both ``nms_select_block`` fields set the
+``EvalConfig.split_video_step`` splits the video and pair steps into two
+programs (two CUDA graphs: the trunk, then the post-trunk stage), as it
+splits ``dtt``'s jitted steps; off, each step is one program. Both ``nms_select_block`` fields set the
 candidates a step of the multi-select NMS (``nms_padded_fast``), as in
 ``dtt``. ``ModelConfig.remat`` recomputes each bottleneck in the backward
 (``torch.utils.checkpoint``); ``ModelConfig.scan_blocks`` is a parameter
@@ -159,7 +159,7 @@ class EvalConfig(_Replaceable):
     max_tubes_per_class: int = 20
     link_iou_weight: float = 1.0
     nms_select_block: int = 32
-    split_video_step: bool = True  # accepted and ignored by the port
+    split_video_step: bool = True  # trunk | post-trunk: two programs
 
 
 @dataclass(frozen=True)

@@ -25,10 +25,15 @@ The video and pair steps take the fused path under the psroi pooling mode
 (``frame_features``, ``track_psmaps``, the batched detection and track
 pools), as ``dtt`` chooses by ``roi.pooling_mode``.
 
-Both drivers keep two batches in flight: CUDA work is queued
-asynchronously and only the ``.cpu()`` of a finished batch waits. Their
-frames are an array or a ``LazyFrames``, which decodes each frame of a
-snippet on first touch and keeps a bounded cache.
+The serial steps are programs (``dtt_torch.utils.programs``), as ``dtt``
+jits them: on CUDA each is captured once as a CUDA graph and replayed, the
+video and pair steps as two programs (trunk, then the post-trunk stage on
+the trunk's feature buffers) under ``EvalConfig.split_video_step`` and as
+one without it; the data-parallel steps run eagerly. A step's outputs are
+copies that its next call leaves alone, so both drivers keep two batches
+in flight: CUDA work is queued asynchronously and only the ``.cpu()`` of a
+finished batch waits. Their frames are an array or a ``LazyFrames``, which
+decodes each frame of a snippet on first touch and keeps a bounded cache.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from dtt_torch.models.dnt import (DnT, FrameFeats,
                                   detect_frames_batched, detect_track_fused,
                                   normalize_device_images, track_rois_batched)
 from dtt_torch.parallel.mesh import DataMesh, all_gather_cat, exchange_halo
+from dtt_torch.utils.programs import StepProgram, upload
 
 
 class PairOutputs(NamedTuple):
@@ -151,12 +157,6 @@ def _step_setup(cfg: Config, model: DnT, device) -> tuple:
     return device, anchors
 
 
-def _upload(frames: torch.Tensor, device: torch.device) -> torch.Tensor:
-    if device.type == "cuda" and frames.device.type == "cpu":
-        frames = frames.pin_memory()
-    return frames.to(device, non_blocking=True)
-
-
 def _detect_and_track_fused(cfg: Config, model: DnT, anchors, f_t, f_tau,
                             im_hw, scale) -> PairOutputs:
     """Everything after the trunk: 3-scale correlation + fused ps-maps,
@@ -197,14 +197,55 @@ def _trunk_and_post(cfg: Config, model: DnT):
     return model.frame_features, _detect_and_track
 
 
+def _paired_step(cfg: Config, name: str, trunk_body, post_body, device,
+                 check, **attrs):
+    """A video or pair step ``(x, im_hw, scale=1.0) -> PairOutputs`` as
+    programs (``dtt_torch.utils.programs``): with
+    ``EvalConfig.split_video_step`` (the default) two, the trunk and the
+    post-trunk stage, which reads the trunk's feature buffers in place
+    (``dtt``'s two jitted programs); otherwise one. `check(x)` validates
+    the input; `attrs` (and ``device``) are set on the step and on
+    ``step.eager``, the same step uncaptured; ``step.programs`` holds the
+    programs."""
+    if cfg.eval.split_video_step:
+        trunk = StepProgram(trunk_body, f"{name} trunk", device,
+                            copy_out=False)
+        post = StepProgram(post_body, f"{name} post-trunk", device,
+                           borrow=(0,))
+        programs = (trunk, post)
+        run = lambda x, im_hw, scale: post(trunk(x, im_hw), im_hw, scale)
+        eager = lambda x, im_hw, scale: post.eager(trunk.eager(x, im_hw),
+                                                   im_hw, scale)
+    else:
+        run = StepProgram(lambda x, im_hw, scale: post_body(
+            trunk_body(x, im_hw), im_hw, scale), name, device)
+        programs, eager = (run,), run.eager
+
+    def wrap(form):
+        def step(x: torch.Tensor, im_hw: torch.Tensor,
+                 scale: float = 1.0) -> PairOutputs:
+            check(x)
+            return form(x, im_hw, scale)
+        step.__dict__.update(attrs, device=device)
+        return step
+
+    step = wrap(run)
+    step.eager, step.programs = wrap(eager), programs
+    return step
+
+
 def make_video_step(cfg: Config, model: DnT, frames_per_chunk: int = 33,
                     device=None):
-    """(frames (F, H, W, 3), im_hw (2,) float32 tensor on the device, scale)
-    -> PairOutputs of F-1 pairs, as device tensors.
+    """(frames (F, H, W, 3), im_hw (2,) float32 tensor, scale) ->
+    PairOutputs of F-1 pairs, as device tensors.
 
     Runs on `device` (CUDA unless the caller passes "cpu"), which must hold
-    `model`. ``EvalConfig.split_video_step`` is ignored: eager PyTorch has
-    no single program to split.
+    `model`, as programs (``dtt_torch.utils.programs``): on CUDA captured
+    once as CUDA graphs and replayed, two (the trunk, then the post-trunk
+    stage on its features) under ``EvalConfig.split_video_step``, one
+    without it, as ``dtt`` jits its step; `frames`, `im_hw` and `scale`
+    are inputs of the program, not constants. ``step.eager`` is the same
+    step uncaptured; ``step.programs`` holds the programs.
     """
     if frames_per_chunk < 2:
         raise ValueError("a chunk needs at least one frame pair")
@@ -212,63 +253,66 @@ def make_video_step(cfg: Config, model: DnT, frames_per_chunk: int = 33,
     trunk, post = _trunk_and_post(cfg, model)
 
     @torch.inference_mode()
-    def step(frames: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
-             ) -> PairOutputs:
-        if frames.shape[0] != frames_per_chunk:
-            raise ValueError(f"expected chunks of {frames_per_chunk} frames, "
-                             f"got {tuple(frames.shape)}")
-        images = normalize_device_images(_upload(frames, device), im_hw,
-                                         cfg.input.pixel_means)
-        feats = trunk(images)
+    def trunk_body(frames, im_hw):
+        return trunk(normalize_device_images(frames, im_hw,
+                                             cfg.input.pixel_means))
+
+    @torch.inference_mode()
+    def post_body(feats, im_hw, scale):
         return post(cfg, model, anchors, feats.slice(slice(None, -1)),
                     feats.slice(slice(1, None)), im_hw, scale)
 
-    step.frames_per_chunk = frames_per_chunk
-    step.device = device
-    return step
+    def check(frames):
+        if frames.shape[0] != frames_per_chunk:
+            raise ValueError(f"expected chunks of {frames_per_chunk} "
+                             f"frames, got {tuple(frames.shape)}")
+
+    return _paired_step(cfg, "video step", trunk_body, post_body, device,
+                        check, frames_per_chunk=frames_per_chunk)
 
 
 def make_pair_step(cfg: Config, model: DnT, batch: int = 4, device=None):
-    """(pairs (B, 2, H, W, 3), im_hw (2,) float32 tensor on the device,
-    scale) -> PairOutputs of the B pairs (detections of each pair's first
-    frame, tracked into its second), as device tensors.
+    """(pairs (B, 2, H, W, 3), im_hw (2,) float32 tensor, scale) ->
+    PairOutputs of the B pairs (detections of each pair's first frame,
+    tracked into its second), as device tensors.
 
     One trunk pass over the 2B frames, then frames 0::2 and 1::2 as the
     pair halves (``dtt``'s ``_pair_forward``). Runs on `device` (CUDA
-    unless the caller passes "cpu"), which must hold `model`.
-    ``EvalConfig.split_video_step`` is ignored, as in `make_video_step`.
+    unless the caller passes "cpu"), which must hold `model`, as programs
+    split by ``EvalConfig.split_video_step`` as in `make_video_step`
+    (``step.eager``, ``step.programs``).
     """
     if batch < 1:
         raise ValueError("a pair batch needs at least one pair")
     device, anchors = _step_setup(cfg, model, device)
-    forward = _pair_forward(cfg, model, device, anchors)
+    trunk, post = _pair_forward(cfg, model, anchors)
 
-    @torch.inference_mode()
-    def step(pairs: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
-             ) -> PairOutputs:
+    def check(pairs):
         if pairs.shape[:2] != (batch, 2):
             raise ValueError(f"expected batches of {batch} pairs "
                              f"(B, 2, H, W, 3), got {tuple(pairs.shape)}")
-        return forward(pairs, im_hw, scale)
 
-    step.batch = batch
-    step.device = device
-    return step
+    return _paired_step(cfg, "pair step", trunk, post, device, check,
+                        batch=batch)
 
 
-def _pair_forward(cfg: Config, model: DnT, device, anchors):
-    """The pair step's body: one trunk pass over the 2B frames, then
-    frames 0::2 and 1::2 as the pair halves (``dtt``'s ``_pair_forward``)."""
+def _pair_forward(cfg: Config, model: DnT, anchors):
+    """The pair step's body as its trunk stage (one pass over the 2B
+    frames of the uploaded pairs) and its post-trunk stage (frames 0::2
+    and 1::2 as the pair halves, ``dtt``'s ``_pair_forward``)."""
     trunk, post = _trunk_and_post(cfg, model)
 
-    def forward(pairs, im_hw, scale):
-        pairs = normalize_device_images(_upload(pairs, device), im_hw,
-                                        cfg.input.pixel_means)
-        feats = trunk(pairs.reshape(-1, *pairs.shape[2:]))
+    @torch.inference_mode()
+    def trunk_body(pairs, im_hw):
+        pairs = normalize_device_images(pairs, im_hw, cfg.input.pixel_means)
+        return trunk(pairs.reshape(-1, *pairs.shape[2:]))
+
+    @torch.inference_mode()
+    def post_body(feats, im_hw, scale):
         return post(cfg, model, anchors, feats.slice(slice(0, None, 2)),
                     feats.slice(slice(1, None, 2)), im_hw, scale)
 
-    return forward
+    return trunk_body, post_body
 
 
 def _mesh_setup(cfg: Config, model: DnT, mesh: DataMesh) -> tuple:
@@ -316,7 +360,7 @@ def make_pair_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
     if pairs_per_device < 1:
         raise ValueError("a pair batch needs at least one pair a rank")
     device, anchors = _mesh_setup(cfg, model, mesh)
-    forward = _pair_forward(cfg, model, device, anchors)
+    trunk, post = _pair_forward(cfg, model, anchors)
     batch = mesh.size * pairs_per_device
 
     @torch.inference_mode()
@@ -326,7 +370,8 @@ def make_pair_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
             raise ValueError(f"expected pairs (B, 2, H, W, 3), got "
                              f"{tuple(pairs.shape)}")
         local = _local_rows(pairs, mesh, pairs_per_device, "pairs")
-        return _gather_outputs(forward(local, im_hw, scale), mesh)
+        feats = trunk(upload(local, device), im_hw)
+        return _gather_outputs(post(feats, im_hw, scale), mesh)
 
     step.batch = batch
     step.rows = mesh.rows(batch)
@@ -359,7 +404,7 @@ def make_video_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
     def step(frames: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
              ) -> PairOutputs:
         local = _local_rows(frames, mesh, frames_per_device, "frames")
-        images = normalize_device_images(_upload(local, device), im_hw,
+        images = normalize_device_images(upload(local, device), im_hw,
                                          cfg.input.pixel_means)
         feats = trunk(images)
         keys = sorted(feats.corr_feats)
@@ -389,28 +434,41 @@ def make_single_frame_step(cfg: Config, model: DnT, device=None):
 
     A uint8 image is normalized on the device; `im_hw` is its true (h, w)
     extent (default: the canvas). Runs on `device` (CUDA unless the caller
-    passes "cpu"), which must hold `model`.
+    passes "cpu"), which must hold `model`, as one program
+    (``dtt_torch.utils.programs``; ``dtt`` jits the step): on CUDA captured
+    once as a CUDA graph and replayed, with the image, `im_hw` and `scale`
+    its inputs. ``step.eager`` is the same step uncaptured;
+    ``step.programs`` holds the program.
     """
     device, anchors = _step_setup(cfg, model, device)
     mcfg, ecfg = cfg.model, cfg.eval
     canvas = (cfg.input.canvas_height, cfg.input.canvas_width)
 
     @torch.inference_mode()
-    def step(image: torch.Tensor, im_hw=None, scale: float = 1.0):
-        if image.dim() != 4 or image.shape[0] != 1:
-            raise ValueError(f"expected one image (1, H, W, 3), got "
-                             f"{tuple(image.shape)}")
-        hw = torch.as_tensor(canvas if im_hw is None else im_hw,
-                             dtype=torch.float32, device=device)
-        image = normalize_device_images(_upload(image, device), hw,
-                                        cfg.input.pixel_means)
+    def body(image, hw, scale):
+        image = normalize_device_images(image, hw, cfg.input.pixel_means)
         feats = model.frame_features(image)
         _, det = detect_frame(mcfg, feats, anchors, hw[0], hw[1], scale)
         return decode_frame_detections(mcfg, det, hw[0], hw[1],
                                        ecfg.score_thresh, ecfg.nms_thresh,
                                        ecfg.max_per_class)
 
-    step.device = device
+    program = StepProgram(body, "single-frame step", device)
+
+    def checked(form):
+        def step(image: torch.Tensor, im_hw=None, scale: float = 1.0):
+            if image.dim() != 4 or image.shape[0] != 1:
+                raise ValueError(f"expected one image (1, H, W, 3), got "
+                                 f"{tuple(image.shape)}")
+            hw = canvas if im_hw is None else im_hw
+            if not isinstance(hw, torch.Tensor):
+                hw = torch.tensor(hw, dtype=torch.float32)
+            return form(image, hw, scale)
+        return step
+
+    step, step_eager = checked(program), checked(program.eager)
+    step_eager.device = step.device = device
+    step.eager, step.programs = step_eager, (program,)
     return step
 
 

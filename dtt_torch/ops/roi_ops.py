@@ -41,7 +41,7 @@ def _batched(fn):
 
 def _div(x: torch.Tensor, d) -> torch.Tensor:
     """`x` / `d` as a true division on every device."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _bilinear(features: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
@@ -153,7 +153,8 @@ def roi_pool(features: torch.Tensor, rois: torch.Tensor,
     xs = torch.arange(w, device=features.device)
     row_in = (ys >= hs[..., None]) & (ys < he[..., None])       # (B, N, k, H)
     col_in = (xs >= ws[..., None]) & (xs < we[..., None])       # (B, N, k, W)
-    neg = torch.tensor(torch.finfo(torch.float32).min, device=features.device)
+    neg = torch.full((), torch.finfo(torch.float32).min,
+                     device=features.device)
     f = features.float()
     rows = max(1, _POOL_CHUNK // max(1, k * h * w * c))
     out = []

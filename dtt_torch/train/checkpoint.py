@@ -138,8 +138,9 @@ def _sgd_state(opt_state: dict, path: str) -> dict:
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load the checkpoint at `path` (written by either package) into
-    `state`'s model and optimizer, in place on their device; returns the
-    state at the saved step."""
+    `state`'s model and optimizer, in place on their device (parameters
+    and existing momentum buffers keep their memory); returns the state
+    at the saved step."""
     raw = _read(path)
     model, opt = state.model, state.optimizer
     sgd = _sgd_state(raw["opt_state"], path)
@@ -152,8 +153,12 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     key_of = {p: k for k, p in model.named_parameters()}
     for group in opt.param_groups:       # the order SGD keeps its state in
         for p in group["params"]:
-            # in the parameter's memory format, as SGD makes its buffers
-            buf = torch.empty_like(p)
+            # in the parameter's memory format, as SGD makes its buffers;
+            # an existing buffer is filled in place, where a captured train
+            # step reads it
+            buf = opt.state[p].get("momentum_buffer")
+            if buf is None:
+                buf = torch.empty_like(p)
             opt.state[p]["momentum_buffer"] = buf.copy_(
                 trace[key_of[p]] / group["lr_mult"])
     return state._replace(step=step)

@@ -13,8 +13,18 @@ The optimizer is ``dtt``'s optax chain, step for step:
 5. frozen parameters (frozen-BN affines, frozen stages) are in no group
    and never change.
 
-Steps 2-4 are ``torch.optim.SGD`` with one group for weights and one for
-biases; the clip and the schedule are done here.
+``torch.optim.SGD`` holds the two groups (weights; biases) and the momentum
+buffers; the update itself is written here as ``torch._foreach_*`` ops in
+SGD's order (decay, momentum, rate), with the rate a device tensor that
+``learning_rate_tensor`` computes from the step on the card, so that one
+captured update serves every step.
+
+``make_train_step`` returns the step as a program
+(``dtt_torch.utils.programs``), as ``dtt`` jits its step: forward,
+backward and update captured once as a CUDA graph, at the second step
+(the first runs eagerly and makes the momentum buffers), and replayed;
+the batch, the draws and the step number are its inputs, the render
+generator a registered one. ``step.eager`` is the same step uncaptured.
 
 Data parallelism (``make_parallel_train_step``) is one process per device,
 as ``torchrun`` starts them: each rank takes its rows of the global batch
@@ -39,6 +49,7 @@ from dtt_torch.parallel.mesh import (DataMesh, all_reduce_mean_, broadcast_,
                                      data_mesh)
 from dtt_torch.train.losses import batch_loss
 from dtt_torch.utils.params import from_jax_params, init_jax_params
+from dtt_torch.utils.programs import StepProgram, upload
 
 
 class TrainState(NamedTuple):
@@ -89,6 +100,23 @@ def make_optimizer(cfg: Config, model: DnT) -> torch.optim.SGD:
     return torch.optim.SGD(groups, lr=t.learning_rate, momentum=t.momentum)
 
 
+def learning_rate_tensor(cfg: Config, step: torch.Tensor) -> torch.Tensor:
+    """`learning_rate` at the 0-d integer tensor `step`, as a float32 0-d
+    tensor on its device: the same float32 operations in the same order
+    (the division by a tensor, as a true division on every device), so
+    equal to optax's schedule bit for bit."""
+    t = cfg.train
+    f32 = dict(dtype=torch.float32, device=step.device)
+    lr = torch.full((), np.float32(t.learning_rate), **f32)
+    for boundary in t.lr_decay_steps:
+        lr = torch.where(step >= int(boundary), lr * np.float32(t.gamma), lr)
+    if t.warmup_steps > 0:
+        warm = (step + 1).to(torch.float32) / torch.full(
+            (), np.float32(t.warmup_steps), **f32)
+        lr = lr * warm.clamp(max=1.0)
+    return lr
+
+
 def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
     """Scale `grads` in place by max_norm / norm when their global norm is
     at least `max_norm` (optax's ``clip_by_global_norm``: no epsilon).
@@ -103,21 +131,57 @@ def _trainable(state: TrainState) -> list:
     return [p for g in state.optimizer.param_groups for p in g["params"]]
 
 
-def apply_gradients(cfg: Config, state: TrainState) -> TrainState:
-    """One optimizer update from the parameters' ``.grad``: clip, then the
-    SGD step at ``learning_rate(cfg, state.step)``. A trainable parameter
-    without a gradient counts as a zero gradient (weight decay and momentum
-    still move it, as in optax)."""
-    opt = state.optimizer
-    params = _trainable(state)
+def sgd_step_(optimizer: torch.optim.SGD, lr: torch.Tensor) -> None:
+    """``torch.optim.SGD``'s update of each group from the ``.grad``s at
+    the rate ``lr * lr_mult``, `lr` a 0-d tensor: weight decay, then
+    ``buf = momentum * buf + u`` (``buf = u`` on the first step), then
+    ``p += (-lr * lr_mult) * buf``, the product rounded before the sum,
+    as optax scales the update before applying it."""
+    for group in optimizer.param_groups:
+        params = group["params"]
+        if not params:
+            continue
+        grads = [p.grad for p in params]
+        if group["weight_decay"]:
+            grads = torch._foreach_add(grads, params,
+                                       alpha=group["weight_decay"])
+        momentum = group["momentum"]
+        if momentum:
+            bufs = [optimizer.state[p].get("momentum_buffer")
+                    for p in params]
+            if any(b is None for b in bufs):      # the first step
+                bufs = [torch.clone(g).detach() for g in grads]
+                for p, b in zip(params, bufs):
+                    optimizer.state[p]["momentum_buffer"] = b
+            else:
+                torch._foreach_mul_(bufs, momentum)
+                torch._foreach_add_(bufs, grads)
+            grads = bufs
+        torch._foreach_add_(params, torch._foreach_mul(
+            grads, -group["lr_mult"] * lr))
+
+
+@torch.no_grad()
+def _update(cfg: Config, optimizer: torch.optim.SGD,
+            step: torch.Tensor) -> None:
+    """Clip, then the SGD step at ``learning_rate_tensor(cfg, step)``. A
+    trainable parameter without a gradient counts as a zero gradient
+    (weight decay and momentum still move it, as in optax)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     clip_by_global_norm_([p.grad for p in params], cfg.train.clip_gradients)
-    lr = learning_rate(cfg, state.step)
-    for group in opt.param_groups:
-        group["lr"] = lr * group["lr_mult"]
-    opt.step()
+    sgd_step_(optimizer, learning_rate_tensor(cfg, step))
+
+
+def apply_gradients(cfg: Config, state: TrainState) -> TrainState:
+    """One optimizer update from the parameters' ``.grad``: clip, then the
+    SGD step at ``learning_rate(cfg, state.step)``, computed on the
+    parameters' device."""
+    device = _trainable(state)[0].device
+    _update(cfg, state.optimizer,
+            torch.full((), state.step, dtype=torch.int64, device=device))
     return state._replace(step=state.step + 1)
 
 
@@ -132,19 +196,20 @@ def create_train_state(cfg: Config, device=None, tree: dict | None = None
     return model, TrainState(model, make_optimizer(cfg, model), 0)
 
 
-def batch_to_device(batch: dict, device: torch.device) -> dict:
-    """A numpy (``synthetic_batch``) or tensor batch dict as tensors on
-    `device`; labels become int64 indices."""
+def batch_tensors(batch: dict) -> dict:
+    """A numpy (``synthetic_batch``) or tensor batch dict as tensors where
+    they lie; labels become int64 indices."""
     out = {}
     for k, v in batch.items():
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.asarray(v))
-        if k == "gt_labels":
-            t = t.long()
-        if device.type == "cuda" and t.device.type == "cpu":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
+        out[k] = t.long() if k == "gt_labels" else t
     return out
+
+
+def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """`batch_tensors` of `batch` on `device`."""
+    return {k: upload(t, device) for k, t in batch_tensors(batch).items()}
 
 
 def make_train_step(cfg: Config, model: DnT, feat_hw: tuple[int, int],
@@ -163,6 +228,16 @@ def make_train_step(cfg: Config, model: DnT, feat_hw: tuple[int, int],
     rendering, ``dtt_torch.data.device_synth.make_pair_render_fn``) the
     batch carries scene parameters only and the step draws its canvases
     on the device first, from `generator`, which it then needs.
+
+    The step is a program (``dtt_torch.utils.programs``): on CUDA the
+    first step runs eagerly, the second is captured as a CUDA graph and
+    every step from it replays the graph, with the batch, the draws and
+    the step number copied into its buffers and `generator` registered
+    with it. The metrics are copies. The graph reads the state's
+    parameters and momentum buffers where they lie, so a state is updated
+    in place (``restore_checkpoint`` and weight loads copy into it); a
+    step given another state's optimizer captures anew.
+    ``train_step.eager`` is the same step uncaptured.
     """
     device = resolve_device(device)
     model_device = next(model.parameters()).device
@@ -171,20 +246,31 @@ def make_train_step(cfg: Config, model: DnT, feat_hw: tuple[int, int],
     anchors = torch.from_numpy(
         grid_anchors_for(cfg.model.anchors, *feat_hw)).to(device)
 
-    def train_step(state: TrainState, batch: dict, draws: Draws,
-                   generator: torch.Generator | None = None):
+    def body(model, optimizer, step, batch, draws, generator):
         if render_fn is not None:
-            if generator is None:
+            batch = dict(batch, images=render_fn(batch, generator))
+        optimizer.zero_grad(set_to_none=True)
+        _, lb = batch_loss(cfg, model, anchors, batch, draws)
+        lb.total.backward()
+        _update(cfg, optimizer, step)
+        return {k: v.detach() for k, v in lb._asdict().items()}
+
+    program = StepProgram(body, "train step", device, eager_calls=1)
+
+    def checked(form):
+        def train_step(state: TrainState, batch: dict, draws: Draws,
+                       generator: torch.Generator | None = None):
+            if render_fn is not None and generator is None:
                 raise ValueError("a step with render_fn draws its canvases "
                                  "from a generator; pass one")
-            batch = dict(batch, images=render_fn(batch, generator))
-        state.optimizer.zero_grad(set_to_none=True)
-        _, lb = batch_loss(cfg, state.model, anchors,
-                           batch_to_device(batch, device), draws)
-        lb.total.backward()
-        state = apply_gradients(cfg, state)
-        return state, {k: v.detach() for k, v in lb._asdict().items()}
+            metrics = form(state.model, state.optimizer, state.step,
+                           batch_tensors(batch), draws, generator)
+            return state._replace(step=state.step + 1), metrics
+        return train_step
 
+    train_step = checked(program)
+    train_step.eager = checked(program.eager)
+    train_step.programs = (program,)
     return train_step
 
 

@@ -25,7 +25,9 @@ to every frame. Prints the wall time of each
 phase (decoding, within detection, apart), then one JSON line: mAP,
 protocol (and with linking mAP_nolink and link_uplift) and the per-class
 APs. Needs a CUDA card; ``main(argv, device="cpu")`` runs the plain
-PyTorch path instead.
+PyTorch path instead. The video and pair steps are programs, as eval.py
+jits them: each captured once as CUDA graphs (trunk and post-trunk under
+``eval.split_video_step``) and replayed; --parallel's steps run eagerly.
 
 --parallel shards the work over the ranks of ``torchrun`` (one process a
 card; without ``torchrun``, a group of one rank): tau=1 runs

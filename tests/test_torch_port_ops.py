@@ -564,7 +564,8 @@ def test_import_leaves_out_jax_and_dtt():
     the diagnosis probes (probe_dead_snippet_torch, probe_tau2_torch and
     flagship_probes_torch, which runs them) and the trunk's profile split
     (trunk_split_torch; the conv epilogue ``dtt_torch.ops.epilogue``
-    among the submodules), the launch-bound paths' A/B
+    and the step programs ``dtt_torch.utils.programs`` among the
+    submodules), the launch-bound paths' A/B
     (host_ab_torch), and kernel 10's host split and device timings
     (epilogue_host_torch, epilogue_device_torch) pulls in no JAX, flax,
     dtt,
@@ -596,12 +597,13 @@ def test_import_leaves_out_jax_and_dtt():
         "assert not bad, bad\n"
         "assert {'dtt_torch.parallel.mesh', 'dtt_torch.utils.timing',\n"
         "        'dtt_torch.utils.profiling',\n"
-        "        'dtt_torch.ops.epilogue'} <= set(sys.modules)\n"
+        "        'dtt_torch.ops.epilogue',\n"
+        "        'dtt_torch.utils.programs'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('dtt_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 43
+    assert int(out.stdout.split()[-1]) >= 45
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):

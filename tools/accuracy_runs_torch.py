@@ -44,9 +44,10 @@ def card() -> str:
 
 class StepClock:
     """Wraps ``make_train_step`` so that the run's steps are timed: the
-    clock starts after the first step and stops after the step that
-    reaches ``train.total_steps``, each behind a synchronize; `metrics`
-    keeps that last step's metrics as floats."""
+    clock starts after the first step (after the second for a step that is
+    a program: it captures its CUDA graph there) and stops after the step
+    that reaches ``train.total_steps``, each behind a synchronize;
+    `metrics` keeps that last step's metrics as floats."""
 
     def __init__(self, trainer):
         import torch
@@ -61,10 +62,15 @@ class StepClock:
         def make(cfg, *a, **k):
             step_fn = self.make(cfg, *a, **k)
             self.batch = cfg.train.batch_size_per_chip
+            warm = 2 if hasattr(step_fn, "programs") else 1
+            start = {}
 
             def timed(state, *sa, **sk):
                 state, metrics = step_fn(state, *sa, **sk)
-                if self.first is None or state.step >= cfg.train.total_steps:
+                start.setdefault("step", state.step + warm - 1)
+                if (self.first is None and state.step >= start["step"]) or (
+                        self.first is not None
+                        and state.step >= cfg.train.total_steps):
                     self.torch.cuda.synchronize()
                     now = time.perf_counter()
                     if self.first is None:

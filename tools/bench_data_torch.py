@@ -216,7 +216,7 @@ def card_run(args) -> int:
                   "prepare_pair_ms": ms / max(pairs, 1), "tree": counts})
 
         ld = loader(4)
-        predecoded = list(itertools.islice(iter(ld), STEPS + 1))
+        predecoded = list(itertools.islice(iter(ld), STEPS + 2))
         ld.stop()
         model, state = create_train_state(cfg, "cuda", tree=init_jax_params(
             cfg.model, seed=0))
@@ -235,9 +235,10 @@ def card_run(args) -> int:
         def train(label, source, stop=()):
             nonlocal state
             stream = device_prefetch(source, "cuda", size=2, cast=cast)
-            try:
-                state, _ = step(state, next(stream),
-                                sample_draws(cfg, b, gen, "cuda"), gen)
+            try:   # two warm-up steps: a program captures at the second
+                for _ in range(2):
+                    state, _ = step(state, next(stream),
+                                    sample_draws(cfg, b, gen, "cuda"), gen)
                 torch.cuda.synchronize()
                 prepare.read()
                 wait, losses = 0.0, []

@@ -70,8 +70,9 @@ def model_calls(ops) -> list:
         return real(*a, **kw)
     spy.launches = 0                # nms_cuda counts by its module name
     ops.nms_cuda = spy
-    try:
-        evaluate_snippet_video(cfg, step, frames, im_hw=im_hw)
+    try:   # uncaptured: a captured call's inputs hold no values
+        evaluate_snippet_video(cfg, getattr(step, "eager", step), frames,
+                               im_hw=im_hw)
         torch.cuda.synchronize()
     finally:
         ops.nms_cuda = real

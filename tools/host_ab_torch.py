@@ -1,7 +1,9 @@
 """A/B of the port's launch-bound paths for two trees on one CUDA card, in
 one call: the ``Config()`` train step (1 pair), the single frame
-(``make_single_frame_step``) and one frame's trunk alone, each tree in a
-fresh process a turn, the trees in alternating turns.
+(``make_single_frame_step``), one frame's trunk alone, the 17-frame video
+chunk (``make_video_step``) and the flagship train step
+(``configs/flagship_synth.yml``: 8 pairs drawn on the card), each tree in
+a fresh process a turn, the trees in alternating turns.
 
     python3 tools/host_ab_torch.py --parent _chip_tree/parent \
         [--pairs 10] [--steps 20] [--frames 30] [--out ab_out/host]
@@ -11,13 +13,18 @@ checkout. The turns go parent, change, change, parent, ... (`--pairs` of
 each tree, labelled E1, E2, ...); each builds its tree's kernels first
 (kept in that tree between turns). A turn makes ``Config()``'s model
 (ResNet-101, 608x1088, bf16; weights from numpy seed 0) and times, each
-after one warm-up: `--steps` train steps on synthetic uint8 pairs as one
-block ended by a synchronize, then `--steps` more synchronized one by
-one; the same for `--frames` single frames; and 50 no-grad calls of the
-backbone on one frame as one block. Prints one JSON line a turn (ms/step,
-ms/frame, trunk ms: the block's mean and the one-by-one median; the card's
-name and power limit), writes them to OUT/turns.jsonl, and last prints
-each tree's median, min and max of every number over its turns.
+after two warm-up calls (a train program captures its graph at the
+second): `--steps` train steps on synthetic uint8 pairs as one block
+ended by a synchronize, then `--steps` more synchronized one by one; the
+same for `--frames` single frames and `--steps` 17-frame uint8 chunks;
+50 no-grad calls of the backbone on one frame as one block; and
+`--steps` flagship steps as the train steps. Where a tree's step has an
+uncaptured form (``step.eager``, the program's eager twin) that form is
+timed too, under the path's name + ``_eager``; each form also reports
+its peak allocated GiB from before its first call. Prints one JSON line a
+turn (ms: the block's mean and the one-by-one median; the card's name and
+power limit), writes them to OUT/turns.jsonl, and last prints each
+tree's median, min and max of every number over its turns.
 """
 
 from __future__ import annotations
@@ -31,8 +38,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-METRICS = ("train_ms", "train_ms_each", "frame_ms", "frame_ms_each",
-           "trunk_ms")
+FRAMES_PER_CHUNK = 17
 
 
 def card() -> str:
@@ -48,75 +54,120 @@ def worker(root: str, steps: int, frames: int) -> dict:
     import numpy as np
     import torch
 
-    from dtt_torch.core.config import Config
-    from dtt_torch.data.synthetic import synthetic_batch
-    from dtt_torch.eval.inference import make_single_frame_step
+    from dtt_torch.core.config import Config, load_config
+    from dtt_torch.data.device_synth import make_pair_render_fn
+    from dtt_torch.data.synthetic import sample_params_batch, synthetic_batch
+    from dtt_torch.eval.inference import (make_single_frame_step,
+                                          make_video_step)
     from dtt_torch.models.targets import sample_draws
     from dtt_torch.ops import _build
     from dtt_torch.train.trainer import create_train_state, make_train_step
     from dtt_torch.utils.params import from_jax_params, init_jax_params
 
     _build.build()
-    cfg = Config()
-    m, t = cfg.model, cfg.train
-    h, w = cfg.input.canvas_height, cfg.input.canvas_width
-    b = t.batch_size_per_chip
-    tree = init_jax_params(m, seed=0)
+    out = {"card": card()}
 
     def block(fn, n):
         """(mean ms of `n` calls as one block, median ms of `n` more
-        synchronized one by one), after one warm-up call."""
+        synchronized one by one), after two warm-up calls."""
         fn(0)
+        fn(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(n):
-            fn(1 + i)
+            fn(2 + i)
         torch.cuda.synchronize()
         mean = (time.perf_counter() - t0) * 1e3 / n
         each = []
         for i in range(n):
             t0 = time.perf_counter()
-            fn(1 + n + i)
+            fn(2 + n + i)
             torch.cuda.synchronize()
             each.append((time.perf_counter() - t0) * 1e3)
         return mean, statistics.median(each)
 
-    model, state = create_train_state(cfg, "cuda", tree=tree)
-    step = make_train_step(cfg, model, (h // 16, w // 16))
+    def forms(name, step, call, n):
+        """Time `call(form, i)` for the step and its eager twin."""
+        for suffix, form in (("", step), ("_eager", getattr(step, "eager",
+                                                             None))):
+            if form is None:
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mean, each = block(lambda i: call(form, i), n)
+            out[f"{name}{suffix}_ms"], out[f"{name}{suffix}_ms_each"] = \
+                mean, each
+            out[f"{name}{suffix}_peak_gib"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def train_path(name, cfg, tree, batches, render):
+        h, w = cfg.input.canvas_height, cfg.input.canvas_width
+        b = cfg.train.batch_size_per_chip
+        model, state = create_train_state(cfg, "cuda", tree=tree)
+        step = make_train_step(cfg, model, (h // 16, w // 16),
+                               render_fn=make_pair_render_fn(h, w)
+                               if render else None)
+        gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed + 1)
+        rgen = (torch.Generator(device="cuda").manual_seed(cfg.train.seed
+                                                           + 2)
+                if render else None)
+        box = {"state": state}
+
+        def train(form, i):
+            box["state"], _ = form(box["state"], batches[i % len(batches)],
+                                   sample_draws(cfg, b, gen, "cuda"), rgen)
+
+        forms(name, step, train, steps)
+        del model, state, step, box
+        torch.cuda.empty_cache()
+
+    cfg = Config()
+    m, t = cfg.model, cfg.train
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    tree = init_jax_params(m, seed=0)
     rng = np.random.RandomState(t.seed)
-    gen = torch.Generator(device="cuda").manual_seed(t.seed + 1)
-    batches = [synthetic_batch(rng, b, h, w, m.num_classes,
-                               cfg.input.max_gt_boxes, cfg.input.pixel_means,
-                               uint8=True,
-                               num_objects=cfg.input.synthetic_objects)
-               for _ in range(2 * steps + 1)]
-    box = {"state": state}
-
-    def train(i):
-        box["state"], _ = step(box["state"], batches[i],
-                               sample_draws(cfg, b, gen, "cuda"))
-
-    train_ms, train_each = block(train, steps)
-    del model, state, step, box, batches
-    torch.cuda.empty_cache()
+    train_path("train", cfg, tree, [
+        synthetic_batch(rng, t.batch_size_per_chip, h, w, m.num_classes,
+                        cfg.input.max_gt_boxes, cfg.input.pixel_means,
+                        uint8=True, num_objects=cfg.input.synthetic_objects)
+        for _ in range(2 * steps + 2)], False)
 
     model = from_jax_params(tree, m, device="cuda")
     fstep = make_single_frame_step(cfg, model)
     images = np.random.RandomState(11).randint(
-        0, 256, (2 * frames + 1, h, w, 3)).astype(np.uint8)
+        0, 256, (2 * frames + 2, h, w, 3)).astype(np.uint8)
     im_hw = (h - 8, w - 48)
-    frame_ms, frame_each = block(
-        lambda i: fstep(torch.from_numpy(images[i:i + 1]), im_hw), frames)
+    forms("frame", fstep, lambda form, i: form(
+        torch.from_numpy(images[i:i + 1]), im_hw), frames)
+    del fstep
+
+    vstep = make_video_step(cfg, model, FRAMES_PER_CHUNK)
+    chunks = [torch.from_numpy(np.random.RandomState(12 + i).randint(
+        0, 256, (FRAMES_PER_CHUNK, h, w, 3)).astype(np.uint8))
+        for i in range(2)]
+    hw = torch.tensor(im_hw, dtype=torch.float32, device="cuda")
+    forms("video", vstep, lambda form, i: form(chunks[i % 2], hw, 1.0),
+          steps)
+    del vstep
 
     one = (torch.randn(1, 3, h, w, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(5))
            * 60).to(getattr(torch, m.dtype)).contiguous(
         memory_format=torch.channels_last)
     with torch.inference_mode():
-        trunk_ms, _ = block(lambda i: model.backbone(one), 50)
-    return {"card": card(), "train_ms": train_ms, "train_ms_each": train_each,
-            "frame_ms": frame_ms, "frame_ms_each": frame_each,
-            "trunk_ms": trunk_ms}
+        out["trunk_ms"], _ = block(lambda i: model.backbone(one), 50)
+    del model, one
+    torch.cuda.empty_cache()
+
+    fcfg = load_config(os.path.join(root, "configs", "flagship_synth.yml"))
+    fh, fw = fcfg.input.canvas_height, fcfg.input.canvas_width
+    frng = np.random.RandomState(fcfg.train.seed)
+    train_path("flagship", fcfg, init_jax_params(fcfg.model, seed=0), [
+        sample_params_batch(frng, fcfg.train.batch_size_per_chip, fh, fw,
+                            fcfg.model.num_classes, fcfg.input.max_gt_boxes,
+                            num_objects=fcfg.input.synthetic_objects)
+        for _ in range(4)], True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -164,7 +215,7 @@ def main(argv=None) -> int:
     summary = {name: {k: {"median": statistics.median(r[k] for r in rows),
                           "min": min(r[k] for r in rows),
                           "max": max(r[k] for r in rows)}
-                      for k in METRICS}
+                      for k in rows[0] if isinstance(rows[0][k], float)}
                for name, rows in results.items() if rows}
     print(json.dumps({"turns": {k: len(v) for k, v in results.items()},
                       "summary": summary}), flush=True)

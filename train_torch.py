@@ -24,7 +24,10 @@ normalized on the card), the same scenes drawn on the card
 (``--device-render``), or the
 '+'-joined datasets under --data-root read by ``PairLoader``
 (``input.use_flipped``, ``input.det_fraction``; bf16 images for a bf16
-model). Every batch reaches the card through ``device_prefetch``. Logs one
+model). Every batch reaches the card through ``device_prefetch``. On one
+card the step is a program (``make_train_step``): the first step runs
+eagerly, the second is captured as a CUDA graph that every later step
+replays, as ``train.py`` jits its step. Logs one
 JSON line every ``train.log_every`` steps (and after the first) with
 pairs/s and the losses, checkpoints every ``train.checkpoint_every`` steps
 and at the end in dtt's run-dir format (``state.msgpack``), and resumes
