@@ -87,17 +87,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    SAT kernel launch a call for both maps under ``pallas_mm`` and
    ``pallas``) and ``correlation`` under both kernel forms at one pair's
    three scales, each checked, its launches counted and timed;
-9. data parallelism, at full width on the same weights: (a) one NCCL
-   rank in this process, the parallel train step for 1 + PAR_STEPS steps
-   against the serial step from the same state, batches and draws
-   (losses, every parameter), with ms/step beside the serial step's, the
-   all-reduce's ms and bytes and peak memory, the parallel video step on
-   one 17-frame chunk and the parallel pair step on one pair batch
-   against the serial steps, each with its launches; (b) PAR_WORLD gloo
-   ranks spawned on the one card (NCCL refuses two ranks on a device):
-   one parallel video chunk and one parallel train step on a global batch
-   against one process on it, the ranks' replicas equal; then
-   ``bench_torch.py``'s measurement at its defaults (its JSON line);
+9. ``bench_torch.py``'s measurement at its defaults (its JSON line);
 10. the data path: a VID/DET tree of 1280x720 JPEG frames written here
    (two train snippets of 10 frames, one val snippet of 17, four DET
    images), the decode route and its host ms per frame, ``PairLoader``'s
@@ -117,7 +107,26 @@ Phases, in order; any failure ends the script with a non-zero exit:
    steps with cuDNN's deterministic algorithms), with host ms a call of
    both forms (median, min and max of 20 calls after warm-up) and, last,
    each form's device busy share under ``torch.profiler``;
-12. weights and pooling modes, at full width: a torchvision-layout
+12. data parallelism, at full width on the same weights: (a) one NCCL
+   rank in this process, the parallel steps as programs (CUDA graphs with
+   NCCL's collectives inside): the train program for 1 + PAR_STEPS steps
+   (the capture among them) against the serial program from the same
+   state, batches and draws (losses, every parameter), with ms/step, the
+   all-reduce's ms and bytes and peak memory, the video program on a
+   17-frame chunk and the pair program on a pair batch against the
+   serial programs, each with its launches (replays); each program bit
+   for bit against its ``.eager`` (the train program over 5 steps under
+   cuDNN's deterministic algorithms, the others over 3 calls with
+   changing frames, extents and scales), host ms a call of both forms,
+   no Python call of a collective while they replay, suspect S2 (2
+   program steps then 2 eager ones on one state against 4 eager steps,
+   for the serial and the parallel train step) and, last, each form's
+   busy share and NCCL device events under ``torch.profiler``; (b)
+   PAR_WORLD gloo ranks spawned on the one card (NCCL refuses two ranks
+   on a device): each program refusing under gloo, then by ``.eager``
+   one parallel video chunk and one parallel train step on a global
+   batch against one process on it, the ranks' replicas equal;
+13. weights and pooling modes, at full width: a torchvision-layout
    ResNet-101 .pth with BN running statistics made here from a numpy seed,
    ``train_torch.main --pretrained --calibrate-bn`` for 1 + 3 steps (every
    backbone conv the .pth's bit for bit, the last calibrated affines'
@@ -131,7 +140,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    for align 1 + 3 train steps (ms/step, peak memory), and the tiny f32
    config card against CPU for the video step and one train step, as in
    phase 4;
-13. the mid_synth accuracy path (configs/mid_synth.yml: ResNet-50 at
+14. the mid_synth accuracy path (configs/mid_synth.yml: ResNet-50 at
    304x544, 19x34 maps, 10 classes, 12 anchors): the correlation and its
    backward, the direct pool and its backward and the NMS at one train
    step's shapes, and the correlation, the direct pool, the NMS and tube
@@ -143,13 +152,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    launches, the step's ms, pairs/s and peak memory, the losses of the
    last step, the mAPs and the verdict line (too few steps for the gate,
    whose message is logged, not applied);
-14. the flagship accuracy path (configs/flagship_synth.yml: Config()'s
+15. the flagship accuracy path (configs/flagship_synth.yml: Config()'s
    model, ResNet-101 dilated at 608x1088, 31 classes, 8 pairs a step
    rendered on the card): the same kernels at its train step's and its
    linked eval's shapes against their plain versions, then
    ``tools/run_flagship_synth_torch.py``'s train (1 + FLAG_STEPS steps)
-   and its eval of one snippet with --link, as in phase 13;
-15. both correlation forwards' device time by ``torch.profiler`` at one
+   and its eval of one snippet with --link, as in phase 14;
+16. both correlation forwards' device time by ``torch.profiler`` at one
    pair and at 16 pairs, after the main paths, since a traced card slows
    the host's later launches.
 
@@ -250,6 +259,7 @@ MODE_STEPS = 3               # timed pretrained and align train steps
 PAR_STEPS = 2                # parallel phase: timed steps after 1 warm-up
 PAR_WORLD = 2                # gloo ranks sharing the one card
 PAR_FPD = 8                  # frames a rank in the two-rank video chunk
+PAR_S2_STEPS = (2, 2)        # S2: program steps, then eager steps, one state
 # parallel phase (a), one NCCL rank against the one-process step from the
 # same state, batches and draws: the same arithmetic, so the losses to
 # float32 roundoff and each parameter within TRAIN_REF_PARAM_TOL (cuDNN's
@@ -2999,10 +3009,92 @@ def par_train_run(cfg: Config, tree: dict, make_step, batches: list,
     return losses, ms, after, launches, peak, nbytes
 
 
-def phase_parallel_nccl(cfg: Config, tree: dict, card: str) -> dict:
+@contextlib.contextmanager
+def collective_calls():
+    """Count the calls of torch.distributed's collectives that the
+    parallel steps make (``dtt_torch.parallel.mesh`` calls them through
+    the module), by name, while the block runs."""
+    import torch.distributed as dist
+    names = ("all_reduce", "all_gather", "broadcast", "batch_isend_irecv")
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counting(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def s2_check(cfg: Config, tree: dict, name: str, make_step, batches: list,
+             draws: list) -> None:
+    """Suspect S2: PAR_S2_STEPS[0] program steps, then PAR_S2_STEPS[1]
+    ``step.eager`` steps on the same state, against as many eager steps
+    from the same state, batches and draws, with cuDNN's deterministic
+    algorithms: every loss, parameter, buffer and momentum buffer bit for
+    bit. Counts the warnings that autograd's gradient accumulators were
+    made on another stream."""
+    import warnings
+    n, m = PAR_S2_STEPS
+    h, w = cfg.input.canvas_height, cfg.input.canvas_width
+    runs, warned = {}, 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, forms in (("mixed", ["program"] * n + ["eager"] * m),
+                             ("eager", ["eager"] * (n + m))):
+            model, state = create_train_state(cfg, "cuda", tree=tree)
+            step = make_step(cfg, model, (h // 16, w // 16))
+            metrics = []
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for i, form in enumerate(forms):
+                    fn = step if form == "program" else step.eager
+                    state, mt = fn(state, batches[i], draws[i])
+                    metrics.append(mt)
+                torch.cuda.synchronize()
+            warned += sum("AccumulateGrad" in str(c.message) for c in caught)
+            runs[label] = (metrics, state, step)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (mm, sm, step), (me, se, _) = runs["mixed"], runs["eager"]
+    bad = [(i, k) for i, (a, e) in enumerate(zip(mm, me)) for k in a
+           if not exact(a[k], e[k])]
+    pe = se.model.state_dict()
+    bad += [k for k, v in sm.model.state_dict().items() if not exact(v, pe[k])]
+    bufs = lambda st: [x["momentum_buffer"] for x in st.optimizer.state.values()]
+    bad += [f"momentum {i}" for i, (x, y) in enumerate(zip(bufs(sm), bufs(se)))
+            if not exact(x, y)]
+    if bad or step.programs[0].captures != 1:
+        raise AssertionError(f"S2 {name}: {n} program steps then {m} eager "
+                             f"ones differ from {n + m} eager steps: "
+                             f"{bad[:6]} ({len(bad)})")
+    log(f"S2 {name}: {n} program steps (1 eager, then captured, "
+        f"{step.programs[0].replays} replay(s)) then {m} step.eager steps on "
+        f"one state bit-equal to {n + m} eager steps from the same state "
+        f"(cuDNN deterministic): every loss, {len(pe)} parameters and "
+        f"buffers, {len(bufs(sm))} momentum buffers; {warned} "
+        f"AccumulateGrad stream warning(s)")
+
+
+def phase_parallel_nccl(cfg: Config, tree: dict, card: str) -> tuple:
     """(a) One NCCL rank in this process at full width: the parallel
-    train, video and pair steps against the serial ones from the same
-    state and inputs, each with its launches (returned per path)."""
+    train, video and pair programs against the serial programs from the
+    same state and inputs (PAR_LOSS_RTOL, TRAIN_REF_PARAM_TOL,
+    PAR_EVAL_TOL), each against its own ``.eager`` bit for bit (the train
+    program over PROGRAM_STEPS steps under cuDNN's deterministic
+    algorithms), host ms a call of both forms, and no Python call of a
+    collective while a program replays; S2 for the serial and the
+    parallel train step. Returns the launches per path and the closures
+    to profile (the caller profiles them and leaves the group)."""
     import torch.distributed as dist
 
     from dtt_torch.eval.inference import (make_pair_step_parallel,
@@ -3015,23 +3107,27 @@ def phase_parallel_nccl(cfg: Config, tree: dict, card: str) -> dict:
                            device="cuda:0")
     mesh = data_mesh("cuda:0")
     log(f"parallel (a): {mesh.size} rank, backend {mesh.backend}, NCCL "
-        f"{torch.cuda.nccl.version()}")
+        f"{torch.cuda.nccl.version()}, environment "
+        f"{ {k: v for k, v in os.environ.items() if 'NCCL' in k} }")
     h, w = cfg.input.canvas_height, cfg.input.canvas_width
     b = cfg.train.batch_size_per_chip
     rng = np.random.RandomState(31)
     batches = [synthetic_batch(rng, b, h, w, cfg.model.num_classes,
                                cfg.input.max_gt_boxes, cfg.input.pixel_means,
-                               uint8=True) for _ in range(1 + PAR_STEPS)]
+                               uint8=True) for _ in range(PROGRAM_STEPS)]
     gen = torch.Generator(device="cuda").manual_seed(32)
-    draws = [sample_draws(cfg, b, gen, "cuda") for _ in range(1 + PAR_STEPS)]
+    draws = [sample_draws(cfg, b, gen, "cuda") for _ in range(PROGRAM_STEPS)]
     fhw = (h // 16, w // 16)
-    # the serial reference runs uncaptured, as the parallel step does
+    parallel = lambda c, m, f, render_fn=None: make_parallel_train_step(
+        c, m, f, mesh, render_fn=render_fn)
+    # the serial program from the same state; each run's timed steps hold
+    # the capture (the second call) and one replay
     s_loss, s_ms, s_after, _, s_peak, _ = par_train_run(
-        cfg, tree, lambda m: make_train_step(cfg, m, fhw).eager, batches,
-        draws)
+        cfg, tree, lambda m: make_train_step(cfg, m, fhw),
+        batches[:1 + PAR_STEPS], draws[:1 + PAR_STEPS])
     p_loss, p_ms, p_after, t_launches, p_peak, nbytes = par_train_run(
-        cfg, tree, lambda m: make_parallel_train_step(cfg, m, fhw, mesh),
-        batches, draws)
+        cfg, tree, lambda m: parallel(cfg, m, fhw), batches[:1 + PAR_STEPS],
+        draws[:1 + PAR_STEPS])
     check_launches("parallel_train", t_launches)
     loss_err = max(abs(p[k] - q[k]) / max(abs(q[k]), 1e-12)
                    for p, q in zip(p_loss, s_loss) for k in q)
@@ -3042,82 +3138,137 @@ def phase_parallel_nccl(cfg: Config, tree: dict, card: str) -> dict:
         for k, v in s_after.items()})
     if not (loss_err <= PAR_LOSS_RTOL and param_r <= 1):
         raise AssertionError(
-            f"parallel train (1 NCCL rank) vs one process: losses off by "
-            f"{loss_err:.3g} of their value (tol {PAR_LOSS_RTOL}), worst "
-            f"parameter at {param_r:.3g} of {TRAIN_REF_PARAM_TOL} "
-            f"({param_leaf})")
+            f"parallel train program (1 NCCL rank) vs the serial program: "
+            f"losses off by {loss_err:.3g} of their value (tol "
+            f"{PAR_LOSS_RTOL}), worst parameter at {param_r:.3g} of "
+            f"{TRAIN_REF_PARAM_TOL} ({param_leaf})")
     buf = torch.zeros(nbytes // 4, dtype=torch.float32, device="cuda")
     ar_ms = time_ms(lambda: all_reduce_mean_(buf, mesh), iters=10)
-    log(f"parallel train (1 NCCL rank): {1 + PAR_STEPS} steps against "
-        f"make_train_step from the same state, batches and draws: losses "
-        f"off by {loss_err:.3g} of their value (tol {PAR_LOSS_RTOL}), "
-        f"parameters worst at {param_r:.3g} of {TRAIN_REF_PARAM_TOL} "
-        f"({param_leaf}); {p_ms:.1f} ms/step parallel, {s_ms:.1f} ms/step "
-        f"serial; all-reduce of {nbytes} bytes ({nbytes / 4:.0f} trainable "
-        f"float32) {ar_ms:.3f} ms; peak device memory {p_peak:.2f} GiB "
-        f"parallel, {s_peak:.2f} GiB serial; launches {t_launches} on "
-        f"{card}")
+    log(f"parallel train program (1 NCCL rank): {1 + PAR_STEPS} steps "
+        f"against make_train_step's program from the same state, batches "
+        f"and draws: losses off by {loss_err:.3g} of their value (tol "
+        f"{PAR_LOSS_RTOL}), parameters worst at {param_r:.3g} of "
+        f"{TRAIN_REF_PARAM_TOL} ({param_leaf}); {p_ms:.1f} ms/step "
+        f"parallel, {s_ms:.1f} ms/step serial over steps 2-{1 + PAR_STEPS} "
+        f"(the capture and {PAR_STEPS - 1} replay(s)); eager all-reduce "
+        f"of {nbytes} bytes ({nbytes / 4:.0f} trainable float32) "
+        f"{ar_ms:.3f} ms; peak device memory {p_peak:.2f} GiB parallel, "
+        f"{s_peak:.2f} GiB serial; launches {t_launches} on {card}")
     del s_after, p_after, buf
+    profiled = {}
+    train_one = train_programs(cfg, tree, "parallel train step (1 NCCL "
+                               "rank)", batches, False, card,
+                               make_step=parallel)
+    with collective_calls() as calls:
+        for i in range(3):
+            train_one("graphed", i)
+        torch.cuda.synchronize()
+    if any(calls.values()):
+        raise AssertionError(f"parallel train program: a replay called "
+                             f"collectives from Python: {calls}")
+    with collective_calls() as eager_calls:
+        train_one("eager", 0)
+    log(f"parallel train program: Python collective calls over 3 replays "
+        f"{calls}; over one eager step {eager_calls}")
+    profiled["parallel train step (1 NCCL rank)"] = train_one
+    s2_check(cfg, tree, "serial train step (Config())",
+             lambda c, m, f: make_train_step(c, m, f), batches, draws)
+    s2_check(cfg, tree, "parallel train step (Config(), 1 NCCL rank)",
+             lambda c, m, f: parallel(c, m, f), batches, draws)
 
     model = from_jax_params(tree, cfg.model, device="cuda")
-    frames = torch.from_numpy(np.random.RandomState(33).randint(
+    crng = np.random.RandomState(33)
+    chunks = [torch.from_numpy(crng.randint(
         0, 256, (FRAMES_PER_CHUNK, h, w, 3)).astype(np.uint8))
-    im_hw = torch.tensor([h - 8, w - 48], dtype=torch.float32, device="cuda")
+        for _ in range(PROGRAM_CHECKS)]
+    extents = [(h - 8 * (i + 1), w - 48 * (i + 1))
+               for i in range(PROGRAM_CHECKS)]
+    hws = [torch.tensor(e, dtype=torch.float32, device="cuda")
+           for e in extents]
+    scales = [1.0, 0.8, 1.25][:PROGRAM_CHECKS]
+    im_hw = hws[0]
+    frames = chunks[0]
     vpar = make_video_step_parallel(cfg, model, mesh, FRAMES_PER_CHUNK)
     vser = make_video_step(cfg, model, FRAMES_PER_CHUNK)
     vpar(frames, im_hw), vser(frames, im_hw)
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
     got = vpar(frames, im_hw)
     torch.cuda.synchronize()
-    v_par_ms = (time.perf_counter() - t0) * 1e3
     v_launches = read_launches()
     check_launches("parallel_video", v_launches)
-    t0 = time.perf_counter()
     want = vser(frames, im_hw)
-    torch.cuda.synchronize()
-    v_ser_ms = (time.perf_counter() - t0) * 1e3
     if got[0].shape[0] != FRAMES_PER_CHUNK:
         raise AssertionError(f"parallel video chunk gave {got[0].shape[0]} "
                              f"pairs, want {FRAMES_PER_CHUNK}")
     v_err = eval_errors(got, want, FRAMES_PER_CHUNK - 1)
-    check_eval_errors(v_err, "parallel video chunk (1 NCCL rank)")
-    log(f"parallel video (1 NCCL rank, frames_per_device "
+    check_eval_errors(v_err, "parallel video program (1 NCCL rank)")
+    log(f"parallel video program (1 NCCL rank, frames_per_device "
         f"{FRAMES_PER_CHUNK}): {FRAMES_PER_CHUNK - 1} pairs against "
-        f"make_video_step's: {v_err} (tol {PAR_EVAL_TOL}, valid equal); "
-        f"chunk {v_par_ms:.1f} ms parallel, {v_ser_ms:.1f} ms serial; "
-        f"launches {v_launches}")
+        f"make_video_step's program: {v_err} (tol {PAR_EVAL_TOL}, valid "
+        f"equal); launches {v_launches} (one replay)")
+    name = "parallel video chunk (1 NCCL rank)"
+    check_program(name, vpar, [(chunks[i], hws[i], scales[i])
+                               for i in range(PROGRAM_CHECKS)])
+    vforms = {"graphed": vpar, "eager": vpar.eager}
+    with collective_calls() as calls:
+        graphed = host_ms(lambda i: vpar(chunks[i % PROGRAM_CHECKS], im_hw,
+                                         1.0))
+    log_forms(name, {"graphed": graphed, "eager": host_ms(
+        lambda i: vpar.eager(chunks[i % PROGRAM_CHECKS], im_hw, 1.0))}, card)
+    if any(calls.values()):
+        raise AssertionError(f"{name}: a replay called collectives from "
+                             f"Python: {calls}")
+    profiled[name] = lambda form, i: vforms[form](
+        chunks[i % PROGRAM_CHECKS], im_hw, 1.0)
 
     pcfg = cfg.replace(model=cfg.model.replace(roi=cfg.model.roi.replace(
         eval_pool_impl="pallas_mm")))
-    pairs = torch.from_numpy(np.random.RandomState(34).randint(
+    prng = np.random.RandomState(34)
+    pairs = [torch.from_numpy(prng.randint(
         0, 256, (PAIR_BATCH, 2, h, w, 3)).astype(np.uint8))
+        for _ in range(PROGRAM_CHECKS)]
     ppar = make_pair_step_parallel(pcfg, model, mesh, PAIR_BATCH)
     pser = make_pair_step(pcfg, model, PAIR_BATCH)
-    ppar(pairs, im_hw), pser(pairs, im_hw)
+    ppar(pairs[0], im_hw), pser(pairs[0], im_hw)
     torch.cuda.synchronize()
     reset_launches()
-    got = ppar(pairs, im_hw)
+    got = ppar(pairs[0], im_hw)
     torch.cuda.synchronize()
     p_launches = read_launches()
     check_launches("parallel_pair", p_launches)
-    p_err = eval_errors(got, pser(pairs, im_hw), PAIR_BATCH)
-    check_eval_errors(p_err, "parallel pair batch (1 NCCL rank)")
-    log(f"parallel pair (1 NCCL rank, {PAIR_BATCH} pairs, pallas_mm): "
-        f"against make_pair_step's: {p_err} (tol {PAR_EVAL_TOL}, valid "
-        f"equal); launches {p_launches}")
-    dist.destroy_process_group()
-    return {"parallel_train": t_launches, "parallel_video": v_launches,
-            "parallel_pair": p_launches}
+    p_err = eval_errors(got, pser(pairs[0], im_hw), PAIR_BATCH)
+    check_eval_errors(p_err, "parallel pair program (1 NCCL rank)")
+    log(f"parallel pair program (1 NCCL rank, {PAIR_BATCH} pairs, "
+        f"pallas_mm): against make_pair_step's program: {p_err} (tol "
+        f"{PAR_EVAL_TOL}, valid equal); launches {p_launches}")
+    name = "parallel pair batch (1 NCCL rank)"
+    check_program(name, ppar, [(pairs[i], hws[i], scales[i])
+                               for i in range(PROGRAM_CHECKS)])
+    pforms = {"graphed": ppar, "eager": ppar.eager}
+    with collective_calls() as calls:
+        graphed = host_ms(lambda i: ppar(pairs[i % PROGRAM_CHECKS], im_hw,
+                                         1.0))
+    log_forms(name, {"graphed": graphed, "eager": host_ms(
+        lambda i: ppar.eager(pairs[i % PROGRAM_CHECKS], im_hw, 1.0))}, card)
+    if any(calls.values()):
+        raise AssertionError(f"{name}: a replay called collectives from "
+                             f"Python: {calls}")
+    profiled[name] = lambda form, i: pforms[form](
+        pairs[i % PROGRAM_CHECKS], im_hw, 1.0)
+    return ({"parallel_train": t_launches, "parallel_video": v_launches,
+             "parallel_pair": p_launches}, profiled)
 
 
 def parallel_rank(rank: int, world: int, store: str, out: str) -> None:
     """(b) One gloo rank on the card: one parallel video chunk of world x
     PAR_FPD frames, then one parallel train step on its rows of a global
-    batch of world x batch_size_per_chip pairs; rank 0 saves what the
-    parent compares."""
-    from dtt_torch.eval.inference import make_video_step_parallel
+    batch of world x batch_size_per_chip pairs, both by ``step.eager``
+    (gloo's collectives cannot be captured, so the programs refuse to
+    run; their errors are saved); rank 0 saves what the parent
+    compares."""
+    from dtt_torch.eval.inference import (make_pair_step_parallel,
+                                          make_video_step_parallel)
     from dtt_torch.parallel import (data_mesh, exchange_halo,
                                     initialize_distributed)
     from dtt_torch.train.trainer import (make_parallel_train_step,
@@ -3140,7 +3291,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> None:
     vstep = make_video_step_parallel(cfg, model, mesh, PAR_FPD)
     reset_launches()
     t0 = time.perf_counter()
-    vout = [x.cpu() for x in vstep(frames, im_hw.cuda())]
+    vout = [x.cpu() for x in vstep.eager(frames, im_hw.cuda())]
     video_ms = (time.perf_counter() - t0) * 1e3
     v_launches = read_launches()
     # the halo alone: this rank's first-frame features out, the next
@@ -3151,11 +3302,24 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> None:
         sent = [x[:1] for x in feats]
         got = exchange_halo(sent, mesh)
     step = make_parallel_train_step(cfg, model, (h // 16, w // 16), mesh)
+    pstep = make_pair_step_parallel(cfg, model, mesh, 1)
+    refused = {}
+    for name, call in (
+            ("train", lambda: step(state, shard_batch(batch, mesh),
+                                   shard_draws(draws, mesh))),
+            ("video", lambda: vstep(frames, im_hw.cuda())),
+            ("pair", lambda: pstep(frames[:2 * world].reshape(
+                world, 2, h, w, 3), im_hw.cuda()))):
+        try:
+            call()
+            refused[name] = None
+        except RuntimeError as e:
+            refused[name] = str(e)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    state, metrics = step(state, shard_batch(batch, mesh),
-                          shard_draws(draws, mesh))
+    state, metrics = step.eager(state, shard_batch(batch, mesh),
+                                shard_draws(draws, mesh))
     torch.cuda.synchronize()
     train_ms = (time.perf_counter() - t0) * 1e3
     t_launches = read_launches()
@@ -3166,7 +3330,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> None:
                            for p in model.state_dict().values()),
            "halo": {"sent": [x.cpu() for x in sent],
                     "got": [x.cpu() for x in got]},
-           "backend": mesh.backend}
+           "backend": mesh.backend, "refused": refused}
     if rank == 0:
         res["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
         res["video"] = vout
@@ -3194,11 +3358,15 @@ def par2_frames(cfg: Config, world: int) -> tuple:
 
 def par2_trunk(cfg: Config, model, frames: torch.Tensor, im_hw) -> list:
     """The features of `frames` that the video step's halo carries: the
-    reduced c5 and each correlation input, in that order."""
+    reduced c5 and each correlation input, in that order. Under inference
+    mode: an autograd graph kept alive holds its parameters' gradient
+    accumulators, and a train step on another stream then warns that
+    their stream differs (ROADMAP Queue 3, S2)."""
     from dtt_torch.eval.inference import _trunk_and_post
     trunk, _ = _trunk_and_post(cfg, model)
-    feats = trunk(normalize_device_images(frames.cuda(), im_hw.cuda(),
-                                          cfg.input.pixel_means))
+    with torch.inference_mode():
+        feats = trunk(normalize_device_images(frames.cuda(), im_hw.cuda(),
+                                              cfg.input.pixel_means))
     return [feats.reduced] + [feats.corr_feats[k]
                               for k in sorted(feats.corr_feats)]
 
@@ -3339,6 +3507,14 @@ def phase_parallel_gloo(cfg: Config, tree: dict, card: str) -> None:
         k: ((r0["state"][k] - one_state[k]).abs().max()
             / (one_state[k] - v).abs().max().clamp(min=1e-30)).item()
         for k, v in before.items() if not torch.equal(one_state[k], v)})
+    refusals = [m for r in ranks for m in r["refused"].values()]
+    if not all(m and "gloo" in m for m in refusals):
+        raise AssertionError(f"parallel (b): a program under gloo on the "
+                             f"card did not refuse, naming the backend: "
+                             f"{[r['refused'] for r in ranks]}")
+    log(f"parallel (b): each program refused under gloo on the card "
+        f"({len(refusals)} calls): {refusals[0]!r}; the ranks call "
+        f"step.eager")
     log(f"parallel (b): {PAR_WORLD} gloo ranks on one card, "
         f"{r0['backend']} (the halo through the host), {wall:.1f} s "
         f"with start-up; halo bit for bit: {halo_ok}; video chunk of {f} "
@@ -3368,10 +3544,15 @@ def phase_parallel_gloo(cfg: Config, tree: dict, card: str) -> None:
 
 
 def phase_parallel(cfg: Config, tree: dict, card: str) -> dict:
-    """The data-parallel paths: (a) one NCCL rank, (b) two gloo ranks on
-    the card; returns (a)'s launches per path."""
+    """The data-parallel paths: (a) one NCCL rank, its programs profiled
+    last, (b) two gloo ranks on the card; returns (a)'s launches per
+    path."""
+    import torch.distributed as dist
     t0 = time.perf_counter()
-    launches = phase_parallel_nccl(cfg, tree, card)
+    launches, profiled = phase_parallel_nccl(cfg, tree, card)
+    phase_programs_profile(profiled, nccl=True)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
     phase_parallel_gloo(cfg, tree, card)
     log(f"parallel phase: {time.perf_counter() - t0:.1f} s on {card}")
     return launches
@@ -3584,14 +3765,15 @@ def log_forms(name: str, times: dict, card: str) -> None:
 
 
 def train_programs(cfg: Config, tree: dict, name: str, batches: list,
-                   render: bool, card: str):
+                   render: bool, card: str, make_step=make_train_step):
     """PROGRAM_STEPS train steps of the program and of ``step.eager`` from
     one state, on the same batches and draws (and render generators
     seeded alike): losses, parameters, momentum buffers and the render
     generator's state bit for bit, with cuDNN's deterministic algorithms
     (its weight gradients need not be otherwise). Then host ms a step of
-    both forms. Returns a closure (form, i) -> one step, for the
-    profile."""
+    both forms. `make_step(cfg, model, feat_hw, render_fn=)` makes the
+    step (``make_train_step``, or a parallel one). Returns a closure
+    (form, i) -> one step, for the profile."""
     h, w = cfg.input.canvas_height, cfg.input.canvas_width
     b = cfg.train.batch_size_per_chip
     render_fn = make_pair_render_fn(h, w) if render else None
@@ -3603,8 +3785,8 @@ def train_programs(cfg: Config, tree: dict, name: str, batches: list,
     try:
         for form in ("graphed", "eager"):
             model, state = create_train_state(cfg, "cuda", tree=tree)
-            step = make_train_step(cfg, model, (h // 16, w // 16),
-                                   render_fn=render_fn)
+            step = make_step(cfg, model, (h // 16, w // 16),
+                             render_fn=render_fn)
             fn = step if form == "graphed" else step.eager
             gen = (torch.Generator(device="cuda").manual_seed(62) if render
                    else None)
@@ -3771,10 +3953,12 @@ def phase_programs(cfg: Config, tree: dict, card: str) -> None:
     phase_programs_profile(profiled)
 
 
-def phase_programs_profile(profiled: dict) -> None:
+def phase_programs_profile(profiled: dict, nccl: bool = False) -> None:
     """PROGRAM_PROFILE_CALLS calls of each form of each program under
     ``torch.profiler``: the card's busy share (the union of its kernel
-    intervals over the traced wall time) and device kernels a call."""
+    intervals over the traced wall time) and device kernels a call; with
+    `nccl`, also the device events a call whose name names NCCL, and the
+    device copies a call."""
     from torch.profiler import ProfilerActivity, profile
     for name, one in profiled.items():
         parts = []
@@ -3800,6 +3984,13 @@ def phase_programs_profile(profiled: dict) -> None:
             parts.append(f"{form} {wall / n:.2f} ms wall, device busy "
                          f"{busy / n:.2f} ms ({100 * busy / wall:.1f}%), "
                          f"{len(kernels) / n:.0f} device events a call")
+            if nccl:
+                names = sorted({e.name[:60] for e in kernels
+                                if "nccl" in e.name.lower()})
+                copies = sum("memcpy" in e.name.lower() for e in kernels)
+                parts[-1] += (f", {sum('nccl' in e.name.lower() for e in kernels) / n:.1f}"
+                              f" NCCL device events a call {names}, "
+                              f"{copies / n:.1f} device copies a call")
         log(f"programs {name} profile ({PROGRAM_PROFILE_CALLS} calls a "
             f"form): " + "; ".join(parts))
 
@@ -3867,11 +4058,13 @@ def main() -> int:
     launches = {"video": phase_main_path(cfg, card, tree),
                 "train": phase_train(cfg, tree, card),
                 **phase_eval(cfg, tree, card),
-                "frame": phase_frame_path(cfg, tree, card),
-                **phase_parallel(cfg, tree, card)}
+                "frame": phase_frame_path(cfg, tree, card)}
     phase_bench(card)
     phase_data(cfg, tree, card)
     phase_programs(cfg, tree, card)
+    # after the serial programs' profile: the parallel programs are
+    # profiled too, and a traced card slows later launches
+    launches.update(phase_parallel(cfg, tree, card))
     del tree
     phase_weights(card)
     for phase in (phase_mid_synth, phase_flagship):

@@ -18,7 +18,9 @@
   the chunk or the pair batch and the ranks' padded outputs are gathered
   in rank order, so the drivers see the serial step's arrays. The video
   step's ranks pass their first frame's features to the rank before them,
-  the halo of the frame pair across a shard boundary.
+  the halo of the frame pair across a shard boundary. Each is one program
+  with its halo and gather inside (``split_video_step`` does not apply,
+  as ``dtt``'s parallel steps ignore it).
 
 The video and pair steps take the fused path under the psroi pooling mode
 (one pool of the fused ps-maps) and the unfused one under the others
@@ -29,7 +31,8 @@ The serial steps are programs (``dtt_torch.utils.programs``), as ``dtt``
 jits them: on CUDA each is captured once as a CUDA graph and replayed, the
 video and pair steps as two programs (trunk, then the post-trunk stage on
 the trunk's feature buffers) under ``EvalConfig.split_video_step`` and as
-one without it; the data-parallel steps run eagerly. A step's outputs are
+one without it; each data-parallel step as one program, under NCCL with
+its collectives captured in the graph. A step's outputs are
 copies that its next call leaves alone, so both drivers keep two batches
 in flight: CUDA work is queued asynchronously and only the ``.cpu()`` of a
 finished batch waits. Their frames are an array or a ``LazyFrames``, which
@@ -55,8 +58,9 @@ from dtt_torch.models.dnt import (DnT, FrameFeats,
                                   decode_frame_detections, detect_frame,
                                   detect_frames_batched, detect_track_fused,
                                   normalize_device_images, track_rois_batched)
-from dtt_torch.parallel.mesh import DataMesh, all_gather_cat, exchange_halo
-from dtt_torch.utils.programs import StepProgram, upload
+from dtt_torch.parallel.mesh import (DataMesh, all_gather_cat, exchange_halo,
+                                     mesh_program)
+from dtt_torch.utils.programs import StepProgram
 
 
 class PairOutputs(NamedTuple):
@@ -348,6 +352,28 @@ def _gather_outputs(out: PairOutputs, mesh: DataMesh) -> PairOutputs:
     return PairOutputs(boxes, scores, valid.bool(), tracked)
 
 
+def _parallel_step(name: str, body, mesh: DataMesh, local, **attrs):
+    """A parallel video or pair step ``(x, im_hw, scale=1.0) ->
+    PairOutputs`` as one program over `mesh` (``dtt``'s one jitted
+    ``shard_map``; its collectives inside): ``local(x)`` takes the rank's
+    rows of `x` before the program, whose buffers take them. The form is
+    the backend's (``mesh_program``); ``step.eager`` is the step
+    uncaptured, ``step.programs`` holds the program, and `attrs` (and
+    ``device``) are set on both."""
+    program = StepProgram(body, name, mesh.device)
+
+    def wrap(form):
+        def step(x: torch.Tensor, im_hw: torch.Tensor,
+                 scale: float = 1.0) -> PairOutputs:
+            return form(local(x), im_hw, scale)
+        step.__dict__.update(attrs, device=mesh.device)
+        return step
+
+    step = wrap(mesh_program(program, mesh))
+    step.eager, step.programs = wrap(program.eager), (program,)
+    return step
+
+
 def make_pair_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
                             pairs_per_device: int = 2):
     """Data-parallel tau-strided pair step over the ranks of `mesh`: pairs
@@ -356,27 +382,27 @@ def make_pair_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
     pairs_per_device`` (``step.batch``, which ``evaluate_snippet`` reads):
     each rank runs its `pairs_per_device` rows (``step.rows``; a rank may
     be given only those) on ``mesh.device`` and every rank returns the
-    whole batch's outputs, gathered in rank order."""
+    whole batch's outputs, gathered in rank order. One program
+    (``_parallel_step``; ``step.eager``, ``step.programs``), the gather
+    inside it."""
     if pairs_per_device < 1:
         raise ValueError("a pair batch needs at least one pair a rank")
-    device, anchors = _mesh_setup(cfg, model, mesh)
+    _, anchors = _mesh_setup(cfg, model, mesh)
     trunk, post = _pair_forward(cfg, model, anchors)
     batch = mesh.size * pairs_per_device
 
     @torch.inference_mode()
-    def step(pairs: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
-             ) -> PairOutputs:
+    def body(pairs, im_hw, scale):
+        return _gather_outputs(post(trunk(pairs, im_hw), im_hw, scale), mesh)
+
+    def local(pairs):
         if pairs.shape[1] != 2:
             raise ValueError(f"expected pairs (B, 2, H, W, 3), got "
                              f"{tuple(pairs.shape)}")
-        local = _local_rows(pairs, mesh, pairs_per_device, "pairs")
-        feats = trunk(upload(local, device), im_hw)
-        return _gather_outputs(post(feats, im_hw, scale), mesh)
+        return _local_rows(pairs, mesh, pairs_per_device, "pairs")
 
-    step.batch = batch
-    step.rows = mesh.rows(batch)
-    step.device = device
-    return step
+    return _parallel_step("parallel pair step", body, mesh, local,
+                          batch=batch, rows=mesh.rows(batch))
 
 
 def make_video_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
@@ -393,19 +419,18 @@ def make_video_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
     last pair wraps around (rank n-1's last frame with rank 0's first) and
     ``evaluate_snippet_video``'s `real` accounting always trims it, so
     callers see the serial step's contract (F-1 usable pairs, chunks that
-    overlap by one frame)."""
+    overlap by one frame). One program (``_parallel_step``;
+    ``step.eager``, ``step.programs``), the halo and the gather inside
+    it."""
     if frames_per_device < 1:
         raise ValueError("a rank needs at least one frame")
-    device, anchors = _mesh_setup(cfg, model, mesh)
+    _, anchors = _mesh_setup(cfg, model, mesh)
     trunk, post = _trunk_and_post(cfg, model)
     frames_per_chunk = mesh.size * frames_per_device
 
     @torch.inference_mode()
-    def step(frames: torch.Tensor, im_hw: torch.Tensor, scale: float = 1.0
-             ) -> PairOutputs:
-        local = _local_rows(frames, mesh, frames_per_device, "frames")
-        images = normalize_device_images(upload(local, device), im_hw,
-                                         cfg.input.pixel_means)
+    def body(frames, im_hw, scale):
+        images = normalize_device_images(frames, im_hw, cfg.input.pixel_means)
         feats = trunk(images)
         keys = sorted(feats.corr_feats)
         halo = exchange_halo([feats.reduced[:1]]
@@ -420,10 +445,10 @@ def make_video_step_parallel(cfg: Config, model: DnT, mesh: DataMesh,
         out = post(cfg, model, anchors, feats, f_tau, im_hw, scale)
         return _gather_outputs(out, mesh)
 
-    step.frames_per_chunk = frames_per_chunk
-    step.rows = mesh.rows(frames_per_chunk)
-    step.device = device
-    return step
+    return _parallel_step(
+        "parallel video step", body, mesh,
+        lambda x: _local_rows(x, mesh, frames_per_device, "frames"),
+        frames_per_chunk=frames_per_chunk, rows=mesh.rows(frames_per_chunk))
 
 
 def make_single_frame_step(cfg: Config, model: DnT, device=None):

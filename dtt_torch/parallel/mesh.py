@@ -81,7 +81,19 @@ def initialize_distributed(init_method: str | None = None,
     process), and when the group already exists.
 
     Binds CUDA ranks to their device first (``torch.cuda.set_device``).
-    Any failure raises: there is no fallback to one process."""
+    Any failure raises: there is no fallback to one process.
+
+    What the step programs need to capture NCCL's collectives in a CUDA
+    graph (``tools/probe_nccl_capture_torch.py`` on an H100, torch 2.11,
+    NCCL 2.28.9, one rank): the group's communicator, which NCCL makes at the
+    first collective and which a capture cannot make (the capture fails),
+    so an NCCL group makes it here with one all-reduce; the send and
+    receive communicators of the halo (N > 1) come at a step's eager
+    warm-up, before its capture. No environment setting: captures succeed
+    under ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` and
+    ``TORCH_NCCL_BLOCKING_WAIT=1`` alike, and a work's ``wait()`` inside a
+    capture only orders the streams; ``is_completed()`` inside one breaks
+    the capture, and nothing here calls it."""
     if (init_method is None and world_size is None and store is None
             and "WORLD_SIZE" not in os.environ):
         return
@@ -102,6 +114,8 @@ def initialize_distributed(init_method: str | None = None,
     else:
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 world_size=world_size, rank=rank)
+    if backend == "nccl":
+        dist.all_reduce(torch.zeros(1, device=dev))
 
 
 def data_mesh(device=None) -> DataMesh:
@@ -156,6 +170,27 @@ def all_gather_cat(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(parts, t)
     return torch.cat(parts)
+
+
+def mesh_program(program, mesh: DataMesh):
+    """The form a parallel step's program (a ``StepProgram`` over `mesh`,
+    its collectives inside) runs in, decided by the backend: the program
+    itself on the CPU (no graph: copies around a direct call), without a
+    group and under NCCL, whose collectives are captured in the CUDA
+    graph; under any other backend on CUDA (gloo: its CUDA collectives
+    wait on the host, and its send and receive take no device memory) a
+    callable that raises a RuntimeError naming the backend, since such a
+    collective cannot be captured. The step's ``.eager`` runs anywhere."""
+    backend = mesh.backend
+    if mesh.device.type != "cuda" or backend in (None, "nccl"):
+        return program
+
+    def refused(*args):
+        raise RuntimeError(
+            f"{program.name}: the {backend} backend's collectives cannot be "
+            f"captured in a CUDA graph; call the step's .eager under "
+            f"{backend}, or join an NCCL group")
+    return refused
 
 
 def exchange_halo(tensors: Sequence[torch.Tensor], mesh: DataMesh

@@ -30,11 +30,14 @@ Data parallelism (``make_parallel_train_step``) is one process per device,
 as ``torchrun`` starts them: each rank takes its rows of the global batch
 (``shard_batch``, ``shard_draws``) and the ranks' gradients are averaged
 by one all-reduce over a flat buffer before the clip, so the update is the
-one a single process makes on the whole batch.
+one a single process makes on the whole batch. That step is a program
+too, as ``dtt`` jits it: under NCCL the all-reduces are captured in its
+CUDA graph.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -46,7 +49,7 @@ from dtt_torch.core.device import resolve_device
 from dtt_torch.models.dnt import DnT, is_frozen
 from dtt_torch.models.targets import Draws
 from dtt_torch.parallel.mesh import (DataMesh, all_reduce_mean_, broadcast_,
-                                     data_mesh)
+                                     data_mesh, mesh_program)
 from dtt_torch.train.losses import batch_loss
 from dtt_torch.utils.params import from_jax_params, init_jax_params
 from dtt_torch.utils.programs import StepProgram, upload
@@ -127,8 +130,8 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def _trainable(state: TrainState) -> list:
-    return [p for g in state.optimizer.param_groups for p in g["params"]]
+def _trainable(optimizer: torch.optim.Optimizer) -> list:
+    return [p for g in optimizer.param_groups for p in g["params"]]
 
 
 def sgd_step_(optimizer: torch.optim.SGD, lr: torch.Tensor) -> None:
@@ -167,7 +170,7 @@ def _update(cfg: Config, optimizer: torch.optim.SGD,
     """Clip, then the SGD step at ``learning_rate_tensor(cfg, step)``. A
     trainable parameter without a gradient counts as a zero gradient
     (weight decay and momentum still move it, as in optax)."""
-    params = [p for g in optimizer.param_groups for p in g["params"]]
+    params = _trainable(optimizer)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -176,10 +179,11 @@ def _update(cfg: Config, optimizer: torch.optim.SGD,
 
 
 def apply_gradients(cfg: Config, state: TrainState) -> TrainState:
-    """One optimizer update from the parameters' ``.grad``: clip, then the
-    SGD step at ``learning_rate(cfg, state.step)``, computed on the
-    parameters' device."""
-    device = _trainable(state)[0].device
+    """One optimizer update from the parameters' ``.grad``, eagerly: clip,
+    then the SGD step at ``learning_rate_tensor`` of ``state.step`` made a
+    0-d tensor on the parameters' device (the steps take the step number
+    as an input instead)."""
+    device = _trainable(state.optimizer)[0].device
     _update(cfg, state.optimizer,
             torch.full((), state.step, dtype=torch.int64, device=device))
     return state._replace(step=state.step + 1)
@@ -256,7 +260,14 @@ def make_train_step(cfg: Config, model: DnT, feat_hw: tuple[int, int],
         return {k: v.detach() for k, v in lb._asdict().items()}
 
     program = StepProgram(body, "train step", device, eager_calls=1)
+    return _train_step(program, program, render_fn)
 
+
+def _train_step(program: StepProgram, form, render_fn):
+    """``train_step(state, batch, draws, generator=None) -> (state,
+    metrics)`` calling `form` (the program, or what stands for it) on the
+    state's model, optimizer and step number; ``train_step.eager`` calls
+    the program's uncaptured twin, ``train_step.programs`` holds it."""
     def checked(form):
         def train_step(state: TrainState, batch: dict, draws: Draws,
                        generator: torch.Generator | None = None):
@@ -268,7 +279,7 @@ def make_train_step(cfg: Config, model: DnT, feat_hw: tuple[int, int],
             return state._replace(step=state.step + 1), metrics
         return train_step
 
-    train_step = checked(program)
+    train_step = checked(form)
     train_step.eager = checked(program.eager)
     train_step.programs = (program,)
     return train_step
@@ -303,7 +314,8 @@ def replicate_tree(state, mesh: DataMesh):
     (frozen-BN affines) of a `TrainState`'s model or of a module, the
     optimizer's momentum buffers and the step. Ranks that built their
     state alike are left as they were; one that read other weights by
-    itself takes rank 0's. Returns the state."""
+    itself takes rank 0's. The tensors are overwritten in place, so a
+    step program's graph reads the broadcast values. Returns the state."""
     model = state.model if isinstance(state, TrainState) else state
     tensors = list(model.state_dict().values())
     if isinstance(state, TrainState):
@@ -343,8 +355,12 @@ class _FlatGrads:
             off += p.numel()
 
     def bind(self) -> None:
-        """Zero the buffer and make it every parameter's ``.grad``."""
-        self.buffer.zero_()
+        """Fill the buffer with -0.0 and make it every parameter's
+        ``.grad``. -0.0 is IEEE addition's identity (+0.0 turns a -0.0
+        gradient into +0.0), so backward's accumulation into the buffer
+        leaves each gradient's bits as a step without the buffer has
+        them."""
+        self.buffer.fill_(-0.0)
         for p, v in zip(self.params, self.views):
             p.grad = v
 
@@ -361,10 +377,22 @@ def make_parallel_train_step(cfg: Config, model: DnT,
     The loss is the mean over the pairs (``batch_loss``), so the global
     gradient is the mean of the ranks' gradients: they are averaged by one
     all-reduce over a flat float32 buffer of the trainable gradients,
-    after the backward and before ``apply_gradients``' global-norm clip.
-    A trainable parameter the loss does not reach holds zeros in the
-    buffer on every rank alike. The metrics are averaged too, so every
-    rank returns the global ``LossBreakdown`` (device scalars).
+    after the backward and before the global-norm clip. A trainable
+    parameter the loss does not reach holds a zero gradient (-0.0) in the
+    buffer on every rank alike. The metrics are averaged too, so every rank returns the
+    global ``LossBreakdown`` (device scalars).
+
+    The step is a program as ``make_train_step``'s is (its first call
+    eager, making the momentum buffers and NCCL's communicator, which no
+    capture can make; captured at the second), with both all-reduces
+    inside it, as ``dtt``'s jitted step holds its ``psum``. The form is the
+    backend's (``mesh_program``): a CUDA graph under NCCL, copies around
+    a direct call on the CPU, and under gloo on CUDA a call raises (gloo's
+    collectives wait on the host); ``train_step.eager`` is the step
+    uncaptured, on any backend. Each optimizer keeps its flat buffer as
+    long as it lives, and every step makes the buffer's views the
+    parameters' ``.grad`` again, so a graph and an eager step on one state
+    write and read the same memory.
 
     DDP is not used: it syncs only inside its module's ``forward``, and
     the loss runs the model's other methods. `render_fn` as in
@@ -376,28 +404,24 @@ def make_parallel_train_step(cfg: Config, model: DnT,
         raise ValueError(f"model is on {model_device}, mesh holds {device}")
     anchors = torch.from_numpy(
         grid_anchors_for(cfg.model.anchors, *feat_hw)).to(device)
-    flat: dict = {}
+    flat = weakref.WeakKeyDictionary()      # optimizer -> its _FlatGrads
 
-    def train_step(state: TrainState, batch: dict, draws: Draws,
-                   generator: torch.Generator | None = None):
+    def body(model, optimizer, step, batch, draws, generator):
         if render_fn is not None:
-            if generator is None:
-                raise ValueError("a step with render_fn draws its canvases "
-                                 "from a generator; pass one")
             batch = dict(batch, images=render_fn(batch, generator))
-        grads = flat.get(id(state.optimizer))
+        grads = flat.get(optimizer)
         if grads is None:
-            flat.clear()
-            grads = flat[id(state.optimizer)] = _FlatGrads(_trainable(state))
+            grads = flat[optimizer] = _FlatGrads(_trainable(optimizer))
         grads.bind()
-        _, lb = batch_loss(cfg, state.model, anchors,
-                           batch_to_device(batch, device), draws)
+        _, lb = batch_loss(cfg, model, anchors, batch, draws)
         lb.total.backward()
         all_reduce_mean_(grads.buffer, mesh)
-        state = apply_gradients(cfg, state)
+        _update(cfg, optimizer, step)
         metrics = all_reduce_mean_(torch.stack(lb).detach(), mesh)
-        return state, dict(zip(lb._fields, metrics.unbind()))
+        return dict(zip(lb._fields, metrics.unbind()))
 
+    program = StepProgram(body, "parallel train step", device, eager_calls=1)
+    train_step = _train_step(program, mesh_program(program, mesh), render_fn)
     train_step.allreduce_bytes = lambda state: 4 * sum(
-        p.numel() for p in _trainable(state))
+        p.numel() for p in _trainable(state.optimizer))
     return train_step

@@ -32,7 +32,9 @@ arguments it reads in place with `borrow`, and never copies them.
 
 A capture that fails raises a RuntimeError naming the step and the line of
 the step that failed, and so does every later call of that signature: the
-program never carries on eagerly. Every kernel wrapper counts its launches
+program never carries on eagerly. The CUDA generators the failed capture
+registered are taken out of capture mode first, so the process's later
+draws work. Every kernel wrapper counts its launches
 (``launches``); a capture launches nothing, so its counts are taken back
 and each replay adds them again. On the CPU, which a caller must ask for,
 a call copies the arguments into fixed buffers, calls `fn` and copies the
@@ -292,6 +294,7 @@ class StepProgram:
                 out = self.fn(*entry.args)
         except RuntimeError as e:
             torch.cuda.set_stream(current)
+            self._end_generator_capture(entry.generators)
             entry.error = RuntimeError(
                 f"{self.name}: capturing the step as a CUDA graph failed at "
                 f"{_failed_line(e)}: {e}")
@@ -304,3 +307,14 @@ class StepProgram:
                           zip(wrappers, after, before) if a != b]
         entry.graph, entry.out = graph, out
         self.captures += 1
+
+    def _end_generator_capture(self, generators: list) -> None:
+        """A failed capture never ran its end, which takes the CUDA
+        generators it registered (the device's default one and
+        `generators`) out of capture mode, so every later draw from them
+        would raise; an empty capture that registers them ends it."""
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph, stream=self._side_stream()):
+            pass

@@ -27,7 +27,8 @@ protocol (and with linking mAP_nolink and link_uplift) and the per-class
 APs. Needs a CUDA card; ``main(argv, device="cpu")`` runs the plain
 PyTorch path instead. The video and pair steps are programs, as eval.py
 jits them: each captured once as CUDA graphs (trunk and post-trunk under
-``eval.split_video_step``) and replayed; --parallel's steps run eagerly.
+``eval.split_video_step``) and replayed; --parallel's steps are one
+program each, with their halo and gather captured under NCCL.
 
 --parallel shards the work over the ranks of ``torchrun`` (one process a
 card; without ``torchrun``, a group of one rank): tau=1 runs

@@ -17,6 +17,11 @@ devices, and against the port's own one-process steps.
 * ``train_torch.main`` on two ranks against one process, the sharding's
   refusal of a batch that does not divide, and ``eval_torch --parallel``
   on a one-rank group.
+* The steps as programs (on the CPU: copies around a direct call): the
+  train program over three steps with a rate change among them against
+  dtt's jitted parallel step and the port's serial program, the video
+  and pair programs at two scales and two extents against dtt's, each
+  program's outputs against its ``.eager`` form's bit for bit.
 
 All ranks' work runs in one start of the two processes (module fixture).
 """
@@ -61,6 +66,9 @@ WORLD = 2
 KEY = 7
 FRAMES = 7                 # snippet length: chunks overlap, the tail pads
 IM_HW = (56, 80)
+SCALES = (1.0, 0.6)
+EXTENTS = (IM_HW, (H, W))
+STEPS3 = 3                 # train program steps; the warm-up ends at step 2
 MODES = ("psroi", "align")
 # the port's two ranks against its one process on the same global batch:
 # the same arithmetic but for the order of the batch's sums (a rank sums
@@ -113,6 +121,9 @@ def setup(tmp_path_factory):
                        + tc.input.max_gt_boxes)
     frames = np.random.RandomState(5).randint(0, 256, (FRAMES, H, W, 3)
                                               ).astype(np.uint8)
+    train3_cfg = test_train.tiny_config(warmup_steps=2)
+    n_rois = (tc.model.rpn.post_nms_top_n_train + tc.input.max_gt_boxes)
+    keys3 = [jax.random.PRNGKey(20 + i) for i in range(STEPS3)]
     eval_cfgs = {m: torch_config(_eval_cfg(m)) for m in MODES}
     eval_trees = {m: init_jax_params(c.model, seed=1)
                   for m, c in eval_cfgs.items()}
@@ -121,9 +132,16 @@ def setup(tmp_path_factory):
              frames=frames, im_hw=IM_HW, eval_cfgs=eval_cfgs,
              eval_trees=eval_trees,
              train_argv=_train_argv(root / "run2", 1),
-             render_argv=_render_argv(root / "render2", 1))
+             render_argv=_render_argv(root / "render2", 1),
+             train3_cfg=torch_config(train3_cfg),
+             batches3=[_batch(train3_cfg, seed=10 + i)
+                       for i in range(STEPS3)],
+             draws3=[_jax_draws(k, anchors.shape[0], n_rois) for k in keys3],
+             scales=SCALES, extents=EXTENTS,
+             pairs=frames[[0, 2, 1, 3, 2, 4, 3, 5]].reshape(4, 2, H, W, 3))
     ranks = run_ranks(parallel_jobs, WORLD, root / "ranks", p)
-    return dict(p, ranks=ranks, root=root, train_cfg=train_cfg, key=key)
+    return dict(p, ranks=ranks, root=root, train_cfg=train_cfg, key=key,
+                train3_jcfg=train3_cfg, keys3=keys3)
 
 
 # ------------------------------------------------------------------ train
@@ -237,6 +255,103 @@ def test_parallel_step_matches_one_process(setup):
     for k, v in model.state_dict().items():
         np.testing.assert_allclose(got["state"][k].numpy(), v.numpy(),
                                    **TIGHT_PARAM, err_msg=k)
+
+
+# ------------------------------------------------------------ train programs
+
+@pytest.fixture(scope="module")
+def dtt_train3(setup):
+    """dtt's jitted parallel step on a 2-device mesh over the STEPS3
+    batches and keys: each step's metrics, the parameters and the
+    momentum (optax's trace) after."""
+    cfg = setup["train3_jcfg"]
+    mesh = j_data_mesh(jax.devices()[:WORLD])
+    model = jdnt.make_model(cfg.model)
+    params = jax.tree.map(jnp.asarray, setup["tree"])
+    tx = jtrainer.make_optimizer(cfg)
+    state = jtrainer.TrainState(params, tx.init(params["params"]),
+                                jnp.zeros((), jnp.int32))
+    state = jtrainer.TrainState(*jtrainer.replicate_tree(tuple(state), mesh))
+    step = jtrainer.make_parallel_train_step(cfg, model, setup["feat_hw"],
+                                             mesh)
+    metrics = []
+    for batch, key in zip(setup["batches3"], setup["keys3"]):
+        state, m = step(state, jtrainer.shard_batch(batch, mesh), key)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return dict(metrics=metrics,
+                params=jax.tree.map(np.asarray, state.params),
+                trace=jax.tree.map(np.asarray, optax.tree_utils.tree_get(
+                    state.opt_state, "trace")))
+
+
+def test_parallel_train_program_matches_dtt_over_three_steps(setup,
+                                                             dtt_train3):
+    """The parallel train program on two ranks over three steps whose
+    rate changes (the warm-up ends at step 2) against dtt's jitted
+    parallel step: the global losses of each step at LOSS_TOL, the
+    parameters' total update at GRAD_TOL, its atol scaled by the rates
+    and momentum the gradients went through (as
+    tests/test_torch_port_programs.py holds the serial program), plus two
+    float32 roundings of each parameter."""
+    got = setup["ranks"][0]["train3"]
+    assert got["step"] == STEPS3
+    for i, (g, w) in enumerate(zip(got["metrics"], dtt_train3["metrics"])):
+        for name, v in w.items():
+            np.testing.assert_allclose(g[name], v, **LOSS_TOL,
+                                       err_msg=f"step {i} {name}")
+    tc = setup["train3_cfg"]
+    t = tc.train
+    rates = [ttrainer.learning_rate(tc, i) for i in range(STEPS3)]
+    assert len(set(rates)) > 1
+    reach = sum(r * sum(t.momentum ** j for j in range(STEPS3 - k))
+                for k, r in enumerate(rates))
+    after = _port_params(got["state"], setup["tree"], tc)
+    before = jax.tree_util.tree_leaves(setup["tree"])
+    moved = 0
+    for p0, pp, pj in zip(before, jax.tree_util.tree_leaves(after),
+                          jax.tree_util.tree_leaves(dtt_train3["params"])):
+        got_u, want_u = pp - p0, pj - p0
+        tol = (GRAD_TOL["atol"] * 2 * reach + GRAD_TOL["rtol"]
+               * np.abs(want_u) + 2 * np.spacing(np.abs(p0)))
+        assert not (np.abs(got_u - want_u) > tol).any()
+        moved += bool(np.any(want_u != 0))
+    assert moved > 10
+
+
+def test_parallel_train_program_matches_serial_program(setup):
+    """The two ranks' program against the port's serial train program on
+    the whole global batches and draws over the same three steps: every
+    step's losses at TIGHT_LOSS, every parameter after at TIGHT_PARAM; and
+    both ranks end with one replica."""
+    tc = setup["train3_cfg"]
+    model, state = ttrainer.create_train_state(tc, "cpu", tree=setup["tree"])
+    step = ttrainer.make_train_step(tc, model, setup["feat_hw"], "cpu")
+    a, b = (r["train3"] for r in setup["ranks"])
+    for i, (batch, draws) in enumerate(zip(setup["batches3"],
+                                           setup["draws3"])):
+        state, metrics = step(state, batch, draws)
+        for name, v in metrics.items():
+            np.testing.assert_allclose(a["metrics"][i][name], v.item(),
+                                       **TIGHT_LOSS,
+                                       err_msg=f"step {i} {name}")
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(a["state"][k].numpy(), v.numpy(),
+                                   **TIGHT_PARAM, err_msg=k)
+        assert torch.equal(a["state"][k], b["state"][k]), k
+    assert a["metrics"] == b["metrics"]
+
+
+def test_parallel_programs_equal_their_eager_form(setup):
+    """On each rank, the train program's three steps equal three
+    ``step.eager`` steps from the same state bit for bit (every metric,
+    parameter and momentum buffer), and each call of the video and pair
+    programs equals ``step.eager``'s."""
+    for r in setup["ranks"]:
+        assert r["train3"]["differ"] == [], r["rank"]
+        assert r["train3"]["n_bufs"] > 0
+        assert r["grid"]["differ"] == [], r["rank"]
+        assert len(r["grid"]["outputs"]) == len(MODES) * 3 * len(
+            SCALES) * len(EXTENTS)
 
 
 def test_global_batch_must_divide_by_the_world():
@@ -402,6 +517,49 @@ def dtt_eval(setup):
             cfg, step, params, setup["frames"], tau=2, batch=step.batch,
             im_hw=IM_HW)
     return out
+
+
+@pytest.fixture(scope="module")
+def dtt_grid(setup):
+    """dtt's parallel video (1 and 2 frames a device) and pair (2 pairs a
+    device) steps on a 2-device mesh at each scale and extent, per
+    pooling mode."""
+    mesh = j_data_mesh(jax.devices()[:WORLD])
+    out = {}
+    for mode in MODES:
+        cfg = _eval_cfg(mode)
+        model = jdnt.make_model(cfg.model)
+        params = jax.tree.map(jnp.asarray, setup["eval_trees"][mode])
+        steps = {("video", fpd): (jinf.make_video_step_parallel(
+            cfg, model, mesh, fpd), setup["frames"][:WORLD * fpd])
+            for fpd in (1, 2)}
+        steps["pair", 2] = (jinf.make_pair_step_parallel(cfg, model, mesh, 2),
+                            setup["pairs"])
+        for (kind, n), (step, x) in steps.items():
+            for scale in SCALES:
+                for hw in EXTENTS:
+                    out[mode, kind, n, scale, hw] = [np.asarray(y) for y in step(
+                        params, jnp.asarray(x), jnp.asarray(hw, jnp.float32),
+                        jnp.float32(scale))]
+    return out
+
+
+@pytest.mark.parametrize("kind,n", [("video", 1), ("video", 2), ("pair", 2)])
+@pytest.mark.parametrize("mode", MODES)
+def test_parallel_programs_match_dtt_at_scales_and_extents(setup, dtt_grid,
+                                                           mode, kind, n):
+    """The video program (n frames a rank) and the pair program (2 pairs
+    a rank) on both ranks at two scales and two extents against dtt's
+    parallel steps at the same arguments (the extent and the scale are
+    inputs of both): `valid` equal, the rest at the video test's
+    bounds."""
+    for r in setup["ranks"]:
+        for scale in SCALES:
+            for hw in EXTENTS:
+                key = (mode, kind, n, scale, hw)
+                _close(r["grid"]["outputs"][key], dtt_grid[key], str(key))
+    assert any(setup["ranks"][0]["grid"]["outputs"][mode, kind, n, s, e][2]
+               .any() for s in SCALES for e in EXTENTS)
 
 
 def _close(got, want, what):

@@ -200,21 +200,25 @@ def test_capture_that_reads_back_raises_naming_the_step(cuda):
     """A step that reads a CUDA value back to the host cannot be captured:
     the program raises an error naming the step and the line, runs
     nothing eagerly in its place, and raises again on the next call; the
-    card goes on working."""
+    card goes on working, random draws from the default and from a
+    registered generator included."""
     ran = []
 
-    def body(x):
+    def body(x, gen):
         ran.append(1)
         return x * x.sum().item()
 
     program = StepProgram(body, "read-back probe", cuda)
     x = torch.ones(4, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
     with pytest.raises(RuntimeError, match="read-back probe.*x.sum"):
-        program(x)
+        program(x, gen)
     assert len(ran) == 2          # the warm-up and the failed capture
     with pytest.raises(RuntimeError, match="read-back probe"):
-        program(x)
+        program(x, gen)
     assert len(ran) == 2
     assert program.replays == 0
     assert torch.equal(torch.ones(2, device=cuda) + 1,
                        torch.full((2,), 2.0, device=cuda))
+    assert torch.rand(2, device=cuda).shape == (2,)
+    assert torch.rand(2, device=cuda, generator=gen).shape == (2,)

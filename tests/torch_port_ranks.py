@@ -105,6 +105,84 @@ def _eval(mesh, p) -> dict:
     return out
 
 
+def _exact(a, b) -> bool:
+    """Bit for bit (float32 by its bits), and the same dtype and shape."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _train_program(mesh, p) -> dict:
+    """The parallel train program over the payload's steps (a rate change
+    among them) from the payload's tree, then the same steps by
+    ``step.eager`` from the tree again: the program's metrics of each
+    step, state and momentum buffers (as flax trees' leaves in order),
+    and which metrics, parameters and buffers of the two forms differ."""
+    from dtt_torch.train import trainer
+
+    cfg = p["train3_cfg"]
+    runs = []
+    for form in ("program", "eager"):
+        model, state = trainer.create_train_state(cfg, "cpu", tree=p["tree"])
+        state = trainer.replicate_tree(state, mesh)
+        step = trainer.make_parallel_train_step(cfg, model, p["feat_hw"],
+                                                mesh)
+        fn = step if form == "program" else step.eager
+        metrics = []
+        for batch, draws in zip(p["batches3"], p["draws3"]):
+            state, m = fn(state, trainer.shard_batch(batch, mesh),
+                          trainer.shard_draws(draws, mesh))
+            metrics.append(m)
+        runs.append((metrics, state))
+    (mp, sp), (me, se) = runs
+    params = lambda s: list(s.model.state_dict().items())
+    bufs = lambda s: [x["momentum_buffer"]
+                      for x in s.optimizer.state.values()]
+    differ = [f"step {i} {k}" for i, (a, b) in enumerate(zip(mp, me))
+              for k in a if not _exact(a[k], b[k])]
+    differ += [k for (k, a), (_, b) in zip(params(sp), params(se))
+               if not _exact(a, b)]
+    differ += [f"momentum {i}" for i, (a, b) in enumerate(zip(bufs(sp),
+                                                                 bufs(se)))
+               if not _exact(a, b)]
+    return dict(metrics=[{k: v.item() for k, v in m.items()} for m in mp],
+                state={k: v.clone() for k, v in params(sp)},
+                step=sp.step, differ=differ, n_bufs=len(bufs(sp)))
+
+
+def _eval_grid(mesh, p) -> dict:
+    """Per pooling mode, the parallel video program (1 and 2 frames a
+    rank) and pair program (the payload's pairs, 2 a rank) at each scale
+    and extent of the payload, and whether each call's outputs equal ``step.eager``'s
+    bit for bit."""
+    from dtt_torch.eval import inference as inf
+    from dtt_torch.utils.params import from_jax_params
+
+    out, differ = {}, []
+    for mode, cfg in p["eval_cfgs"].items():
+        model = from_jax_params(p["eval_trees"][mode], cfg.model,
+                                device="cpu")
+        steps = {("video", fpd): inf.make_video_step_parallel(cfg, model,
+                                                               mesh, fpd)
+                 for fpd in (1, 2)}
+        steps["pair", 2] = inf.make_pair_step_parallel(cfg, model, mesh, 2)
+        for (kind, n), step in steps.items():
+            x = torch.from_numpy(p["pairs"] if kind == "pair"
+                                 else p["frames"][:mesh.size * n])
+            for scale in p["scales"]:
+                for hw in p["extents"]:
+                    im_hw = torch.tensor(hw, dtype=torch.float32)
+                    got = step(x, im_hw, scale)
+                    want = step.eager(x, im_hw, scale)
+                    out[mode, kind, n, scale, hw] = [a.numpy() for a in got]
+                    differ += [(mode, kind, n, scale, hw, i) for i, (a, b)
+                               in enumerate(zip(got, want))
+                               if not _exact(a, b)]
+    return dict(outputs=out, differ=differ)
+
+
 def _train_main(mesh, p) -> None:
     """train_torch.main on this rank (the group is the caller's)."""
     import train_torch
@@ -148,7 +226,8 @@ def parallel_jobs(mesh, p) -> dict:
     """Every job the parallel tests hold against their references, in one
     start of the ranks."""
     out = dict(rank=mesh.rank, size=mesh.size, train=_train(mesh, p),
-               eval=_eval(mesh, p))
+               eval=_eval(mesh, p), train3=_train_program(mesh, p),
+               grid=_eval_grid(mesh, p))
     _train_main(mesh, p)
     out["render"] = record_render_run(p["render_argv"])
     return out

@@ -41,10 +41,12 @@ train.py does on more than one chip: each rank holds a replica on
 ``train.batch_size_per_chip`` x the world size, each rank takes its rows
 of it and of the step's draws, and the gradients are averaged before the
 clip (``make_parallel_train_step``), so the ranks make the update one
-process makes on the global batch. Every rank reads --pretrained and
---resume and calibrates on the whole first batch; rank 0's state is then
-broadcast to all. Only rank 0 writes the run dir, the metrics and the
-checkpoints, and the ranks wait for each checkpoint. With
+process makes on the global batch. That step is a program too: its
+first step runs eagerly (making NCCL's communicator), the second is
+captured with the all-reduces inside the graph. Every rank reads
+--pretrained and --resume and calibrates on the whole first batch; rank
+0's state is then broadcast to all. Only rank 0 writes the run dir, the
+metrics and the checkpoints, and the ranks wait for each checkpoint. With
 --device-render each rank draws its canvases' noise on its own card from
 a generator of its own (seed + 2 + rank), so the noise differs from one
 process's, while the step's draws come from a generator seeded alike on
