@@ -60,6 +60,7 @@ from dtt_torch.models.dnt import (DnT, FrameFeats,
                                   normalize_device_images, track_rois_batched)
 from dtt_torch.parallel.mesh import (DataMesh, all_gather_cat, exchange_halo,
                                      mesh_program)
+from dtt_torch.utils.profiling import count, span
 from dtt_torch.utils.programs import StepProgram
 
 
@@ -506,41 +507,49 @@ def evaluate_snippet_video(cfg: Config, video_step, frames,
     or a LazyFrames, whose cache is sized to a chunk and its overlap;
     `im_hw` the true (h, w) extent on the canvas (default: the canvas).
     Returns numpy (C-1, T, M, 4) boxes, (C-1, T, M) scores, (C-1, T, M)
-    valid and (C-1, T, M, 4) tracked boxes.
+    valid and (C-1, T, M, 4) tracked boxes. Recorded
+    (``dtt_torch.utils.profiling``) as the span ``video.snippet``, a
+    request, with a span ``video.gather`` around each chunk's gather on the
+    host and the counter ``video.chunks``.
     """
     f = frames_per_chunk or video_step.frames_per_chunk
     if f < 2:
         raise ValueError("a chunk needs at least one frame pair")
-    t_len = frames.shape[0]
-    if im_hw is None:
-        im_hw = (frames.shape[1], frames.shape[2])
-    im_hw = torch.tensor(im_hw, dtype=torch.float32, device=video_step.device)
-    if isinstance(frames, LazyFrames):   # each frame decodes once
-        frames.ensure_cache(f + 1)
-    # a parallel step's rank reads (and decodes) only its own frames
-    rows = getattr(video_step, "rows", slice(None))
+    with span("video.snippet", request=True):
+        t_len = frames.shape[0]
+        if im_hw is None:
+            im_hw = (frames.shape[1], frames.shape[2])
+        im_hw = torch.tensor(im_hw, dtype=torch.float32,
+                             device=video_step.device)
+        if isinstance(frames, LazyFrames):   # each frame decodes once
+            frames.ensure_cache(f + 1)
+        # a parallel step's rank reads (and decodes) only its own frames
+        rows = getattr(video_step, "rows", slice(None))
 
-    outs = []
-    pending: list = []  # dispatch-ahead queue: host work overlaps the device
+        outs = []
+        # dispatch-ahead queue: host work overlaps the device
+        pending: list = []
 
-    def fetch(entry):
-        out, real = entry
-        return [x[:real].cpu().numpy() for x in out]
+        def fetch(entry):
+            out, real = entry
+            return [x[:real].cpu().numpy() for x in out]
 
-    start = 0
-    while start < t_len:
-        # index min(i, T-1): duplicates the last frame both for the final
-        # identity pair and as tail padding (trimmed via `real`)
-        idxs = [min(i, t_len - 1) for i in range(start, start + f)]
-        chunk = _gather_chunk(cfg, frames, idxs[rows])
-        real = min(f - 1, t_len - start)  # pairs produced by this chunk
-        pending.append((video_step(chunk, im_hw, scale), real))
-        if len(pending) > 2:      # keep 2 chunks in flight
-            outs.append(fetch(pending.pop(0)))
-        start += f - 1            # overlap: last frame re-used as next f_t
-    outs.extend(fetch(e) for e in pending)
-    return tuple(np.concatenate([o[i] for o in outs], axis=0)[:t_len]
-                 .swapaxes(0, 1) for i in range(4))
+        start = 0
+        while start < t_len:
+            count("video.chunks")
+            # index min(i, T-1): duplicates the last frame both for the
+            # final identity pair and as tail padding (trimmed via `real`)
+            idxs = [min(i, t_len - 1) for i in range(start, start + f)]
+            with span("video.gather"):
+                chunk = _gather_chunk(cfg, frames, idxs[rows])
+            real = min(f - 1, t_len - start)  # pairs produced by this chunk
+            pending.append((video_step(chunk, im_hw, scale), real))
+            if len(pending) > 2:      # keep 2 chunks in flight
+                outs.append(fetch(pending.pop(0)))
+            start += f - 1        # overlap: last frame re-used as next f_t
+        outs.extend(fetch(e) for e in pending)
+        return tuple(np.concatenate([o[i] for o in outs], axis=0)[:t_len]
+                     .swapaxes(0, 1) for i in range(4))
 
 
 def evaluate_snippet(cfg: Config, pair_step, frames, tau: int = 1,
@@ -643,12 +652,18 @@ def link_snippet(cfg: Config, boxes, scores, tracked, valid, device=None):
     numpy detections on `device` (CUDA unless the caller passes "cpu"), by
     one copy of the four inputs to the device and one copy of the five
     outputs back. Returns the rescored scores and the Tubes, as numpy
-    arrays."""
+    arrays. Recorded as the span ``link`` (the request last started on
+    the thread: the snippet's detection) with ``link.upload``,
+    ``link.kernel`` and ``link.readback``."""
     device = resolve_device(device)
-    tubes = link_all_classes(
-        *to_device((boxes, scores, tracked, valid), device),
-        max_tubes=cfg.eval.max_tubes_per_class,
-        link_iou_weight=cfg.eval.link_iou_weight,
-        score_boost=cfg.eval.tube_score_boost)
-    tubes = tubes_numpy(tubes)
+    with span("link"):
+        with span("link.upload"):
+            inputs = to_device((boxes, scores, tracked, valid), device)
+        with span("link.kernel"):
+            tubes = link_all_classes(
+                *inputs, max_tubes=cfg.eval.max_tubes_per_class,
+                link_iou_weight=cfg.eval.link_iou_weight,
+                score_boost=cfg.eval.tube_score_boost)
+        with span("link.readback"):
+            tubes = tubes_numpy(tubes)
     return tubes.rescored, tubes

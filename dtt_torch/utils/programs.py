@@ -43,6 +43,16 @@ on the arguments moved to the device (numbers as 0-d tensors, as the
 program holds them), so the card can hold the two forms against each
 other.
 
+While a recording of ``dtt_torch.utils.profiling`` is on, every call is a
+span ``program.call`` labelled with the program's name, whose children
+are ``program.copy_in`` (the arguments into the buffers: pinning and the
+uploads' enqueue), ``program.replay`` (``program.run`` where `fn` is
+called directly, on the CPU) and ``program.copy_out`` (the outputs'
+copies); a first call's warm-up and capture, and an eager call, are the
+call's own time. The counter ``program.pinned_bytes`` adds the bytes of
+every host tensor that had to be pinned afresh to be uploaded. The spans'
+clock is the recorder's (see there).
+
 Nothing inside `fn` may read a CUDA value back to the host, change a
 tensor's shape from its values or replace a tensor the graph reads (a
 parameter, a momentum buffer) by another: weights are loaded and state is
@@ -58,6 +68,8 @@ import traceback
 
 import numpy as np
 import torch
+
+from dtt_torch.utils.profiling import count, span
 
 _TORCH_DIR = os.path.dirname(torch.__file__) + os.sep
 
@@ -146,8 +158,15 @@ def upload(x, device: torch.device):
         return torch.full((), x, device=device, dtype=torch.int64
                           if isinstance(x, int) else torch.float32)
     if device.type == "cuda" and x.device.type == "cpu" and not x.is_pinned():
-        x = x.pin_memory()
+        x = _pinned(x)
     return x.to(device, non_blocking=True)
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """A pinned copy of the host tensor `x`, its bytes counted as
+    ``program.pinned_bytes``."""
+    count("program.pinned_bytes", x.numel() * x.element_size())
+    return x.pin_memory()
 
 
 def _failed_line(err: BaseException) -> str:
@@ -197,7 +216,7 @@ class _Entry:
                 continue
             if (buf.device.type == "cuda" and x.device.type == "cpu"
                     and not x.is_pinned()):
-                x = x.pin_memory()
+                x = _pinned(x)
             # a borrowed buffer may be an inference tensor
             with torch.inference_mode(buf.is_inference()):
                 buf.copy_(x, non_blocking=True)
@@ -230,6 +249,10 @@ class StepProgram:
             [upload(x, self.device) for x in leaves])))
 
     def __call__(self, *args):
+        with span("program.call", self.name):
+            return self._call(args)
+
+    def _call(self, args):
         leaves: list = []
         sig = _flatten(args, leaves)
         entry = self._entries.get(sig)
@@ -244,9 +267,12 @@ class StepProgram:
                                                 borrowed)
         if entry.error is not None:
             raise entry.error
-        entry.copy_in(leaves)
+        with span("program.copy_in"):
+            entry.copy_in(leaves)
         if self.device.type != "cuda":
-            return self._out(self.fn(*entry.args))
+            with span("program.run"):
+                out = self.fn(*entry.args)
+            return self._out(out)
         if entry.graph is None:
             if entry.calls < self.eager_calls:
                 entry.calls += 1
@@ -254,14 +280,18 @@ class StepProgram:
             if self.eager_calls == 0:
                 self._on_side(entry.args)     # the warm-up
             self._capture(entry)
-        entry.graph.replay()
+        with span("program.replay"):
+            entry.graph.replay()
         self.replays += 1
         for wrapper, n in entry.launched:
             wrapper.launches += n
         return self._out(entry.out)
 
     def _out(self, out):
-        return _map_tensors(torch.clone, out) if self.copy_out else out
+        if not self.copy_out:
+            return out
+        with span("program.copy_out"):
+            return _map_tensors(torch.clone, out)
 
     def _side_stream(self) -> torch.cuda.Stream:
         if self._stream is None:

@@ -45,11 +45,16 @@ import argparse
 import json
 import os
 import pickle
-import time
-from collections import defaultdict
-from contextlib import contextmanager
 
 import numpy as np
+
+# the phases of the ``wall ms`` line and the recorder's spans that time
+# them (``dtt_torch.utils.profiling``), in the line's order; the LazyFrames'
+# decoding, inside detection, is the counter ``eval.decode_ms``
+PHASES = {"detect": "eval.detect", "link": "link",
+          "interpolate+nms": "eval.interpolate+nms",
+          "decode_in_detect": None,
+          "eval_detections": "eval.eval_detections"}
 
 
 def parse_args(argv=None):
@@ -217,31 +222,34 @@ def cap_frame_dets(scores: np.ndarray, valid: np.ndarray, max_dets: int
     return valid & keep.reshape(t, c, m).transpose(1, 0, 2)
 
 
-@contextmanager
-def timed(clock: dict, name: str):
-    """Add the wall ms of the block to ``clock[name]``."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        clock[name] += (time.perf_counter() - t0) * 1e3
+def wall_ms(record) -> dict:
+    """The wall ms of each phase of PHASES that ran, from the recorder's
+    `record` of the evaluation."""
+    clock = {}
+    for phase, name in PHASES.items():
+        if name is None:
+            if "eval.decode_ms" in record.counts:
+                clock[phase] = float(record.counts["eval.decode_ms"])
+        elif record.named(name):
+            clock[phase] = record.ms(name)
+    return clock
 
 
 def process_strided_snippet(cfg, num_classes, frame_uid, t_len, eval_ts,
                             boxes, scores, valid, tracked, all_dets, raw_dets,
-                            device, clock):
+                            device):
     """tau-strided snippet post-processing: link tubes (on `device`),
     interpolate them to every frame, and fall back to the raw keyframe
     detections no tube claimed. The raw keyframe detections also feed
     `raw_dets` (mAP_nolink). Accumulates (fids, scores, boxes) triples per
-    class; `clock` collects the wall ms of linking and of interpolation +
-    per-frame NMS."""
+    class; interpolation and per-frame NMS are the span
+    ``eval.interpolate+nms``."""
     from dtt_torch.eval.inference import interpolate_tubes, link_snippet
     from dtt_torch.eval.vid_eval import nms_frame_dets
+    from dtt_torch.utils.profiling import span
     valid = cap_frame_dets(scores, valid, cfg.eval.max_dets_per_frame)
-    with timed(clock, "link"):
-        _, tubes = link_snippet(cfg, boxes, scores, tracked, valid, device)
-    with timed(clock, "interpolate+nms"):
+    _, tubes = link_snippet(cfg, boxes, scores, tracked, valid, device)
+    with span("eval.interpolate+nms"):
         tau = int(eval_ts[1] - eval_ts[0]) if len(eval_ts) > 1 else 1
         ts, cls0, sc, bx = interpolate_tubes(tubes, boxes, eval_ts, t_len,
                                              tau=tau)
@@ -305,6 +313,7 @@ def main(argv=None, device=None):
                                           make_video_step_parallel)
     from dtt_torch.eval.vid_eval import eval_detections
     from dtt_torch.parallel import data_mesh
+    from dtt_torch.utils.profiling import count, recording, span
 
     owns_group, lead = False, True
     if args.parallel:
@@ -369,79 +378,84 @@ def main(argv=None, device=None):
     raw_dets = {c: [] for c in range(1, num_classes)} if do_link else None
     all_gts = {c: {} for c in range(1, num_classes)}
     frame_uid, pairs = 0, 0
-    clock: dict = defaultdict(float)
-
-    for name, frames, im_hw, scale, (gt_boxes, gt_labels, gt_valid) in stream:
-        t_len = frames.shape[0]
-        if args.tau > 1:
-            with timed(clock, "detect"):
-                boxes, scores, valid, tracked, eval_ts = evaluate_snippet(
-                    cfg, pair_step, frames, tau=args.tau, im_hw=im_hw,
-                    scale=scale)
-            pairs += len(eval_ts)
-            if not lead:
-                continue
-            process_strided_snippet(cfg, num_classes, frame_uid, t_len,
-                                    eval_ts, boxes, scores, valid, tracked,
-                                    all_dets, raw_dets, device, clock)
-        else:
-            with timed(clock, "detect"):
-                boxes, scores, valid, tracked = evaluate_snippet_video(
-                    cfg, video_step, frames, im_hw=im_hw, scale=scale)
-            pairs += t_len
-            if not lead:
-                continue
-            valid = cap_frame_dets(scores, valid, cfg.eval.max_dets_per_frame)
-            raw_scores = scores
-            if args.link:
-                with timed(clock, "link"):
+    with recording() as record:
+        for name, frames, im_hw, scale, (gt_boxes, gt_labels,
+                                         gt_valid) in stream:
+            t_len = frames.shape[0]
+            if args.tau > 1:
+                with span("eval.detect", request=True):
+                    boxes, scores, valid, tracked, eval_ts = \
+                        evaluate_snippet(cfg, pair_step, frames,
+                                         tau=args.tau, im_hw=im_hw,
+                                         scale=scale)
+                pairs += len(eval_ts)
+                if not lead:
+                    continue
+                process_strided_snippet(cfg, num_classes, frame_uid, t_len,
+                                        eval_ts, boxes, scores, valid,
+                                        tracked, all_dets, raw_dets, device)
+            else:
+                with span("eval.detect", request=True):
+                    boxes, scores, valid, tracked = evaluate_snippet_video(
+                        cfg, video_step, frames, im_hw=im_hw, scale=scale)
+                pairs += t_len
+                if not lead:
+                    continue
+                valid = cap_frame_dets(scores, valid,
+                                       cfg.eval.max_dets_per_frame)
+                raw_scores = scores
+                if args.link:
                     scores, _ = link_snippet(cfg, boxes, scores, tracked,
                                              valid, device)
 
-            def collect(dest, sc):
-                mask = valid & (sc > cfg.eval.score_thresh)  # (C-1, T, M)
-                for c in range(1, num_classes):
-                    t_idx, m_idx = np.nonzero(mask[c - 1])
-                    if t_idx.size:
-                        dest[c].append((frame_uid + t_idx,
-                                        sc[c - 1][t_idx, m_idx],
-                                        boxes[c - 1][t_idx, m_idx]))
+                def collect(dest, sc):
+                    mask = valid & (sc > cfg.eval.score_thresh)
+                    for c in range(1, num_classes):
+                        t_idx, m_idx = np.nonzero(mask[c - 1])
+                        if t_idx.size:
+                            dest[c].append((frame_uid + t_idx,
+                                            sc[c - 1][t_idx, m_idx],
+                                            boxes[c - 1][t_idx, m_idx]))
 
-            collect(all_dets, scores)
-            if raw_dets is not None:
-                collect(raw_dets, raw_scores)
-        for c in np.unique(gt_labels):
-            if not 1 <= c < num_classes:   # 0 = padding slots / background
-                continue
-            slot_mask = gt_labels == c              # (G,)
-            present = gt_valid & slot_mask[None, :]  # (T, G)
-            for t in np.nonzero(present.any(axis=1))[0]:
-                all_gts[int(c)][frame_uid + int(t)] = gt_boxes[t][present[t]]
-        frame_uid += t_len
-        decoded = ""
-        if isinstance(frames, LazyFrames):
-            clock["decode_in_detect"] += frames.decode_ms
-            decoded = f", {frames.decode_count} decoded"
-        print(f"snippet {name}: {t_len} frames done (tau={args.tau}){decoded}")
+                collect(all_dets, scores)
+                if raw_dets is not None:
+                    collect(raw_dets, raw_scores)
+            for c in np.unique(gt_labels):
+                if not 1 <= c < num_classes:   # 0 = padding slots / bg
+                    continue
+                slot_mask = gt_labels == c              # (G,)
+                present = gt_valid & slot_mask[None, :]  # (T, G)
+                for t in np.nonzero(present.any(axis=1))[0]:
+                    all_gts[int(c)][frame_uid + int(t)] = \
+                        gt_boxes[t][present[t]]
+            frame_uid += t_len
+            decoded = ""
+            if isinstance(frames, LazyFrames):
+                count("eval.decode_ms", frames.decode_ms)
+                decoded = f", {frames.decode_count} decoded"
+            print(f"snippet {name}: {t_len} frames done "
+                  f"(tau={args.tau}){decoded}")
 
-    if owns_group:
-        import torch.distributed as dist
-        dist.destroy_process_group()
+        if owns_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+        if lead:
+            if args.out:
+                with open(args.out, "wb") as f:
+                    pickle.dump({"dets": all_dets, "gts": all_gts}, f)
+                print(f"wrote {args.out}")
+            names = CLASS_NAMES if num_classes == 31 else None
+            with span("eval.eval_detections"):
+                result = eval_detections(all_dets, all_gts, num_classes,
+                                         class_names=names,
+                                         protocol=args.eval_protocol)
+                raw = (eval_detections(raw_dets, all_gts, num_classes,
+                                       class_names=names,
+                                       protocol=args.eval_protocol)
+                       if raw_dets is not None else None)
+    clock = wall_ms(record)
     if not lead:
-        return None, dict(clock), pairs
-    if args.out:
-        with open(args.out, "wb") as f:
-            pickle.dump({"dets": all_dets, "gts": all_gts}, f)
-        print(f"wrote {args.out}")
-
-    names = CLASS_NAMES if num_classes == 31 else None
-    with timed(clock, "eval_detections"):
-        result = eval_detections(all_dets, all_gts, num_classes,
-                                 class_names=names,
-                                 protocol=args.eval_protocol)
-        raw = (eval_detections(raw_dets, all_gts, num_classes,
-                               class_names=names, protocol=args.eval_protocol)
-               if raw_dets is not None else None)
+        return None, clock, pairs
     per_class = {f"class_{c}": (None if np.isnan(a) else round(a, 4))
                  for c, a in result["ap"].items()}
     out = {"mAP": round(result["map"], 4), "protocol": args.eval_protocol}
@@ -452,7 +466,7 @@ def main(argv=None, device=None):
           + f"; {pairs} pairs")
     out = {**out, **per_class}
     print(json.dumps(out))
-    return out, dict(clock), pairs
+    return out, clock, pairs
 
 
 if __name__ == "__main__":

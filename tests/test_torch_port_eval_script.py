@@ -75,7 +75,8 @@ def test_eval_torch_matches_eval_py(checkpoints, tmp_path, monkeypatch,
     got, clock, pairs = eval_torch.main(
         ["--config", CONFIG, "--checkpoint", t_ck, "--out", t_out, *SNIPPET,
          *extra], device="cpu")
-    assert _last_json(capsys.readouterr().out) == got
+    printed = capsys.readouterr().out
+    assert _last_json(printed) == got
     assert set(got) == set(want)
     for key, value in want.items():
         if isinstance(value, float):
@@ -85,6 +86,13 @@ def test_eval_torch_matches_eval_py(checkpoints, tmp_path, monkeypatch,
     assert {"mAP_nolink", "link_uplift"} <= set(got)
     assert pairs == (8 if extra == ["--link"] else 4)
     assert clock["detect"] > 0 and clock["link"] > 0
+    # the phases of the wall ms line, in its order, as the dict has them
+    phases = (["detect", "link", "eval_detections"] if extra == ["--link"]
+              else ["detect", "link", "interpolate+nms", "eval_detections"])
+    assert list(clock) == phases
+    (line,) = [x for x in printed.splitlines() if x.startswith("wall ms: ")]
+    assert [x.rsplit(" ", 1)[0] for x in
+            line[len("wall ms: "):].split("; ")[0].split(", ")] == phases
 
     with open(j_out, "rb") as f:
         j_pkl = pickle.load(f)

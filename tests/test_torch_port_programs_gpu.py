@@ -144,6 +144,35 @@ def test_replays_count_the_captured_launches(cuda):
     assert tnms.nms_cuda.launches - before == 3 * per_call
 
 
+def test_video_program_records_replays_and_pinned_bytes(cuda):
+    """Recorded (``dtt_torch.utils.profiling``), each call of a captured
+    video step's two programs is a ``program.call`` labelled with the
+    program's name, with ``program.copy_in`` and ``program.replay`` under
+    it (and the post-trunk stage's ``program.copy_out``), and
+    ``program.pinned_bytes`` adds a chunk's bytes a call: each chunk is a
+    fresh host array, pinned to be uploaded."""
+    from dtt_torch.utils.profiling import recording
+    cfg = _tiny()
+    model = from_jax_params(init_jax_params(cfg.model, seed=1), cfg.model,
+                            cuda)
+    step = make_video_step(cfg, model, 4)
+    hw = torch.tensor((H, W), dtype=torch.float32, device=cuda)
+    step(_frames(4, 0), hw)              # the warm-up and the capture
+    with recording() as rec:
+        for s in range(CALLS):
+            step(_frames(4, s), hw)
+        torch.cuda.synchronize()
+    calls = rec.named("program.call")
+    assert sorted(c.label for c in calls) == sorted(
+        [p.name for p in step.programs] * CALLS)
+    for name, n in (("program.copy_in", 2), ("program.replay", 2),
+                    ("program.copy_out", 1)):
+        under = [rec.spans[s.parent] for s in rec.named(name)]
+        assert len(under) == n * CALLS
+        assert all(p.name == "program.call" for p in under)
+    assert rec.counts == {"program.pinned_bytes": CALLS * 4 * H * W * 3}
+
+
 def test_train_program_matches_eager_with_device_render(cuda):
     """STEPS train steps of the program (the first eager, then captured)
     against STEPS of ``step.eager`` from the same weights, batches, draws
