@@ -34,13 +34,18 @@ the trunk's feature buffers) under ``EvalConfig.split_video_step`` and as
 one without it; each data-parallel step as one program, under NCCL with
 its collectives captured in the graph. A step's outputs are
 copies that its next call leaves alone, so both drivers keep two batches
-in flight: CUDA work is queued asynchronously and only the ``.cpu()`` of a
-finished batch waits. Their frames are an array or a ``LazyFrames``, which
-decodes each frame of a snippet on first touch and keeps a bounded cache.
+in flight: CUDA work is queued asynchronously. On CUDA a batch travels
+through a ring of three pinned staging slots (``_Staging``): it is
+gathered straight into a slot, and its outputs come back into the slot
+behind the step on the stream, so reading a finished batch waits on that
+batch's event alone and never drains the stream. Their frames are an
+array or a ``LazyFrames``, which decodes each frame of a snippet on first
+touch and keeps a bounded cache.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import OrderedDict
 from typing import NamedTuple
@@ -133,20 +138,116 @@ class LazyFrames:
         return img
 
 
-def _transfer_dtype(cfg: Config, frames: np.ndarray) -> torch.Tensor:
-    """Host frames as the tensor to upload: uint8 canvases as they are
-    (normalized on the device), float frames in the model's compute dtype
-    (the backbone's first op is the same cast)."""
-    t = torch.from_numpy(np.ascontiguousarray(frames))
-    if t.dtype == torch.uint8:
-        return t
-    return t.to(getattr(torch, cfg.model.dtype))
+def _transfer_dtype(cfg: Config, dtype) -> torch.dtype:
+    """The dtype host frames of numpy `dtype` are uploaded in: uint8
+    canvases as they are (normalized on the device), float frames in the
+    model's compute dtype (the backbone's first op is the same cast)."""
+    return torch.uint8 if dtype == np.uint8 else getattr(torch,
+                                                          cfg.model.dtype)
 
 
 def _gather_chunk(cfg: Config, frames, idxs) -> torch.Tensor:
-    """Stack the requested frame indices into one transfer-ready chunk."""
-    return _transfer_dtype(cfg, np.stack([np.asarray(frames[i])
-                                          for i in idxs]))
+    """Stack the requested frame indices into one fresh transfer-ready
+    chunk."""
+    x = np.stack([np.asarray(frames[i]) for i in idxs])
+    return torch.from_numpy(x).to(_transfer_dtype(cfg, x.dtype))
+
+
+# Chunks a snippet driver keeps queued on the device while it gathers the
+# next one; a ring of staging slots holds one more.
+_IN_FLIGHT = 2
+_RINGS = threading.local()
+
+
+class _Slot:
+    """One chunk's staging between host and card: a pinned host block of
+    the chunk's transfer shape and dtype, pinned host tensors for the
+    step's outputs (shaped like them at the slot's first chunk) and the
+    event recorded on the stream after the outputs' copies into them."""
+
+    def __init__(self, shape: tuple, dtype: torch.dtype):
+        self.host = torch.empty(shape, dtype=dtype, pin_memory=True)
+        self.outs: list = []
+        self.event = torch.cuda.Event()
+
+
+def _ring(device: torch.device, shape: tuple, dtype: torch.dtype) -> list:
+    """This thread's slots for chunks of `shape` and `dtype` on `device`,
+    pinned at their first use and kept: pinning them anew for each
+    snippet would cost more than staging saves."""
+    rings = _RINGS.__dict__.setdefault("rings", {})
+    key = (device, shape, dtype)
+    if key not in rings:
+        rings[key] = [_Slot(shape, dtype) for _ in range(_IN_FLIGHT + 1)]
+    return rings[key]
+
+
+class _Staging:
+    """The snippet drivers' trip of a chunk between host and device.
+
+    On CUDA the k-th chunk of a snippet goes through slot k mod 3 of the
+    ring for its transfer shape and dtype: its frames are copied straight
+    into the slot's pinned block (float frames cast on the way), the step
+    uploads from there, the rows the chunk produced are copied into the
+    slot's pinned outputs behind the step on the stream, and the slot's
+    event is recorded after them. Fetching a chunk waits on that event
+    alone, so the chunks queued after it keep the card busy, and copies
+    the rows out, which frees the slot. On the CPU a chunk is a fresh
+    array and its outputs are read as they are.
+    """
+
+    def __init__(self, cfg: Config, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.pinned = self.device.type == "cuda"
+        self.pending: list = []      # (outputs, real rows, event or None)
+        self._chunks = 0
+        self._slot = None
+
+    @property
+    def full(self) -> bool:
+        """More chunks queued than the drivers keep in flight."""
+        return len(self.pending) > _IN_FLIGHT
+
+    def gather(self, frames, idxs) -> torch.Tensor:
+        """Frames `idxs` of `frames` as the chunk to hand to the step."""
+        if not self.pinned:
+            return _gather_chunk(self.cfg, frames, idxs)
+        first = np.asarray(frames[idxs[0]])
+        ring = _ring(self.device, (len(idxs), *first.shape),
+                     _transfer_dtype(self.cfg, first.dtype))
+        slot = self._slot = ring[self._chunks % len(ring)]
+        self._chunks += 1
+        slot.event.synchronize()   # its last chunk's copies are done
+        for j, i in enumerate(idxs):
+            x = first if j == 0 else np.asarray(frames[i])
+            slot.host[j].copy_(torch.from_numpy(x))
+        return slot.host
+
+    def put(self, out, real: int) -> None:
+        """Queue the step's outputs `out` for the last gathered chunk, of
+        which the first `real` rows are kept."""
+        if not self.pinned:
+            self.pending.append((out, real, None))
+            return
+        slot = self._slot
+        if [(o.shape, o.dtype) for o in slot.outs] != [
+                (x.shape, x.dtype) for x in out]:
+            slot.outs = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                         for x in out]
+        for o, x in zip(slot.outs, out):
+            o[:real].copy_(x[:real], non_blocking=True)
+        slot.event.record(torch.cuda.current_stream(self.device))
+        self.pending.append((slot.outs, real, slot.event))
+
+    def fetch(self) -> list:
+        """The oldest queued chunk's kept rows, as numpy arrays of their
+        own."""
+        out, real, event = self.pending.pop(0)
+        if event is None:
+            return [x[:real].cpu().numpy() for x in out]
+        event.synchronize()
+        return [x[:real].numpy().copy() for x in out]
 
 
 def _step_setup(cfg: Config, model: DnT, device) -> tuple:
@@ -510,7 +611,10 @@ def evaluate_snippet_video(cfg: Config, video_step, frames,
     valid and (C-1, T, M, 4) tracked boxes. Recorded
     (``dtt_torch.utils.profiling``) as the span ``video.snippet``, a
     request, with a span ``video.gather`` around each chunk's gather on the
-    host and the counter ``video.chunks``.
+    host, a span ``video.fetch`` around each read of a chunk's outputs (on
+    CUDA the wait on its slot's event and the copy out), the counter
+    ``video.chunks`` and, on CUDA, ``video.staged``: the chunks that went
+    through a staging slot.
     """
     f = frames_per_chunk or video_step.frames_per_chunk
     if f < 2:
@@ -526,14 +630,9 @@ def evaluate_snippet_video(cfg: Config, video_step, frames,
         # a parallel step's rank reads (and decodes) only its own frames
         rows = getattr(video_step, "rows", slice(None))
 
-        outs = []
         # dispatch-ahead queue: host work overlaps the device
-        pending: list = []
-
-        def fetch(entry):
-            out, real = entry
-            return [x[:real].cpu().numpy() for x in out]
-
+        stage = _Staging(cfg, video_step.device)
+        outs = []
         start = 0
         while start < t_len:
             count("video.chunks")
@@ -541,13 +640,18 @@ def evaluate_snippet_video(cfg: Config, video_step, frames,
             # final identity pair and as tail padding (trimmed via `real`)
             idxs = [min(i, t_len - 1) for i in range(start, start + f)]
             with span("video.gather"):
-                chunk = _gather_chunk(cfg, frames, idxs[rows])
+                chunk = stage.gather(frames, idxs[rows])
+            if stage.pinned:
+                count("video.staged")
             real = min(f - 1, t_len - start)  # pairs produced by this chunk
-            pending.append((video_step(chunk, im_hw, scale), real))
-            if len(pending) > 2:      # keep 2 chunks in flight
-                outs.append(fetch(pending.pop(0)))
+            stage.put(video_step(chunk, im_hw, scale), real)
+            if stage.full:
+                with span("video.fetch"):
+                    outs.append(stage.fetch())
             start += f - 1        # overlap: last frame re-used as next f_t
-        outs.extend(fetch(e) for e in pending)
+        while stage.pending:
+            with span("video.fetch"):
+                outs.append(stage.fetch())
         return tuple(np.concatenate([o[i] for o in outs], axis=0)[:t_len]
                      .swapaxes(0, 1) for i in range(4))
 
@@ -579,24 +683,20 @@ def evaluate_snippet(cfg: Config, pair_step, frames, tau: int = 1,
         frames.ensure_cache(2 * batch)
     rows = getattr(pair_step, "rows", slice(None))   # see the video driver
 
+    stage = _Staging(cfg, pair_step.device)   # see evaluate_snippet_video
     outs = []
-    pending: list = []  # dispatch-ahead queue (see evaluate_snippet_video)
-
-    def fetch(entry):
-        out, real = entry
-        return [x[:real].cpu().numpy() for x in out]
-
     for i in range(0, len(pair_idx), batch):
         chunk = pair_idx[i:i + batch]
         real = len(chunk)
         chunk += [chunk[-1]] * (batch - real)   # tail padding, trimmed
         mine = chunk[rows]
-        g = _gather_chunk(cfg, frames, [t for ab in mine for t in ab])
-        pending.append((pair_step(g.reshape(len(mine), 2, *g.shape[1:]),
-                                  im_hw, scale), real))
-        if len(pending) > 2:      # keep 2 batches in flight
-            outs.append(fetch(pending.pop(0)))
-    outs.extend(fetch(e) for e in pending)
+        g = stage.gather(frames, [t for ab in mine for t in ab])
+        stage.put(pair_step(g.reshape(len(mine), 2, *g.shape[1:]), im_hw,
+                            scale), real)
+        if stage.full:
+            outs.append(stage.fetch())
+    while stage.pending:
+        outs.append(stage.fetch())
     out = tuple(np.concatenate([o[i] for o in outs], axis=0).swapaxes(0, 1)
                 for i in range(4))
     return out if tau == 1 else (*out, eval_ts)

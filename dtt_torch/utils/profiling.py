@@ -49,8 +49,11 @@ places kernels and copies.
 Spans and counters of the port, and who reads them:
 
 * ``video.snippet`` (request), its children ``video.gather`` (a chunk's
-  frames stacked on the host) and the video step's programs' spans;
-  ``video.chunks`` counts the chunks (``dtt_torch.eval.inference``);
+  frames stacked on the host: on CUDA into a pinned staging slot),
+  ``video.fetch`` (a chunk's outputs read back: on CUDA the wait on its
+  slot's event and the copy out) and the video step's programs' spans;
+  ``video.chunks`` counts the chunks and ``video.staged`` those that went
+  through a staging slot (``dtt_torch.eval.inference``);
 * ``program.call`` (labelled with the program's name) with its children
   ``program.copy_in``, ``program.replay`` (on the CPU ``program.run``, the
   direct call of the step) and ``program.copy_out``;

@@ -63,8 +63,8 @@ def test_nothing_is_recorded_while_off(video):
 def test_snippet_spans_counters_parents_and_requests(video, t_len):
     """A snippet of T frames in chunks of f: ``video.chunks`` is
     ceil(T / (f - 1)) (f - 1 pairs a chunk, T pairs with the last frame's
-    identity pair); one gather and one call of each program a chunk, each
-    under the snippet; each program call's copy-in, run and (where it
+    identity pair); one gather, one fetch and one call of each program a
+    chunk, each under the snippet; each program call's copy-in, run and (where it
     copies) copy-out under it; linking's three spans under ``link``,
     which shares the snippet's request; self times non-negative, adding
     up to each root's duration."""
@@ -78,11 +78,13 @@ def test_snippet_spans_counters_parents_and_requests(video, t_len):
     (link,) = [i for i, n in enumerate(names) if n == "link"]
     assert rec.spans[root].parent is None and rec.spans[link].parent is None
     assert names.count("video.gather") == chunks
+    assert names.count("video.fetch") == chunks
     assert sorted(s.label for s in rec.named("program.call")) == sorted(
         PROGRAMS * chunks)
     for i, s in enumerate(rec.spans):
         parent = None if s.parent is None else rec.spans[s.parent].name
         want = {"video.gather": "video.snippet",
+                "video.fetch": "video.snippet",
                 "program.call": "video.snippet",
                 "program.copy_in": "program.call",
                 "program.run": "program.call",
